@@ -1,0 +1,171 @@
+"""Static sampler configuration (PyTorch port of ``ptmcmcsampler_tpu.config``).
+
+Everything here is host-side and constant for one sampler: shapes, cadences,
+the jump-cycle layout and the parameter groups. The dynamic quantities live
+in :mod:`ptmcmcsampler_torch.state`. All state is float32.
+
+The port covers the main path so far: the shared-select SCAM/AM/DE/ChEES
+cycle, the hottest-first sweep swap and the blocked DE pair law.
+``__post_init__`` raises on every setting the port does not run yet, naming
+the ROADMAP item that will add it, so nothing silently takes another path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+
+KIND_SCAM = "scam"
+KIND_AM = "am"
+KIND_DE = "de"
+KIND_MALA = "mala"
+KIND_HMC = "hmc"
+KIND_NUTS = "nuts"
+KIND_CHEES = "chees"
+KIND_CUSTOM = "custom"
+KIND_PRIOR = "prior_draw"
+
+PORTED_KINDS = (KIND_SCAM, KIND_AM, KIND_DE, KIND_CHEES)
+
+
+@dataclasses.dataclass(frozen=True)
+class JumpSpec:
+    """One entry of the weighted proposal cycle.
+
+    A proposal with weight ``w`` is drawn with probability ``w / sum(weights)``
+    among the active proposals; ``activate_after`` delays activation until a
+    given iteration (the DE jump enters after burn-in). The custom-jump
+    fields of the JAX package come with the custom jumps (ROADMAP A11).
+    """
+
+    name: str
+    kind: str
+    weight: float
+    activate_after: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerConfig:
+    """Constants for one sampler."""
+
+    ndim: int
+    ntemps: int
+    nchains: int
+    groups: Tuple[Tuple[int, ...], ...]
+    jumps: Tuple[JumpSpec, ...]
+    aux_jumps: Tuple[JumpSpec, ...] = ()
+
+    tskip: int = 100  # iterations between swap sweeps
+    cov_update: int = 1000  # iterations between covariance refreshes
+    burn: int = 10000  # DE activation and ChEES adaptation window
+    thin: int = 10
+    de_size: int = 10000  # DE history ring-buffer rows
+
+    jump_select: str = "shared"
+    de_pair: str = "blocked"
+    de_block: int = 8  # chains per shared DE pair
+    swap_mode: str = "sweep"
+    adapt_from: str = "cold"  # covariance data source: "cold" chain or "all"
+    adapt_ladder: bool = False
+
+    hmc_stepsize: float = 0.1  # initial ChEES step size
+    chees_max_steps: int = 256
+    chees_delta: float = 0.651
+    chees_lr: float = 0.025
+    mass_adapt: bool = False
+
+    def __post_init__(self):
+        if not (self.ndim >= 1 and self.ntemps >= 1 and self.nchains >= 1):
+            raise ValueError("ndim, ntemps and nchains must be >= 1")
+        for g in self.groups:
+            for i in g:
+                if not 0 <= i < self.ndim:
+                    raise ValueError(f"group index {i} out of range")
+        if not self.jumps:
+            raise ValueError("No jump proposals specified!")
+        if self.jump_select == "per_chain":
+            raise NotImplementedError(
+                "jump_select='per_chain' is not ported yet (ROADMAP A11)"
+            )
+        if self.jump_select != "shared":
+            raise ValueError(f"unknown jump_select {self.jump_select!r}")
+        if self.swap_mode == "deo":
+            raise NotImplementedError("swap_mode='deo' is not ported yet (ROADMAP A6)")
+        if self.swap_mode != "sweep":
+            raise ValueError(f"unknown swap_mode {self.swap_mode!r}")
+        if self.de_pair in ("rolled", "iid"):
+            raise NotImplementedError(
+                f"de_pair={self.de_pair!r} is not ported yet (ROADMAP A11)"
+            )
+        if self.de_pair != "blocked":
+            raise ValueError(f"unknown de_pair {self.de_pair!r}")
+        if self.de_block < 1:
+            raise ValueError("de_block must be >= 1")
+        if self.adapt_from not in ("cold", "all"):
+            raise ValueError(f"unknown adapt_from {self.adapt_from!r}")
+        if self.adapt_ladder:
+            raise NotImplementedError("adapt_ladder is not ported yet (ROADMAP A11)")
+        if self.aux_jumps:
+            raise NotImplementedError("auxiliary jumps are not ported yet (ROADMAP A11)")
+        for j in self.jumps:
+            if j.kind in (KIND_NUTS, KIND_HMC, KIND_MALA):
+                raise NotImplementedError(
+                    f"jump kind {j.kind!r} ({j.name}) is not ported yet "
+                    "(ROADMAP A10, with kernels B2/B3)"
+                )
+            if j.kind in (KIND_CUSTOM, KIND_PRIOR):
+                raise NotImplementedError(
+                    f"jump kind {j.kind!r} ({j.name}) is not ported yet (ROADMAP A11)"
+                )
+            if j.kind not in PORTED_KINDS:
+                raise ValueError(f"unknown jump kind {j.kind!r}")
+
+    @property
+    def njumps(self):
+        return len(self.jumps)
+
+    def jump_names(self):
+        return tuple(j.name for j in self.jumps)
+
+    def weights_and_activation(self):
+        """(weights[J], activate_after[J]) as numpy arrays."""
+        w = np.array([j.weight for j in self.jumps], dtype=np.float32)
+        act = np.array([j.activate_after for j in self.jumps], dtype=np.int32)
+        return w, act
+
+
+def build_default_jumps(
+    SCAMweight=20,
+    AMweight=20,
+    DEweight=20,
+    NUTSweight=0,
+    MALAweight=0,
+    HMCweight=0,
+    CHEESweight=0,
+    burn=10000,
+    have_grads=False,
+):
+    """Reference-default jump cycle (PTMCMCSampler.py:226-264).
+
+    Gradient jumps are only registered when gradients are available;
+    zero-weight jumps are dropped. The DE jump activates after ``burn``.
+    """
+    jumps = []
+    if have_grads:
+        if MALAweight:
+            jumps.append(JumpSpec("MALAJump", KIND_MALA, MALAweight))
+        if HMCweight:
+            jumps.append(JumpSpec("HMCJump", KIND_HMC, HMCweight))
+        if NUTSweight:
+            jumps.append(JumpSpec("NUTSJUMP", KIND_NUTS, NUTSweight))
+        if CHEESweight:
+            jumps.append(JumpSpec("ChEESHMCJump", KIND_CHEES, CHEESweight))
+    if SCAMweight:
+        jumps.append(JumpSpec("covarianceJumpProposalSCAM", KIND_SCAM, SCAMweight))
+    if AMweight:
+        jumps.append(JumpSpec("covarianceJumpProposalAM", KIND_AM, AMweight))
+    if DEweight:
+        jumps.append(JumpSpec("DEJump", KIND_DE, DEweight, activate_after=burn))
+    return tuple(jumps)

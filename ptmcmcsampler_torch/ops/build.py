@@ -1,0 +1,85 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface. It is compiled
+with ``nvcc`` for ``sm_90a`` into a shared library under
+``ptmcmcsampler_torch/_build/``, named by a hash of its source and flags, at
+first use, and loaded with ``ctypes``. No PyTorch headers are included, so a
+build takes seconds. A missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PACKAGE = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE / "csrc"
+BUILD_DIR = PACKAGE / "_build"
+SOURCES = ("chees_trajectory",)
+# --fmad=false: no contraction of a*b+c into one FMA, so a kernel rounds each
+# operation as PyTorch's one-operation-per-launch plain versions do and can
+# be held to them pointwise (FMA rounding differences grow exponentially
+# along chaotic trajectories).
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded: dict = {}
+
+
+def nvcc_path():
+    found = shutil.which("nvcc")
+    if found is None and os.access("/usr/local/cuda/bin/nvcc", os.X_OK):
+        found = "/usr/local/cuda/bin/nvcc"
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(name):
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names=SOURCES):
+    """Build every library in ``names`` that is not built yet, one ``nvcc``
+    per source, all started together. Returns ``{name: compiler output}``."""
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in todo:
+        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    logs, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode == 0:
+            os.replace(tmp, library_path(name))
+        else:
+            failed.append(name)
+    if failed:
+        raise RuntimeError(
+            "nvcc failed for " + ", ".join(failed) + ":\n"
+            + "\n".join(logs[n] for n in failed)
+        )
+    return logs
+
+
+def load(name):
+    """The ``ctypes`` handle of ``csrc/<name>.cu``, built on first use."""
+    if name not in _loaded:
+        build((name,))
+        _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return _loaded[name]

@@ -1,0 +1,133 @@
+"""ChEES-HMC: adaptive-trajectory HMC for batched chains.
+
+Every chain runs a whitened leapfrog trajectory of its own jittered length
+``ceil(u_c * tlen / eps)`` (``u ~ U[1e-3, 1)``, capped at
+``chees_max_steps``), with one step size per temperature. The MH correction
+is ``qxy = K0 - K1``, so the outer tempered accept equals the Hamiltonian
+error. During burn-in, ``log eps`` follows dual averaging toward
+``chees_delta`` and ``log tlen`` an Adam ascent on the ChEES criterion
+(Hoffman, Radul & Sountsov); after burn-in both freeze, so the kernel is a
+fixed Markov kernel. The trajectories run in
+:func:`ptmcmcsampler_torch.ops.chees.chees_trajectories`: the hand-written
+CUDA kernel on the card, its plain version on the CPU.
+
+The chees_* step-size entries are per-temperature values replicated along
+the chain axis.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.chees import chees_trajectories
+from .gradient import make_whitened_funcs
+
+# Dual-averaging constants shared with the NUTS jump (nutsjump.py:414-420).
+GAMMA = 0.05
+T0 = 10.0
+KAPPA = 0.75
+# Adam constants for the trajectory-length ascent (ChEES paper defaults).
+B1 = 0.9
+B2 = 0.999
+ADAM_EPS = 1e-8
+
+
+def make_chees(config, model):
+    forward, backward, fgw = make_whitened_funcs(model.value_grad)
+    max_steps = config.chees_max_steps
+    delta = config.chees_delta
+    lr = config.chees_lr
+    nburn = config.burn
+    eps0 = config.hmc_stepsize
+    mu0 = float(np.log(np.float32(10.0) * np.float32(eps0)))  # log(10 eps0), in f32
+
+    def core(x, betas, it, ctx, ss, r0, u):
+        """Deterministic ChEES step: ``r0 [T, D, C]`` standard-normal momenta
+        and ``u [T, C]`` jitter in ``[1e-3, 1)``. Returns ``(q, qxy, ss)``."""
+        t, _, c = x.shape
+        eps_tc = torch.where(ss["chees_eps"] > 0, ss["chees_eps"], eps0)  # [T, C]
+        tlen_tc = torch.maximum(ss["chees_tlen"], eps_tc)
+        nsteps = torch.clamp(torch.ceil(u * tlen_tc / eps_tc), 1, max_steps).to(torch.int32)
+
+        q0 = forward(ctx, x)
+        logp0, _ = fgw(ctx, q0, betas[:, None])
+        k0 = 0.5 * torch.sum(r0 * r0, dim=1)
+        z1, r1, logp1 = chees_trajectories(
+            q0, r0, betas, eps_tc.contiguous(), nsteps, ctx.chol.contiguous(), model
+        )
+
+        k1 = 0.5 * torch.sum(r1 * r1, dim=1)
+        denergy = (logp1 - k1) - (logp0 - k0)
+        denergy = torch.where(torch.isnan(denergy), float("-inf"), denergy)
+        qxy = k0 - k1
+        qxy = torch.where(torch.isnan(qxy), float("-inf"), qxy)
+        alpha = torch.clamp(torch.exp(denergy), max=1.0)  # [T, C]
+
+        in_burn = it <= nburn  # a host integer comparison
+
+        # ---- step-size dual averaging toward delta, per temperature ----
+        ncalls = ss["chees_count"][:, 0] + 1.0  # [T]
+        mean_alpha = torch.mean(alpha, dim=1)
+        mu_prev = ss["chees_mu"][:, 0]
+        mu = torch.where(mu_prev == 0.0, mu0, mu_prev)
+        eta = 1.0 / (ncalls + T0)
+        hbar = (1.0 - eta) * ss["chees_hbar"][:, 0] + eta * (delta - mean_alpha)
+        eps_burn = torch.exp(mu - torch.sqrt(ncalls) / GAMMA * hbar)
+        eta2 = ncalls ** -KAPPA
+        had_calls = ss["chees_count"][:, 0] > 0
+        epsbar_prev = torch.where(
+            had_calls, torch.clamp(ss["chees_epsbar"][:, 0], min=1e-30), eps0
+        )
+        epsbar = torch.exp(
+            (1.0 - eta2) * torch.log(epsbar_prev)
+            + eta2 * torch.log(torch.clamp(eps_burn, min=1e-30))
+        )
+        new_eps = eps_burn if in_burn else epsbar_prev  # [T]
+
+        # ---- ChEES gradient ascent on log trajectory length ----
+        q1m = z1 - torch.mean(z1, dim=2, keepdim=True)  # centred over chains
+        q0m = q0 - torch.mean(q0, dim=2, keepdim=True)
+        d1 = torch.sum(q1m * q1m, dim=1)
+        d0 = torch.sum(q0m * q0m, dim=1)
+        per_chain = u * (d1 - d0) * torch.sum(q1m * r1, dim=1)  # [T, C]
+        finite = torch.isfinite(per_chain)
+        w = torch.where(finite, alpha, 0.0)
+        per_chain = torch.where(finite, per_chain, 0.0)
+        grad_t = torch.sum(w * per_chain, dim=1) / torch.clamp(torch.sum(w, dim=1), min=1e-6)
+        m_t = B1 * ss["chees_m"][:, 0] + (1.0 - B1) * grad_t
+        v_t = B2 * ss["chees_v"][:, 0] + (1.0 - B2) * grad_t * grad_t
+        mhat = m_t / (1.0 - B1 ** ncalls)
+        vhat = v_t / (1.0 - B2 ** ncalls)
+        step = lr * mhat / (torch.sqrt(vhat) + ADAM_EPS)
+        log_tlen = torch.log(torch.clamp(tlen_tc[:, 0], min=1e-10))
+        new_tlen = torch.exp(log_tlen + step) if in_burn else torch.exp(log_tlen)
+        new_tlen = torch.minimum(torch.maximum(new_tlen, new_eps), new_eps * max_steps)
+
+        def rep(v):  # [T] -> [T, C]
+            return v[:, None].expand(t, c).contiguous()
+
+        def freeze(new, old):
+            """Adaptation moves only during burn-in; afterwards the kernel is
+            a fixed Markov kernel, so detailed balance holds exactly."""
+            return new if in_burn else old
+
+        new_ss = dict(ss)
+        new_ss["chees_eps"] = rep(freeze(new_eps, torch.where(had_calls, epsbar_prev, eps0)))
+        new_ss["chees_epsbar"] = rep(freeze(epsbar, epsbar_prev))
+        new_ss["chees_hbar"] = rep(freeze(hbar, ss["chees_hbar"][:, 0]))
+        new_ss["chees_mu"] = rep(mu)
+        new_ss["chees_count"] = rep(freeze(ncalls, ss["chees_count"][:, 0]))
+        new_ss["chees_m"] = rep(freeze(m_t, ss["chees_m"][:, 0]))
+        new_ss["chees_v"] = rep(freeze(v_t, ss["chees_v"][:, 0]))
+        new_ss["chees_tlen"] = rep(new_tlen)
+        return backward(ctx, z1), qxy, new_ss
+
+    def chees(rng, x, betas, it, ctx, ss):
+        t, d, c = x.shape
+        r0 = torch.randn((t, d, c), generator=rng, device=x.device)
+        u = torch.rand((t, c), generator=rng, device=x.device) * (1.0 - 1e-3) + 1e-3
+        return core(x, betas, it, ctx, ss, r0, u)
+
+    chees.core = core
+    return chees

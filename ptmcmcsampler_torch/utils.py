@@ -1,0 +1,35 @@
+"""Small shared numerical helpers."""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = float("-inf")
+
+
+def tempered_lnprob(lnlike, lnprior, beta):
+    """Tempered log-posterior ``beta * lnlike + lnprior``.
+
+    Two guards keep the reference's semantics (PTMCMCSampler.py:481-487):
+
+    * ``beta == 0`` (the hot chain): ``0 * -inf`` is NaN in torch as in IEEE,
+      but a ``-inf`` likelihood must stay ``-inf`` at any temperature;
+    * ``lnprior == -inf`` dominates whatever the likelihood is.
+    """
+    tempered = torch.where(torch.isneginf(lnlike), NEG_INF, beta * lnlike)
+    return torch.where(torch.isneginf(lnprior), NEG_INF, tempered + lnprior)
+
+
+def cholesky_psd(mat, jitter=1e-10):
+    """Cholesky factor of a (possibly barely-) PSD matrix with a jitter retry.
+
+    Uses ``cholesky_ex`` so that a failed factorisation yields NaNs to test
+    for instead of an exception that would need the device to report back.
+    """
+    d = mat.shape[-1]
+    eye = torch.eye(d, dtype=mat.dtype, device=mat.device)
+    scale = torch.clamp(torch.mean(torch.diagonal(mat)), min=1.0)
+    chol, info = torch.linalg.cholesky_ex(mat + jitter * scale * eye)
+    ok = (info == 0) & torch.all(torch.isfinite(chol))
+    bigger, _ = torch.linalg.cholesky_ex(mat + 1e-4 * scale * eye)
+    return torch.where(ok, chol, bigger)
