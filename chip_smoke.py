@@ -6,30 +6,44 @@ card and ``nvcc``; it imports nothing of JAX or of ``ptmcmcsampler_tpu``.
 Phases, in order; any failure exits non-zero:
 
 1. Card and build: print the card's name and power limit, build every
-   CUDA kernel from ``ptmcmcsampler_torch/csrc`` with ``nvcc`` for sm_90a.
-2. Kernel vs plain: the ChEES trajectory kernel against its plain PyTorch
-   version on the card, at the main path's shape (8 x 16384 chains, D=2):
-   * ``nsteps <= 32``: q1 and p1 within rtol = atol = 1e-4 (SHORT_TOL), and
-     equal -inf masks of logp1;
-   * ``nsteps <= 256``: the distributions of the energy error |dH| must
-     agree: two-sample Kolmogorov-Smirnov distance below KS_TOL = 0.01 and
-     -inf shares within 1e-3. Long trajectories on the stiff flank of the
-     banana ridge are chaotic, so pointwise agreement there holds only while
-     kernel and plain version round identically (the kernel is built with
-     --fmad=false for that); the run logs the pointwise error too.
-3. Main path at full width: the bench's headline configuration (8 x 16384
+   CUDA kernel from ``ptmcmcsampler_torch/csrc`` with ``nvcc`` for sm_90a,
+   one ``nvcc`` per source, all started together.
+2. Kernels vs plain, on the card at the main paths' shape (8 x 16384
+   chains, D=2), on synthetic inputs around both modes of the curved target:
+   * ChEES trajectories, ``nsteps <= 32``: q1 and p1 within rtol = atol =
+     1e-4 (SHORT_TOL), equal -inf masks of logp1; ``nsteps <= 256``: the
+     distributions of the energy error |dH| agree (two-sample
+     Kolmogorov-Smirnov distance below KS_TOL = 0.01, -inf shares within
+     1e-3). Long trajectories on the banana's stiff flank are chaotic, so
+     pointwise agreement holds only while kernel and plain version round
+     identically (the kernels are built with --fmad=false for that); the run
+     logs the pointwise error too.
+   * HMC trajectories at the path's settings (eps 0.08, nsteps in [2, 50))
+     and at eps 5.0, where about half the lanes leave the prior box (qxy
+     -inf): q1 within 1e-4, qxy within 1e-3 (HMC_QXY_TOL), equal -inf masks.
+   * NUTS trees: at depth 4, q_prop and logp_prop within 1e-4 and nalpha and
+     alive equal in every lane; at depth 10, at most a 1e-3 share
+     (NALPHA_SHARE_TOL) of lanes with another nalpha, and a KS distance of
+     logp_prop below 0.01. The run logs the pointwise error at both depths
+     and the tree sizes.
+3. Main path 1 at full width: the bench's headline configuration (8 x 16384
    chains, SCAM/AM/DE/ChEES at 10/10/10/20, tskip=5, cov_update=1000,
    de_size=2000, hmc_stepsize=0.08, 3000 burn-in + 12000 timed iterations
    in blocks of 1000) through ``build_step``/``run_block``. The ChEES kernel
    must launch once per ChEES iteration; the bench's moment gate must pass
-   on every 8th cold chain (2048 of 16384). Prints one JSON line of results.
-4. Profile: 100 more main-path iterations under ``torch.profiler``; prints
+   on every 8th cold chain (2048 of 16384). Prints one JSON line.
+4. Profile of path 1: 100 more iterations under ``torch.profiler``; prints
    one JSON line with the device-busy share and the largest device times.
-5. Kernels line: each kernel's launches on the main path, error against the
-   plain version, device time (CUDA events, after warm-up, on inputs taken
-   from the main path's final state), the time of a wrapper call, the plain
-   version's time and the bound.
-6. Last line: ``{"ok": true, "device": {...}}``.
+5. Main path 2 at full width: the bench's ``grad_mode=nuts`` cycle
+   (bench.py:163-199: SCAM/AM/DE/NUTS/HMC at 10 each, nuts_max_depth=10,
+   hmc_stepsize=0.08, hmc_nmaxsteps=50, the same cadences and lengths). The
+   NUTS and HMC kernels must launch once per NUTS and HMC iteration; the
+   moment gate must pass. Prints one JSON line, then its profile (as 4).
+6. Kernels line: each kernel's launches on its path, error against the
+   plain version, device time (CUDA events, stream held, inputs from its
+   path's final state), the time of a wrapper call, the plain version's time
+   and the bound.
+7. Last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -45,20 +59,28 @@ import torch
 SHORT_TOL = 1e-4
 KS_TOL = 0.01
 NEGINF_SHARE_TOL = 1e-3
+HMC_QXY_TOL = 1e-3
+NALPHA_SHARE_TOL = 1e-3
 
 T, C, D = 8, 16384, 2
 BURN_ITERS, TIMED_ITERS, BLOCK = 3000, 12000, 1000
 GATE_STRIDE = 8  # moment gate on cold chains 0, 8, 16, ...: 2048 of 16384
 PROFILE_ITERS = 100
+NUTS_DEPTH, HMC_EPS, HMC_NMIN, HMC_NMAX = 10, 0.08, 2, 50
+DEVICE = "cuda:0"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor f32 op/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# Per chain and call: q0, p0, q1, p1 (4 * D floats), eps, nsteps, logp1.
-BYTES_PER_CHAIN = 4 * (4 * D + 3)
-# Per leapfrog step of the curved model (csrc/chees_trajectory.cu): about 70
-# float operations plus 4 transcendental ones, counted as one each.
+# Per leapfrog step of the curved model (csrc/models.cuh): about 70 float
+# operations plus 4 transcendental ones, counted as one each.
 OPS_PER_STEP = 74
+# Per NUTS leaf: its leapfrog step, the joint and the slice tests (6), the
+# reservoir draw (3), the acceptance statistic (4) and, on average, one
+# U-turn check against a checkpoint (two D-dots and the difference: 12).
+OPS_PER_LEAF = OPS_PER_STEP + 25
+# Per NUTS doubling: the whole-trajectory U-turn check and the accept.
+OPS_PER_LEVEL = 10
 
 
 def log(msg):
@@ -102,6 +124,13 @@ def ks_distance(a, b):
     )))
 
 
+def bound(bytes_moved, ops):
+    """(bound_ms, bound_by): the larger of the two times at the card's peaks."""
+    bytes_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / F32_OPS_PER_S
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
 def trajectory_inputs(gen, dev, max_nsteps):
     """Synthetic kernel inputs at the main path's shape: positions around
     both modes of the curved target, a non-trivial mass matrix, per-rung
@@ -120,10 +149,20 @@ def trajectory_inputs(gen, dev, max_nsteps):
     return q0, p0, betas, eps.contiguous(), nsteps, chol
 
 
-def phase_kernel_vs_plain(model):
+def tree_draws(gen, dev, depth):
+    """The NUTS tree's randomness, drawn as proposals/nuts.py draws it:
+    ``expo [T, C]``, ``dirs, accu [depth, T, C]``, ``resu [2**depth-1, T, C]``."""
+    expo = torch.empty((T, C), device=dev).exponential_(generator=gen)
+    dirs = torch.where(torch.rand((depth, T, C), generator=gen, device=dev) < 0.5, -1.0, 1.0)
+    accu = torch.rand((depth, T, C), generator=gen, device=dev)
+    resu = torch.rand(((1 << depth) - 1, T, C), generator=gen, device=dev)
+    return expo, dirs, accu, resu
+
+
+def phase_chees_vs_plain(model):
     from ptmcmcsampler_torch.ops.chees import chees_trajectories, chees_trajectories_plain
 
-    dev = torch.device("cuda", 0)
+    dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     max_err = 0.0
@@ -138,14 +177,14 @@ def phase_kernel_vs_plain(model):
             err = (a - b).abs()
             max_err = max(max_err, float(err.max()))
             bad = int((err > SHORT_TOL + SHORT_TOL * b.abs()).sum())
-            log(f"nsteps<={max_nsteps} {name}: max |kernel - plain| = {float(err.max()):.3e}, "
-                f"{bad} of {a.numel()} outside rtol=atol={SHORT_TOL}")
+            log(f"ChEES nsteps<={max_nsteps} {name}: max |kernel - plain| = "
+                f"{float(err.max()):.3e}, {bad} of {a.numel()} outside rtol=atol={SHORT_TOL}")
             if max_nsteps <= 32 and bad:
-                raise SystemExit(f"kernel {name} disagrees with the plain version")
+                raise SystemExit(f"ChEES kernel {name} disagrees with the plain version")
         same_mask = torch.equal(torch.isneginf(lp1), torch.isneginf(lp1p))
-        log(f"nsteps<={max_nsteps} logp1 -inf masks equal: {same_mask}")
+        log(f"ChEES nsteps<={max_nsteps} logp1 -inf masks equal: {same_mask}")
         if max_nsteps <= 32 and not same_mask:
-            raise SystemExit("kernel logp1 -inf mask differs from the plain version")
+            raise SystemExit("ChEES kernel logp1 -inf mask differs from the plain version")
         if max_nsteps > 32:
             q0, p0, betas = args[0], args[1], args[2]
             lp0, _ = model.value_grad(args[5].T @ q0, betas[:, None])
@@ -159,11 +198,84 @@ def phase_kernel_vs_plain(model):
             fin_k, fin_p = np.isfinite(dh_k), np.isfinite(dh_p)
             ks = ks_distance(dh_k[fin_k], dh_p[fin_p])
             share = abs(fin_k.mean() - fin_p.mean())
-            log(f"nsteps<=256 |dH|: KS distance {ks:.4f}, finite share kernel "
+            log(f"ChEES nsteps<=256 |dH|: KS distance {ks:.4f}, finite share kernel "
                 f"{fin_k.mean():.5f} plain {fin_p.mean():.5f}, median |dH| kernel "
                 f"{np.median(dh_k[fin_k]):.4e} plain {np.median(dh_p[fin_p]):.4e}")
             if ks >= KS_TOL or share > NEGINF_SHARE_TOL:
-                raise SystemExit("kernel energy-error distribution differs from the plain version")
+                raise SystemExit(
+                    "ChEES kernel energy-error distribution differs from the plain version")
+    return max_err
+
+
+def phase_hmc_vs_plain(model):
+    from ptmcmcsampler_torch.ops.hmc import hmc_trajectories, hmc_trajectories_plain
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    max_err = 0.0
+    for eps in (HMC_EPS, 5.0):
+        q0, p0, betas, _, _, chol = trajectory_inputs(gen, dev, 1)
+        nsteps = torch.randint(HMC_NMIN, HMC_NMAX, (T, C), generator=gen, device=dev,
+                               dtype=torch.int32)
+        q1, qxy = hmc_trajectories(q0, p0, betas, nsteps, chol, eps, model)
+        q1p, qxyp = hmc_trajectories_plain(q0, p0, betas, nsteps, chol, eps, model)
+        torch.cuda.synchronize()
+        err_q = (q1 - q1p).abs()
+        bad_q = int((err_q > SHORT_TOL + SHORT_TOL * q1p.abs()).sum())
+        same_mask = torch.equal(torch.isneginf(qxy), torch.isneginf(qxyp))
+        fin = torch.isfinite(qxyp) & torch.isfinite(qxy)
+        err_x = (qxy[fin] - qxyp[fin]).abs()
+        bad_x = int((err_x > HMC_QXY_TOL + HMC_QXY_TOL * qxyp[fin].abs()).sum())
+        max_err = max(max_err, float(err_q.max()), float(err_x.max()))
+        log(f"HMC eps={eps}: max |q1 - plain| {float(err_q.max()):.3e} ({bad_q} outside "
+            f"{SHORT_TOL}), max |qxy - plain| {float(err_x.max()):.3e} ({bad_x} outside "
+            f"{HMC_QXY_TOL}), -inf masks equal {same_mask}, -inf share "
+            f"{float(torch.isneginf(qxy).float().mean()):.4f}, mean nsteps "
+            f"{float(nsteps.float().mean()):.2f}")
+        if bad_q or bad_x or not same_mask:
+            raise SystemExit(f"HMC kernel disagrees with the plain version at eps={eps}")
+    return max_err
+
+
+def tree_stats(nalpha, alive):
+    return {"mean_nalpha": float(nalpha.mean()), "max_nalpha": float(nalpha.max()),
+            "cap_cut_share": float(alive.mean())}
+
+
+def phase_nuts_vs_plain(model):
+    from ptmcmcsampler_torch.ops.nuts import nuts_trees, nuts_trees_plain
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2024)
+    max_err = 0.0
+    for depth in (4, NUTS_DEPTH):
+        q0, r0, betas, eps, _, chol = trajectory_inputs(gen, dev, 1)
+        args = (q0, r0, betas, eps, *tree_draws(gen, dev, depth), chol)
+        q, l0, lp, alpha, nalpha, alive = nuts_trees(*args, model)
+        t0 = time.time()
+        qp, l0p, lpp, alphap, nalphap, alivep = nuts_trees_plain(*args, model)
+        torch.cuda.synchronize()
+        differ = float((nalpha != nalphap).float().mean())
+        err_q = float((q - qp).abs().max())
+        err_lp = float((lp - lpp).abs().max())
+        err_a = float((alpha - alphap).abs().max())
+        max_err = max(max_err, err_q, err_lp)
+        ks = ks_distance(lp[torch.isfinite(lp)].cpu().numpy(),
+                         lpp[torch.isfinite(lpp)].cpu().numpy())
+        log(f"NUTS depth {depth}: max |q_prop - plain| {err_q:.3e}, |logp_prop - plain| "
+            f"{err_lp:.3e}, |alpha - plain| {err_a:.3e}, nalpha differs in {differ:.2e} of "
+            f"lanes, alive equal {torch.equal(alive, alivep)}, KS(logp_prop) {ks:.4f}, "
+            f"trees {tree_stats(nalpha, alive)}, plain took {time.time() - t0:.1f}s")
+        if depth <= 4:
+            ok = (torch.allclose(q, qp, rtol=SHORT_TOL, atol=SHORT_TOL)
+                  and torch.allclose(lp, lpp, rtol=SHORT_TOL, atol=SHORT_TOL)
+                  and torch.equal(nalpha, nalphap) and torch.equal(alive, alivep))
+        else:
+            ok = differ <= NALPHA_SHARE_TOL and ks < KS_TOL
+        if not ok:
+            raise SystemExit(f"NUTS kernel disagrees with the plain version at depth {depth}")
     return max_err
 
 
@@ -180,15 +292,31 @@ def headline_config():
     )
 
 
-def phase_main_path(model, card):
+def nuts_config():
+    """The bench's ``grad_mode=nuts`` cycle (bench.py:163-199)."""
+    from ptmcmcsampler_torch import SamplerConfig, build_default_jumps
+
+    burn = BURN_ITERS // 2
+    return SamplerConfig(
+        ndim=D, ntemps=T, nchains=C, groups=(tuple(range(D)),),
+        jumps=build_default_jumps(
+            SCAMweight=10, AMweight=10, DEweight=10, NUTSweight=10, HMCweight=10, burn=burn,
+            have_grads=True,
+        ),
+        tskip=5, cov_update=1000, burn=burn, thin=1, de_size=2000, hmc_stepsize=HMC_EPS,
+        hmc_nminsteps=HMC_NMIN, hmc_nmaxsteps=HMC_NMAX, nuts_max_depth=NUTS_DEPTH,
+    )
+
+
+def phase_main_path(model, card, path, cfg, wrappers):
+    """Run ``cfg`` at full width; ``wrappers`` maps each jump kind whose
+    kernel the path must launch once per iteration of that kind to the
+    kernel's wrapper (which counts its launches)."""
     from ptmcmcsampler_torch import build_step, init_state
-    from ptmcmcsampler_torch.config import KIND_CHEES
     from ptmcmcsampler_torch.diagnostics import moment_gate, split_rhat
     from ptmcmcsampler_torch.ladder import ladder_betas, temperature_ladder
-    from ptmcmcsampler_torch.ops.chees import chees_trajectories
 
-    dev = torch.device("cuda", 0)
-    cfg = headline_config()
+    dev = torch.device(DEVICE)
     _, run_block = build_step(cfg, model, device=dev)
     _, betas = ladder_betas(temperature_ladder(D, T))
     x0 = np.array([-0.1, -0.5])
@@ -197,29 +325,32 @@ def phase_main_path(model, card):
         cfg, 7, x0, np.eye(D), betas, model.lnlike(xs), model.lnprior(xs), device=dev
     )
 
-    chees_trajectories.launches = 0
+    for w in wrappers.values():
+        w.launches = 0
     t0 = time.time()
     for b in range(BURN_ITERS // BLOCK):
         state, out = run_block(state, BLOCK)
         torch.cuda.synchronize()
-        log(f"burn-in block {b + 1} at {time.time() - t0:.1f}s")
+        log(f"{path}: burn-in block {b + 1} at {time.time() - t0:.1f}s")
     cold = []
     t1 = time.time()
     for b in range(TIMED_ITERS // BLOCK):
         state, out = run_block(state, BLOCK)
         cold.append(out.x[:, 0, :, ::GATE_STRIDE].clone())  # [BLOCK, D, C / stride]
         torch.cuda.synchronize()
-        log(f"timed block {b + 1} at {time.time() - t1:.1f}s")
+        log(f"{path}: timed block {b + 1} at {time.time() - t1:.1f}s")
     elapsed = time.time() - t1
-    launches = chees_trajectories.launches
+    launches = {kind: w.launches for kind, w in wrappers.items()}
 
-    j_chees = [j.kind for j in cfg.jumps].index(KIND_CHEES)
-    chees_iters = int(state.counters.jump_proposed[j_chees, 0, 0])
-    log(f"ChEES kernel launches {launches}, ChEES iterations {chees_iters}")
-    if launches == 0 or launches != chees_iters:
-        raise SystemExit("the main path did not launch the ChEES kernel once per ChEES iteration")
+    kinds = [j.kind for j in cfg.jumps]
+    for kind, n in launches.items():
+        iters = int(state.counters.jump_proposed[kinds.index(kind), 0, 0])
+        log(f"{path}: {kind} kernel launches {n}, {kind} iterations {iters}")
+        if n == 0 or n != iters:
+            raise SystemExit(
+                f"path {path} did not launch the {kind} kernel once per {kind} iteration")
     if not (torch.isfinite(state.x).all() and state.x.shape == (T, D, C)):
-        raise SystemExit("main path state is not finite or has the wrong shape")
+        raise SystemExit(f"path {path}: state is not finite or has the wrong shape")
 
     chains = torch.cat(cold).permute(2, 0, 1).cpu().numpy()  # [Csub, N, D]
     target, _ = model.posterior_moments()
@@ -231,6 +362,7 @@ def phase_main_path(model, card):
     name, power = [s.strip() for s in card.split(",", 1)]
     result = {
         "phase": "main_path",
+        "path": path,
         "iters_per_sec": TIMED_ITERS / elapsed,
         "ess_per_sec": float(ess.min()) / elapsed,
         "ess_min_dim": float(ess.min()),
@@ -241,16 +373,18 @@ def phase_main_path(model, card):
         "elapsed_sec": elapsed,
         "burn_sec": t1 - t0,
         "cold_acceptance": dict(zip(cfg.jump_names(), acc)),
-        "chees_eps": state.stepsize.chees_eps[:, 0].tolist(),
-        "chees_tlen": state.stepsize.chees_tlen[:, 0].tolist(),
-        "chees_launches": launches,
+        "launches": launches,
         "card": name,
         "power_limit": power,
     }
+    return state, run_block, result, ok
+
+
+def print_result(result, ok):
     print(json.dumps(result), flush=True)
     if not ok:
-        raise SystemExit(f"moment gate failed on the main path (max z {max_z})")
-    return state, run_block, launches
+        raise SystemExit(f"moment gate failed on path {result['path']} "
+                         f"(max z {result['moments_max_z']})")
 
 
 def _device_us(event):
@@ -259,9 +393,9 @@ def _device_us(event):
     )
 
 
-def phase_profile(state, run_block, iters=PROFILE_ITERS):
+def phase_profile(state, run_block, path, iters=PROFILE_ITERS):
     """Device-busy share and the largest device times over ``iters`` more
-    main-path iterations, with the profiler on (which slows the host)."""
+    iterations of a path, with the profiler on (which slows the host)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -280,6 +414,7 @@ def phase_profile(state, run_block, iters=PROFILE_ITERS):
     top = sorted(device, key=_device_us, reverse=True)[:8]
     result = {
         "phase": "profile",
+        "path": path,
         "iters": iters,
         "wall_ms_per_iter": wall_us / 1e3 / iters,
         "device_busy_share": device_us / wall_us if device_us else "not measured",
@@ -291,8 +426,28 @@ def phase_profile(state, run_block, iters=PROFILE_ITERS):
     return state
 
 
-def phase_kernels_line(model, state, launches, max_err):
-    """Time the kernel and its plain version on inputs from the main path's
+def kernel_entry(name, replaces, launches, max_err, kernel_ms, wrapper_ms, plain_ms, bytes_moved,
+                 ops, **extra):
+    bound_ms, bound_by = bound(bytes_moved, ops)
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"ptmcmcsampler_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "wrapper_ms": wrapper_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        **extra,
+    }
+
+
+def chees_kernel_entry(model, state, launches, max_err):
+    """Time the ChEES kernel and its plain version on inputs from path 1's
     final state: the adapted step sizes and trajectory lengths, fresh
     momenta and jitter, drawn as proposals/chees.py draws them."""
     from ptmcmcsampler_torch.ops.chees import chees_trajectories, chees_trajectories_plain
@@ -315,37 +470,121 @@ def phase_kernels_line(model, state, launches, max_err):
     wrapper_ms = cuda_ms(lambda: chees_trajectories(*args), 50)
     plain_ms = cuda_ms(lambda: chees_trajectories_plain(*args), 5)
     steps = int(nsteps.sum())
-    bytes_moved = BYTES_PER_CHAIN * T * C + 4 * (T + D * D)
+    # Per chain: q0, p0, q1, p1 (4 * D floats), eps, nsteps, logp1.
+    bytes_moved = 4 * (4 * D + 3) * T * C + 4 * (T + D * D)
     ops = OPS_PER_STEP * (steps + T * C)  # + the starting gradient
-    bytes_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
-    ops_ms = 1e3 * ops / F32_OPS_PER_S
-    log(f"kernel {kernel_ms:.4f} ms, wrapper call {wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms, mean nsteps "
-        f"{steps / (T * C):.2f}, max {int(nsteps.max())}")
-    return {
-        "name": "chees_trajectory",
-        "route": "cuda",
-        "source": "ptmcmcsampler_torch/csrc/chees_trajectory.cu",
-        "replaces": "ptmcmcsampler_tpu/ops/chees_pallas.py:41",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "max_err": max_err,
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "wrapper_ms": wrapper_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
-        "mean_nsteps": steps / (T * C),
-    }
+    log(f"ChEES kernel {kernel_ms:.4f} ms, wrapper call {wrapper_ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, mean nsteps {steps / (T * C):.2f}, max {int(nsteps.max())}")
+    return kernel_entry(
+        "chees_trajectory", "ptmcmcsampler_tpu/ops/chees_pallas.py:41", launches, max_err,
+        kernel_ms, wrapper_ms, plain_ms, bytes_moved, ops,
+        mean_nsteps=steps / (T * C),
+    )
+
+
+def hmc_kernel_entry(model, state, launches, max_err):
+    """Time the HMC kernel and its plain version on inputs from path 2's
+    final state, drawn as proposals/gradient.py make_hmc draws them."""
+    from ptmcmcsampler_torch.ops.hmc import hmc_trajectories, hmc_trajectories_plain
+
+    dev = state.x.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(98)
+    chol = state.adapt.chol
+    q0 = (state.adapt.chol_inv.T @ state.x).contiguous()
+    p0 = torch.randn((T, D, C), generator=gen, device=dev)
+    nsteps = torch.randint(HMC_NMIN, HMC_NMAX, (T, C), generator=gen, device=dev,
+                           dtype=torch.int32)
+    args = (q0, p0, state.betas, nsteps, chol, HMC_EPS, model)
+
+    kernel_ms = cuda_ms(lambda: hmc_trajectories(*args), 50, hold_stream=True)
+    wrapper_ms = cuda_ms(lambda: hmc_trajectories(*args), 50)
+    plain_ms = cuda_ms(lambda: hmc_trajectories_plain(*args), 5)
+    q1, qxy = hmc_trajectories(*args)
+    # The steps these inputs need. The break test (joint1 - 1000) < joint0,
+    # kept from the reference (nutsjump.py:285-287), ends a trajectory after
+    # its first step unless that step raised the joint by 1000 or more. A
+    # chain whose end point is its one-step point (kernel and plain version
+    # agree bitwise) took one step; count its drawn nsteps for any other.
+    one_step, _ = hmc_trajectories_plain(q0, p0, state.betas, torch.ones_like(nsteps), chol,
+                                         HMC_EPS, model)
+    stopped = (q1 == one_step).all(dim=1)
+    steps = int(torch.where(stopped, 1, nsteps).sum())
+    # Per chain: q0, p0, q1 (3 * D floats), nsteps, qxy.
+    bytes_moved = 4 * (3 * D + 2) * T * C + 4 * (T + D * D)
+    ops = OPS_PER_STEP * (steps + T * C)
+    log(f"HMC kernel {kernel_ms:.4f} ms, wrapper call {wrapper_ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, mean nsteps drawn {float(nsteps.float().mean()):.2f}, taken "
+        f"{steps / (T * C):.4f}, stopped after one step {float(stopped.float().mean()):.5f}, "
+        f"-inf qxy share {float(torch.isneginf(qxy).float().mean()):.5f}")
+    return kernel_entry(
+        "hmc_trajectory", "ptmcmcsampler_tpu/ops/hmc_pallas.py:54", launches, max_err,
+        kernel_ms, wrapper_ms, plain_ms, bytes_moved, ops,
+        mean_nsteps_drawn=float(nsteps.float().mean()), mean_nsteps_taken=steps / (T * C),
+    )
+
+
+def nuts_kernel_entry(model, state, launches, max_err):
+    """Time the NUTS kernel, its randomness and its plain version on inputs
+    from path 2's final state (its adapted step sizes), drawn as
+    proposals/nuts.py draws them."""
+    from ptmcmcsampler_torch.ops.nuts import nuts_trees, nuts_trees_plain
+
+    dev = state.x.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(97)
+    chol = state.adapt.chol
+    q0 = (state.adapt.chol_inv.T @ state.x).contiguous()
+    r0 = torch.randn((T, D, C), generator=gen, device=dev)
+    eps = state.stepsize.epsilon.contiguous()
+    args = (q0, r0, state.betas, eps, *tree_draws(gen, dev, NUTS_DEPTH), chol, model)
+
+    kernel_ms = cuda_ms(lambda: nuts_trees(*args), 20, hold_stream=True)
+    wrapper_ms = cuda_ms(lambda: nuts_trees(*args), 20)
+    draw_ms = cuda_ms(lambda: tree_draws(gen, dev, NUTS_DEPTH), 20, hold_stream=True)
+    plain_ms = cuda_ms(lambda: nuts_trees_plain(*args), 2)
+    _, _, _, _, nalpha, alive = nuts_trees(*args)
+    leaves = float(nalpha.sum())
+    levels = float(torch.ceil(torch.log2(nalpha + 1.0)).sum())  # doublings a tree ran
+    # Per chain: q0, r0, q_prop (3 * D floats), beta, eps, expo and five
+    # statistics; per doubling run, dirs and accu; per leaf, one reservoir
+    # uniform.
+    bytes_moved = 4 * ((3 * D + 7) * T * C + 2 * levels + leaves) + 4 * (T + D * D)
+    ops = OPS_PER_LEAF * leaves + OPS_PER_LEVEL * levels + OPS_PER_STEP * T * C
+    stats = tree_stats(nalpha, alive)
+    log(f"NUTS kernel {kernel_ms:.4f} ms, wrapper call {wrapper_ms:.4f} ms, draws "
+        f"{draw_ms:.4f} ms, plain {plain_ms:.1f} ms, trees {stats}")
+    return kernel_entry(
+        "nuts_tree", "ptmcmcsampler_tpu/ops/nuts_pallas.py:74", launches, max_err,
+        kernel_ms, wrapper_ms, plain_ms, bytes_moved, ops, draw_ms=draw_ms, **stats,
+    )
+
+
+def nuts_path_extras(model, state):
+    """NUTS step sizes per rung, and the tree sizes of one more call at the
+    final state (made after the path's launches were read)."""
+    from ptmcmcsampler_torch.ops.nuts import nuts_trees
+
+    dev = state.x.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(96)
+    q0 = (state.adapt.chol_inv.T @ state.x).contiguous()
+    r0 = torch.randn((T, D, C), generator=gen, device=dev)
+    out = nuts_trees(q0, r0, state.betas, state.stepsize.epsilon.contiguous(),
+                     *tree_draws(gen, dev, NUTS_DEPTH), state.adapt.chol, model)
+    return {"nuts_eps": state.stepsize.epsilon.mean(1).tolist(), **tree_stats(out[4], out[5])}
 
 
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    from ptmcmcsampler_torch.config import KIND_CHEES, KIND_HMC, KIND_NUTS
     from ptmcmcsampler_torch.models import CurvedLikelihood
     from ptmcmcsampler_torch.ops import build
+    from ptmcmcsampler_torch.ops.chees import chees_trajectories
+    from ptmcmcsampler_torch.ops.hmc import hmc_trajectories
+    from ptmcmcsampler_torch.ops.nuts import nuts_trees
 
     card = card_line()
     print(card, flush=True)
@@ -358,10 +597,30 @@ def main():
         log(f"built {name} in {time.time() - t0:.1f}s:\n{text.strip()}")
 
     model = CurvedLikelihood()
-    max_err = phase_kernel_vs_plain(model)
-    state, run_block, launches = phase_main_path(model, card)
-    state = phase_profile(state, run_block)
-    kernels = [phase_kernels_line(model, state, launches, max_err)]
+    err = {
+        "chees": phase_chees_vs_plain(model),
+        "hmc": phase_hmc_vs_plain(model),
+        "nuts": phase_nuts_vs_plain(model),
+    }
+
+    state, run_block, result, ok = phase_main_path(
+        model, card, "chees", headline_config(), {KIND_CHEES: chees_trajectories})
+    result.update(chees_eps=state.stepsize.chees_eps[:, 0].tolist(),
+                  chees_tlen=state.stepsize.chees_tlen[:, 0].tolist())
+    print_result(result, ok)
+    launches = result["launches"]
+    state = phase_profile(state, run_block, "chees")
+    kernels = [chees_kernel_entry(model, state, launches[KIND_CHEES], err["chees"])]
+    del state, run_block
+
+    state, run_block, result, ok = phase_main_path(
+        model, card, "nuts", nuts_config(), {KIND_NUTS: nuts_trees, KIND_HMC: hmc_trajectories})
+    result.update(nuts_path_extras(model, state))
+    print_result(result, ok)
+    launches = result["launches"]
+    state = phase_profile(state, run_block, "nuts")
+    kernels.append(nuts_kernel_entry(model, state, launches[KIND_NUTS], err["nuts"]))
+    kernels.append(hmc_kernel_entry(model, state, launches[KIND_HMC], err["hmc"]))
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,16 +4,19 @@ Everything here is host-side and constant for one sampler: shapes, cadences,
 the jump-cycle layout and the parameter groups. The dynamic quantities live
 in :mod:`ptmcmcsampler_torch.state`. All state is float32.
 
-The port covers the main path so far: the shared-select SCAM/AM/DE/ChEES
-cycle, the hottest-first sweep swap and the blocked DE pair law.
-``__post_init__`` raises on every setting the port does not run yet, naming
-the ROADMAP item that will add it, so nothing silently takes another path.
+The port covers the shared-select cycle of SCAM/AM/DE and the gradient
+jumps ChEES, NUTS, HMC and MALA, the hottest-first sweep swap and the
+blocked DE pair law. ``__post_init__`` raises on every setting the port does
+not run yet, naming the ROADMAP item that will add it, so nothing silently
+takes another path. The JAX package's TPU dispatch knobs (``use_pallas``,
+``nuts_impl``, ``pallas_nuts_block_n``, ``nuts_pass1_depth``) choose among
+TPU code paths with the same results and have no counterpart here.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -27,7 +30,11 @@ KIND_CHEES = "chees"
 KIND_CUSTOM = "custom"
 KIND_PRIOR = "prior_draw"
 
-PORTED_KINDS = (KIND_SCAM, KIND_AM, KIND_DE, KIND_CHEES)
+PORTED_KINDS = (KIND_SCAM, KIND_AM, KIND_DE, KIND_CHEES, KIND_NUTS, KIND_HMC, KIND_MALA)
+
+#: Deepest NUTS tree the CUDA tree kernel builds (2**10 - 1 = 1023 leaves),
+#: as the JAX package's fused tree kernel.
+NUTS_MAX_KERNEL_DEPTH = 10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +77,14 @@ class SamplerConfig:
     adapt_from: str = "cold"  # covariance data source: "cold" chain or "all"
     adapt_ladder: bool = False
 
-    hmc_stepsize: float = 0.1  # initial ChEES step size
+    hmc_stepsize: float = 0.1  # HMC step size; initial ChEES step size
+    hmc_nminsteps: int = 2  # HMC trajectory length drawn from [nmin, nmax)
+    hmc_nmaxsteps: int = 300
+    nuts_delta: float = 0.6  # dual-averaging target (nutsjump.py:410)
+    nuts_max_depth: int = 10
+    nuts_force_epsilon: Optional[float] = None
+    nuts_force_trajlen: Optional[int] = None
+    nuts_trajectory: bool = False  # NUTS trajectory capture
     chees_max_steps: int = 256
     chees_delta: float = 0.651
     chees_lr: float = 0.025
@@ -109,12 +123,18 @@ class SamplerConfig:
             raise NotImplementedError("adapt_ladder is not ported yet (ROADMAP A11)")
         if self.aux_jumps:
             raise NotImplementedError("auxiliary jumps are not ported yet (ROADMAP A11)")
+        if self.nuts_max_depth > NUTS_MAX_KERNEL_DEPTH:
+            raise NotImplementedError(
+                f"nuts_max_depth={self.nuts_max_depth} > {NUTS_MAX_KERNEL_DEPTH} "
+                "(the per-chain NUTS tree) is not ported yet (ROADMAP A11)"
+            )
+        if self.nuts_max_depth < 1:
+            raise ValueError("nuts_max_depth must be >= 1")
+        if self.nuts_force_trajlen is not None:
+            raise NotImplementedError("nuts_force_trajlen is not ported yet (ROADMAP A11)")
+        if self.nuts_trajectory:
+            raise NotImplementedError("NUTS trajectory capture is not ported yet (ROADMAP A11)")
         for j in self.jumps:
-            if j.kind in (KIND_NUTS, KIND_HMC, KIND_MALA):
-                raise NotImplementedError(
-                    f"jump kind {j.kind!r} ({j.name}) is not ported yet "
-                    "(ROADMAP A10, with kernels B2/B3)"
-                )
             if j.kind in (KIND_CUSTOM, KIND_PRIOR):
                 raise NotImplementedError(
                     f"jump kind {j.kind!r} ({j.name}) is not ported yet (ROADMAP A11)"

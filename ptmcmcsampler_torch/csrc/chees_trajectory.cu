@@ -16,7 +16,8 @@
 // parameter; q, p, the gradient and chol live in registers. Each thread
 // loops to its own nsteps and computes its starting logp and gradient
 // itself, as the Pallas kernel does. The model is a device functor giving
-// the tempered value and gradient (beta*ll + lp, beta*grad ll).
+// the tempered value and gradient (beta*ll + lp, beta*grad ll), from
+// models.cuh.
 //
 // What bounds it on an H100. At the main path's shape (N = 8 * 16384 =
 // 131072 chains, D = 2) the kernel reads q0, p0, eps, nsteps (24 bytes a
@@ -38,66 +39,12 @@
 // order one within tens of steps.
 
 #include <cuda_runtime.h>
-#include <math.h>
+
+#include "models.cuh"
 
 namespace {
 
-// The 2-D curved (banana) likelihood with the open box prior (-10, 10)^2,
-// in the operation order of ptmcmcsampler_torch/models/examples.py.
-struct CurvedLikelihood {
-  static constexpr int D = 2;
-
-  __device__ __forceinline__ static float value_grad(const float* x, float beta,
-                                                     float* g) {
-    const float x0 = x[0];
-    const float y = x[1];
-    const float xx = x0 * x0;
-    const float s = 9.0f + 4.0f * xx + 9.0f * y;
-    const float e0 = -xx - s * s;
-    const float ym2 = y - 2.0f;
-    const float e1 = -8.0f * xx - 8.0f * (ym2 * ym2);
-    const float a = e0;
-    const float b = -0.693147182f + e1;  // log(0.5) + e1
-    const float delta = a - b;
-    const float ll = isnan(delta) ? a + b
-                                  : fmaxf(a, b) + log1pf(expf(-fabsf(delta)));
-    const float w0 = expf(a - ll);
-    const float w1 = expf(b - ll);
-    const float gx = w0 * (-2.0f * x0 - 16.0f * (x0 * s)) + w1 * (-16.0f * x0);
-    const float gy = w0 * (-18.0f * s) + w1 * (-16.0f * ym2);
-    const bool inside = x0 > -10.0f && x0 < 10.0f && y > -10.0f && y < 10.0f;
-    const float lp = inside ? 0.0f : -INFINITY;
-    g[0] = beta * gx;
-    g[1] = beta * gy;
-    return beta * ll + lp;
-  }
-};
-
-// Tempered logp and whitened gradient at whitened position q.
-template <class Model>
-__device__ __forceinline__ float whitened_value_grad(const float (&chol)[Model::D][Model::D],
-                                                     const float (&q)[Model::D], float beta,
-                                                     float (&gw)[Model::D]) {
-  constexpr int D = Model::D;
-  float x[D];
-  float g[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) {  // x = chol^T q
-    float acc = 0.0f;
-#pragma unroll
-    for (int k = 0; k < D; ++k) acc += chol[k][i] * q[k];
-    x[i] = acc;
-  }
-  const float logp = Model::value_grad(x, beta, g);
-#pragma unroll
-  for (int i = 0; i < D; ++i) {  // gw = chol g
-    float acc = 0.0f;
-#pragma unroll
-    for (int k = 0; k < D; ++k) acc += chol[i][k] * g[k];
-    gw[i] = acc;
-  }
-  return logp;
-}
+using ptmc::whitened_value_grad;
 
 template <class Model>
 __global__ void __launch_bounds__(256)
@@ -114,10 +61,7 @@ chees_trajectory_kernel(const float* __restrict__ q0, const float* __restrict__ 
   const long long base = (long long)t * D * C + c;
 
   float chol[D][D];
-#pragma unroll
-  for (int i = 0; i < D; ++i)
-#pragma unroll
-    for (int k = 0; k < D; ++k) chol[i][k] = __ldg(chol_in + i * D + k);
+  ptmc::load_chol<D>(chol_in, chol);
 
   float q[D], p[D], g[D];
 #pragma unroll
@@ -172,6 +116,6 @@ extern "C" int chees_trajectory_curved(const float* q0, const float* p0, const f
                                        const float* eps, const int* nsteps,
                                        const float* chol, float* q1, float* p1,
                                        float* logp1, int T, int C, void* stream) {
-  return launch<CurvedLikelihood>(q0, p0, beta, eps, nsteps, chol, q1, p1, logp1, T, C,
+  return launch<ptmc::CurvedLikelihood>(q0, p0, beta, eps, nsteps, chol, q1, p1, logp1, T, C,
                                   stream);
 }

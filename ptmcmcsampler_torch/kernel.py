@@ -81,9 +81,9 @@ def build_step(config: SamplerConfig, model, device="cuda"):
     ``run_block(state, nrows) -> (state, BlockOutput)``.
 
     ``model`` gives batched ``lnlike(x[..., D, C])``, ``lnprior`` and, for
-    ChEES, ``value_grad(x, beta)`` and a ``cuda_functor``. ``device`` is
-    where the step runs, the card unless the caller asks for the CPU; the
-    state must live there.
+    the gradient jumps, ``value_grad(x, beta)`` and a ``cuda_functor``.
+    ``device`` is where the step runs, the card unless the caller asks for
+    the CPU; the state must live there.
     """
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:

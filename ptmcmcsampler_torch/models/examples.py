@@ -4,8 +4,8 @@
 reference's examples/curved_likelihood.ipynb, the main path's workload. Its
 gradient is written out in closed form: it is the same function, in the same
 operation order, as the device functor ``CurvedLikelihood`` in
-``ptmcmcsampler_torch/csrc/chees_trajectory.cu``, which the ChEES trajectory
-kernel calls. ``cuda_functor`` names that functor; a model without one cannot
+``ptmcmcsampler_torch/csrc/models.cuh``, which the trajectory and tree
+kernels call. ``cuda_functor`` names that functor; a model without one cannot
 run the kernel.
 """
 

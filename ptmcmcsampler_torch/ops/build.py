@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface. It is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library under
-``ptmcmcsampler_torch/_build/``, named by a hash of its source and flags, at
-first use, and loaded with ``ctypes``. No PyTorch headers are included, so a
-build takes seconds. A missing ``nvcc`` or a failed build raises.
+``ptmcmcsampler_torch/_build/``, named by a hash of its source, of every
+header it includes from ``csrc/`` (``models.cuh``, shared by all kernels)
+and of the flags, at first use, and loaded with ``ctypes``. No PyTorch
+headers are included, so a build takes seconds. A missing ``nvcc`` or a
+failed build raises.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -19,7 +22,7 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-SOURCES = ("chees_trajectory",)
+SOURCES = ("chees_trajectory", "hmc_trajectory", "nuts_tree")
 # --fmad=false: no contraction of a*b+c into one FMA, so a kernel rounds each
 # operation as PyTorch's one-operation-per-launch plain versions do and can
 # be held to them pointwise (FMA rounding differences grow exponentially
@@ -41,10 +44,29 @@ def nvcc_path():
     return found
 
 
-def library_path(name):
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def _inputs(path, csrc, seen):
+    """``path`` and, recursively, every header it includes from ``csrc``."""
+    if path in seen:
+        return
+    seen.append(path)
+    for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+        header = csrc / inc.decode()
+        if header.exists():
+            _inputs(header, csrc, seen)
+
+
+def library_path(name, csrc=CSRC):
+    """Where the library of ``csrc/<name>.cu`` is built: named by a hash of
+    the source, the headers it includes and the flags."""
+    files = []
+    _inputs(csrc / f"{name}.cu", csrc, files)
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in files:
+        digest.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES):

@@ -1,0 +1,174 @@
+"""NUTS tree kernel: wrapper, plain version and binding.
+
+``nuts_trees`` builds, for every chain of the ``[T, C]`` batch, one
+slice-sampling NUTS tree (Hoffman & Gelman Algorithm 6) in whitened
+coordinates to at most ``max_depth <= 10`` doublings, from randomness drawn
+by the caller, and returns the proposal and the tree's statistics. It is the
+port of ``ptmcmcsampler_tpu/ops/nuts_pallas.py::_nuts_kernel``; the
+algorithm is written out in ``csrc/nuts_tree.cu``.
+
+* On a CUDA tensor the wrapper launches the hand-written kernel (one thread
+  per chain, each running its own tree) or raises.
+* On a CPU tensor it runs ``nuts_trees_plain``: the same function as masked
+  PyTorch steps over levels and leaves, with the kernel's operation order.
+  The tests hold it to the JAX package's interpreted Pallas kernel, and
+  ``chip_smoke.py`` holds the kernel to it on the card.
+
+``nuts_trees.launches`` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..config import NUTS_MAX_KERNEL_DEPTH
+from . import common
+
+
+def nuts_trees_plain(q0, r0, beta, eps, expo, dirs, accu, resu, chol, model):
+    """Plain PyTorch version of the kernel (same arguments and results).
+
+    Lanes are masked where their tree or subtree has stopped. The loops stop
+    early once every lane has stopped, which reads the device: it is a
+    version for tests, never on the sampler's path on the card.
+    """
+    fgw = common.whitened(model, chol, beta[:, None])
+    logp0, g0 = fgw(q0)
+    joint0 = common.log_hamiltonian(logp0, r0)
+    logu = joint0 - expo
+    zm = zp = z_prop = q0
+    rm = rp = r0
+    gm = gp = g0
+    logp_prop = logp0
+    ntot = torch.ones_like(logp0)
+    alpha = torch.zeros_like(logp0)
+    nalpha = torch.zeros_like(logp0)
+    alive = eps > 0
+
+    for j in range(dirs.shape[0]):
+        if not bool(alive.any()):
+            break
+        v = dirs[j]
+        vneg = v < 0
+        vd = v[:, None, :]
+        ve = vd * eps[:, None, :]
+        hve = 0.5 * ve
+        vneg_d = vneg[:, None, :]
+        z = torch.where(vneg_d, zm, zp)
+        r = torch.where(vneg_d, rm, rp)
+        g = torch.where(vneg_d, gm, gp)
+        zps = z
+        lps = torch.full_like(logp0, float("-inf"))
+        n_sub = torch.zeros_like(logp0)
+        active = alive
+        # Checkpoints (z, r) by stack row. The top follows the leaf index
+        # alone, so it is a host integer; a row is read only by lanes that
+        # were active when it was pushed, so the pushes need no mask.
+        stack = [None] * (dirs.shape[0] + 1)
+        top = 0
+        for k in range(1 << j):
+            if not bool(active.any()):
+                break
+            rh = r + hve * g
+            z1 = z + ve * rh
+            logp1, g1 = fgw(z1)
+            r1 = rh + hve * g1
+            joint = common.log_hamiltonian(logp1, r1)
+            valid = active & (logu < joint)
+            diverged = (logu - 1000.0) >= joint
+
+            n_sub = torch.where(valid, n_sub + 1.0, n_sub)
+            take = valid & (resu[(1 << j) - 1 + k] < 1.0 / torch.clamp(n_sub, min=1.0))
+            zps = torch.where(take[:, None, :], z1, zps)
+            lps = torch.where(take, logp1, lps)
+            alpha = torch.where(
+                active, alpha + torch.clamp(torch.exp(joint - joint0), max=1.0), alpha
+            )
+            nalpha = torch.where(active, nalpha + 1.0, nalpha)
+
+            turning = torch.zeros_like(active)
+            if k % 2 == 0:
+                stack[top] = (z1, r1)
+                top += 1
+            else:
+                t_ones = ((k + 1) & -(k + 1)).bit_length() - 1
+                for i in range(top - t_ones, top):
+                    sz, sr = stack[i]
+                    dzv = vd * (z1 - sz)
+                    cont = (common.rdot(dzv, sr) >= 0) & (common.rdot(dzv, r1) >= 0)
+                    turning = turning | ~cont
+                top -= t_ones - 1
+
+            active_d = active[:, None, :]
+            z = torch.where(active_d, z1, z)
+            r = torch.where(active_d, r1, r)
+            g = torch.where(active_d, g1, g)
+            active = active & ~diverged & ~turning
+
+        upd_m = (alive & vneg)[:, None, :]
+        upd_p = (alive & ~vneg)[:, None, :]
+        zm, rm, gm = (torch.where(upd_m, a, b) for a, b in ((z, zm), (r, rm), (g, gm)))
+        zp, rp, gp = (torch.where(upd_p, a, b) for a, b in ((z, zp), (r, rp), (g, gp)))
+        accept = active & (accu[j] < n_sub / torch.clamp(ntot, min=1.0))
+        z_prop = torch.where(accept[:, None, :], zps, z_prop)
+        logp_prop = torch.where(accept, lps, logp_prop)
+        ntot = ntot + n_sub
+        dz = zp - zm
+        alive = alive & active & (common.rdot(dz, rm) >= 0) & (common.rdot(dz, rp) >= 0)
+
+    return z_prop, logp0, logp_prop, alpha, nalpha, alive.to(logp0.dtype)
+
+
+def nuts_trees(q0, r0, beta, eps, expo, dirs, accu, resu, chol, model):
+    """One NUTS tree per chain, from pre-drawn randomness.
+
+    Args:
+      q0, r0: ``[T, D, C]`` f32 whitened positions and momenta.
+      beta:   ``[T]`` f32 inverse temperatures.
+      eps:    ``[T, C]`` f32 step sizes; a lane with ``eps <= 0`` stays put.
+      expo:   ``[T, C]`` f32 Exp(1) slice draws.
+      dirs:   ``[depth, T, C]`` f32 doubling directions, +-1.
+      accu:   ``[depth, T, C]`` f32 uniforms of the across-doubling accept.
+      resu:   ``[2**depth - 1, T, C]`` f32 reservoir uniforms; level j reads
+              rows ``[2**j - 1, 2**(j+1) - 1)``.
+      chol:   ``[D, D]`` f32 Cholesky factor of the mass-matrix inverse.
+      model:  gives ``value_grad`` (plain version) and ``cuda_functor``.
+    Returns:
+      ``(q_prop [T, D, C], logp0, logp_prop, alpha, nalpha, alive)``, the
+      last five ``[T, C]`` f32; ``alive`` is 1 where the depth cap cut the
+      tree.
+    """
+    depth = dirs.shape[0]
+    if not 1 <= depth <= NUTS_MAX_KERNEL_DEPTH:
+        raise ValueError(f"nuts_trees: depth {depth} outside [1, {NUTS_MAX_KERNEL_DEPTH}]")
+    if common.check_device("nuts_trees", q0):
+        return nuts_trees_plain(q0, r0, beta, eps, expo, dirs, accu, resu, chol, model)
+    t, d, c = q0.shape
+    functor = common.cuda_functor("NUTS tree", model, d)
+    f32 = torch.float32
+    common.check_args("nuts_trees", q0.device, {
+        "q0": (q0, (t, d, c), f32), "r0": (r0, (t, d, c), f32),
+        "beta": (beta, (t,), f32), "eps": (eps, (t, c), f32), "expo": (expo, (t, c), f32),
+        "dirs": (dirs, (depth, t, c), f32), "accu": (accu, (depth, t, c), f32),
+        "resu": (resu, ((1 << depth) - 1, t, c), f32), "chol": (chol, (d, d), f32),
+    })
+    if t * c >= 2**31:
+        raise ValueError("nuts_trees: more than 2**31 - 1 chains")
+    q_prop = torch.empty_like(q0)
+    stats = torch.empty((5, t, c), dtype=f32, device=q0.device)
+    fn = common.entry(
+        "nuts_tree", f"nuts_tree_{functor}",
+        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    )
+    ins = (q0, r0, beta, eps, expo, dirs, accu, resu, chol, q_prop)
+    common.launch(
+        "nuts_tree", fn, q0.device, *(a.data_ptr() for a in ins),
+        *(stats[i].data_ptr() for i in range(5)), t, c, depth,
+    )
+    nuts_trees.launches += 1
+    return (q_prop, *stats.unbind(0))
+
+
+nuts_trees.launches = 0

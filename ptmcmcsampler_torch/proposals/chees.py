@@ -22,11 +22,7 @@ import torch
 
 from ..ops.chees import chees_trajectories
 from .gradient import make_whitened_funcs
-
-# Dual-averaging constants shared with the NUTS jump (nutsjump.py:414-420).
-GAMMA = 0.05
-T0 = 10.0
-KAPPA = 0.75
+from .nuts import GAMMA, KAPPA, T0  # dual averaging, shared with NUTS
 # Adam constants for the trajectory-length ascent (ChEES paper defaults).
 B1 = 0.9
 B2 = 0.999

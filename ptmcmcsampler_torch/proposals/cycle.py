@@ -14,8 +14,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import KIND_AM, KIND_CHEES, KIND_DE, KIND_SCAM, SamplerConfig
-from . import am, chees, de
+from ..config import (
+    KIND_AM,
+    KIND_CHEES,
+    KIND_DE,
+    KIND_HMC,
+    KIND_MALA,
+    KIND_NUTS,
+    KIND_SCAM,
+    SamplerConfig,
+)
+from . import am, chees, de, gradient, nuts
 
 
 def build_jump_branches(config: SamplerConfig, model, device):
@@ -26,6 +35,9 @@ def build_jump_branches(config: SamplerConfig, model, device):
         KIND_AM: lambda: am.make_am(config, device),
         KIND_DE: lambda: de.make_de_blocked(config, device),
         KIND_CHEES: lambda: chees.make_chees(config, model),
+        KIND_NUTS: lambda: nuts.make_nuts(config, model),
+        KIND_HMC: lambda: gradient.make_hmc(config, model),
+        KIND_MALA: lambda: gradient.make_mala(config, model),
     }
     return [makers[spec.kind]() for spec in config.jumps]
 

@@ -59,9 +59,9 @@ SS_FIELDS = (
 
 @dataclasses.dataclass
 class StepSizeState:
-    """Step-size adaptation, [T, C] each. The NUTS fields are carried for
-    checkpoint compatibility; the chees_* fields are per-temperature values
-    replicated along C."""
+    """Step-size adaptation, [T, C] each: the NUTS jump's per-chain dual
+    averaging (epsilon <= 0 until its first call sets it) and the ChEES
+    jump's per-temperature values, replicated along C."""
 
     epsilon: torch.Tensor
     epsilonbar: torch.Tensor

@@ -153,7 +153,9 @@ def test_default_jumps_and_weights_match():
         (dict(swap_mode="deo"), "A6"),
         (dict(de_pair="rolled"), "A11"),
         (dict(adapt_ladder=True), "A11"),
-        (dict(jumps=t_config.build_default_jumps(NUTSweight=10, have_grads=True)), "A10"),
+        (dict(nuts_max_depth=11), "A11"),
+        (dict(nuts_trajectory=True), "A11"),
+        (dict(nuts_force_trajlen=5), "A11"),
     ],
 )
 def test_config_raises_on_unported(kw, item):
@@ -162,3 +164,12 @@ def test_config_raises_on_unported(kw, item):
     base.update(kw)
     with pytest.raises(NotImplementedError, match=item):
         t_config.SamplerConfig(**base)
+
+
+def test_config_builds_the_gradient_cycle():
+    jumps = t_config.build_default_jumps(SCAMweight=10, AMweight=10, DEweight=10, NUTSweight=10,
+                                         HMCweight=10, MALAweight=10, have_grads=True)
+    cfg = t_config.SamplerConfig(ndim=2, ntemps=2, nchains=4, groups=((0, 1),), jumps=jumps,
+                                 nuts_max_depth=10)
+    assert [j.kind for j in cfg.jumps] == ["mala", "hmc", "nuts", "scam", "am", "de"]
+    assert (cfg.hmc_nminsteps, cfg.hmc_nmaxsteps, cfg.nuts_delta) == (2, 300, 0.6)

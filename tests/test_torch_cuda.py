@@ -1,20 +1,26 @@
-"""The port on a CUDA card: the ChEES kernel against its plain version, the
-wrapper's refusals, and the main path's launches.
+"""The port on a CUDA card: each kernel against its plain version, the
+wrappers' refusals, and the main paths' launches; plus the kernel build's
+cache key, which needs no card.
 
-Tests that need a card take the ``cuda`` fixture, which skips them where
-there is none. This file imports no JAX, so on a machine with a card and
-without JAX it runs alone with
+Tests that need a card carry the ``cuda`` marker and take the ``cuda``
+fixture, which skips them where there is none. This file imports no JAX, so
+on a machine with a card and without JAX it runs alone with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
+
+import shutil
 
 import numpy as np
 import pytest
 import torch
 
 from ptmcmcsampler_torch import SamplerConfig, build_default_jumps, build_step, init_state
-from ptmcmcsampler_torch.config import KIND_CHEES
+from ptmcmcsampler_torch.config import KIND_CHEES, KIND_HMC, KIND_NUTS
 from ptmcmcsampler_torch.models import CurvedLikelihood
+from ptmcmcsampler_torch.ops import build
 from ptmcmcsampler_torch.ops.chees import chees_trajectories, chees_trajectories_plain
+from ptmcmcsampler_torch.ops.hmc import hmc_trajectories, hmc_trajectories_plain
+from ptmcmcsampler_torch.ops.nuts import nuts_trees, nuts_trees_plain
 
 torch.set_num_threads(2)
 
@@ -41,6 +47,19 @@ def _inputs(dev, t=2, c=1000, max_nsteps=16, seed=0):
     return q0, p0, betas, eps, nsteps, chol
 
 
+def _tree_inputs(dev, depth, t=2, c=1000, seed=0):
+    q0, r0, betas, _, _, chol = _inputs(dev, t, c, seed=seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    eps = torch.full((t, c), 0.15, device=dev)
+    expo = torch.empty((t, c), device=dev).exponential_(generator=gen)
+    dirs = torch.where(torch.rand((depth, t, c), generator=gen, device=dev) < 0.5, -1.0, 1.0)
+    accu = torch.rand((depth, t, c), generator=gen, device=dev)
+    resu = torch.rand(((1 << depth) - 1, t, c), generator=gen, device=dev)
+    return q0, r0, betas, eps, expo, dirs, accu, resu, chol
+
+
+@pytest.mark.cuda
 def test_kernel_matches_plain(cuda):
     args = _inputs(cuda)
     before = chees_trajectories.launches
@@ -52,34 +71,117 @@ def test_kernel_matches_plain(cuda):
     assert torch.equal(torch.isneginf(lp1), torch.isneginf(lp1p))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps", [0.08, 5.0])
+def test_hmc_kernel_matches_plain(cuda, eps):
+    q0, p0, betas, _, nsteps, chol = _inputs(cuda, max_nsteps=49)
+    before = hmc_trajectories.launches
+    q1, qxy = hmc_trajectories(q0, p0, betas, nsteps, chol, eps, CurvedLikelihood())
+    assert hmc_trajectories.launches == before + 1
+    q1p, qxyp = hmc_trajectories_plain(q0, p0, betas, nsteps, chol, eps, CurvedLikelihood())
+    torch.testing.assert_close(q1, q1p, rtol=1e-4, atol=1e-4)
+    assert torch.equal(torch.isneginf(qxy), torch.isneginf(qxyp))
+    fin = torch.isfinite(qxyp)
+    torch.testing.assert_close(qxy[fin], qxyp[fin], rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [4, 10])
+def test_nuts_kernel_matches_plain(cuda, depth):
+    args = _tree_inputs(cuda, depth)
+    before = nuts_trees.launches
+    out = nuts_trees(*args, CurvedLikelihood())
+    assert nuts_trees.launches == before + 1
+    ref = nuts_trees_plain(*args, CurvedLikelihood())
+    q, l0, lp, alpha, nalpha, alive = out
+    qp, l0p, lpp, alphap, nalphap, alivep = ref
+    assert (nalpha != nalphap).float().mean() <= 1e-3
+    same = nalpha == nalphap
+    torch.testing.assert_close(q.movedim(1, 2)[same], qp.movedim(1, 2)[same],
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(l0, l0p, rtol=0, atol=0)
+    torch.testing.assert_close(lp[same], lpp[same], rtol=1e-4, atol=1e-4)
+    if depth <= 4:
+        assert torch.equal(nalpha, nalphap) and torch.equal(alive, alivep)
+
+
+@pytest.mark.cuda
 def test_wrapper_raises_for_model_without_functor(cuda):
     class NoFunctor(CurvedLikelihood):
         cuda_functor = None
 
+    q0, p0, betas, eps, nsteps, chol = _inputs(cuda)
     with pytest.raises(NotImplementedError, match="NoFunctor"):
-        chees_trajectories(*_inputs(cuda), NoFunctor())
+        chees_trajectories(q0, p0, betas, eps, nsteps, chol, NoFunctor())
+    with pytest.raises(NotImplementedError, match="NoFunctor"):
+        hmc_trajectories(q0, p0, betas, nsteps, chol, 0.1, NoFunctor())
+    with pytest.raises(NotImplementedError, match="NoFunctor"):
+        nuts_trees(*_tree_inputs(cuda, 3), NoFunctor())
 
 
+@pytest.mark.cuda
 def test_wrapper_rejects_bad_layout(cuda):
     q0, p0, betas, eps, nsteps, chol = _inputs(cuda)
     with pytest.raises(ValueError, match="contiguous"):
         chees_trajectories(q0, p0, betas, eps, nsteps, chol.T, CurvedLikelihood())
     with pytest.raises(ValueError, match="nsteps"):
         chees_trajectories(q0, p0, betas, eps, nsteps.long(), chol, CurvedLikelihood())
+    with pytest.raises(ValueError, match="nsteps"):
+        hmc_trajectories(q0, p0, betas, nsteps.long(), chol, 0.1, CurvedLikelihood())
+    with pytest.raises(ValueError, match="contiguous"):
+        hmc_trajectories(q0, p0, betas, nsteps, chol.T, 0.1, CurvedLikelihood())
+    tree = list(_tree_inputs(cuda, 3))
+    tree[7] = tree[7][:-1]  # too few reservoir rows for depth 3
+    with pytest.raises(ValueError, match="resu"):
+        nuts_trees(*tree, CurvedLikelihood())
+    tree = list(_tree_inputs(cuda, 3))
+    tree[3] = tree[3].double()
+    with pytest.raises(ValueError, match="eps"):
+        nuts_trees(*tree, CurvedLikelihood())
 
 
 def test_wrapper_rejects_other_devices():
     meta = [torch.empty((2, 2, 4), device="meta")] * 2
     with pytest.raises(ValueError, match="unsupported device"):
         chees_trajectories(*meta, None, None, None, None, CurvedLikelihood())
+    with pytest.raises(ValueError, match="unsupported device"):
+        hmc_trajectories(*meta, None, None, None, 0.1, CurvedLikelihood())
+    dirs = torch.empty((3, 2, 4), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        nuts_trees(*meta, None, None, None, dirs, dirs, None, None, CurvedLikelihood())
 
 
-def _small_config():
+def test_nuts_wrapper_rejects_depth_beyond_the_kernel():
+    t, c = 1, 4
+    dirs = torch.ones((11, t, c))
+    with pytest.raises(ValueError, match="depth 11"):
+        nuts_trees(torch.zeros((t, 2, c)), torch.zeros((t, 2, c)), torch.ones(t),
+                   torch.ones((t, c)), torch.ones((t, c)), dirs, dirs,
+                   torch.ones(((1 << 11) - 1, t, c)), torch.eye(2), CurvedLikelihood())
+
+
+@pytest.mark.parametrize("name", build.SOURCES)
+def test_build_key_follows_included_header(tmp_path, name):
+    """Editing the shared model header renames every library that includes
+    it, so a stale build is never loaded."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    before = build.library_path(name, csrc)
+    assert before == build.library_path(name, csrc)
+    assert before == build.library_path(name)  # the copy hashes as the original
+    header = csrc / "models.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert build.library_path(name, csrc) != before
+
+
+def _small_config(**jumps):
+    jumps = jumps or dict(CHEESweight=20)
     return SamplerConfig(
         ndim=2, ntemps=2, nchains=64, groups=((0, 1),),
-        jumps=build_default_jumps(SCAMweight=10, AMweight=10, DEweight=10, CHEESweight=20,
-                                  burn=20, have_grads=True),
+        jumps=build_default_jumps(SCAMweight=10, AMweight=10, DEweight=10, burn=20,
+                                  have_grads=True, **jumps),
         tskip=5, cov_update=25, burn=20, thin=1, de_size=100, hmc_stepsize=0.08,
+        hmc_nmaxsteps=50, nuts_max_depth=10,
     )
 
 
@@ -97,16 +199,35 @@ def test_build_step_defaults_to_the_card():
     assert step(state).x.is_cuda
 
 
+def _run_small(cfg, dev, iters):
+    model = CurvedLikelihood()
+    _, run_block = build_step(cfg, model, device=dev)
+    x0 = np.array([-0.1, -0.5])
+    xs = torch.tensor(x0, dtype=torch.float32, device=dev)[None, :, None].expand(2, 2, 64)
+    state = init_state(cfg, 1, x0, np.eye(2), np.array([1.0, 0.5]), model.lnlike(xs),
+                       model.lnprior(xs), device=dev)
+    state, out = run_block(state, iters)
+    assert torch.isfinite(out.x).all()
+    return state
+
+
+def _iterations(cfg, state, kind):
+    return int(state.counters.jump_proposed[[s.kind for s in cfg.jumps].index(kind), 0, 0])
+
+
+@pytest.mark.cuda
 def test_main_path_launches_kernel_each_chees_iteration(cuda):
     cfg = _small_config()
-    model = CurvedLikelihood()
-    _, run_block = build_step(cfg, model, device=cuda)
-    x0 = np.array([-0.1, -0.5])
-    xs = torch.tensor(x0, dtype=torch.float32, device=cuda)[None, :, None].expand(2, 2, 64)
-    state = init_state(cfg, 1, x0, np.eye(2), np.array([1.0, 0.5]), model.lnlike(xs),
-                       model.lnprior(xs), device=cuda)
     chees_trajectories.launches = 0
-    state, out = run_block(state, 60)
-    j = [s.kind for s in cfg.jumps].index(KIND_CHEES)
-    assert chees_trajectories.launches == int(state.counters.jump_proposed[j, 0, 0]) > 0
-    assert torch.isfinite(out.x).all()
+    state = _run_small(cfg, cuda, 60)
+    assert chees_trajectories.launches == _iterations(cfg, state, KIND_CHEES) > 0
+
+
+@pytest.mark.cuda
+def test_nuts_path_launches_kernels_each_iteration(cuda):
+    cfg = _small_config(NUTSweight=10, HMCweight=10)
+    nuts_trees.launches = hmc_trajectories.launches = 0
+    state = _run_small(cfg, cuda, 80)
+    assert nuts_trees.launches == _iterations(cfg, state, KIND_NUTS) > 0
+    assert hmc_trajectories.launches == _iterations(cfg, state, KIND_HMC) > 0
+    assert (state.stepsize.epsilon > 0).all()
