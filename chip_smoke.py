@@ -21,17 +21,22 @@ Phases, in order; any failure exits non-zero:
    * HMC trajectories at the path's settings (eps 0.08, nsteps in [2, 50))
      and at eps 5.0, where about half the lanes leave the prior box (qxy
      -inf): q1 within 1e-4, qxy within 1e-3 (HMC_QXY_TOL), equal -inf masks.
-   * NUTS trees: at depth 4, q_prop and logp_prop within 1e-4 and nalpha and
-     alive equal in every lane; at depth 10, at most a 1e-3 share
-     (NALPHA_SHARE_TOL) of lanes with another nalpha, and a KS distance of
-     logp_prop below 0.01. The run logs the pointwise error at both depths
-     and the tree sizes.
+   * NUTS trees, the kernel drawing its reservoir uniforms from a Philox key
+     against the plain version fed ``nuts_uniforms(key)``, with about 2% of
+     lanes at eps <= 0 so the in-kernel step-size search runs, at depth 4 and
+     10: the step sizes used equal in every lane (the search against the
+     plain ``find_reasonable_epsilon``), q_prop, logp_prop and alpha within
+     1e-4, logp0, nalpha and alive equal in every lane. A wrong reservoir
+     uniform changes the leaf some lane takes, and so its q_prop and
+     logp_prop. The run logs the lanes that differ in any output at all, the
+     pointwise error, the KS distance of logp_prop and the tree sizes.
 3. Main path 1 at full width: the bench's headline configuration (8 x 16384
    chains, SCAM/AM/DE/ChEES at 10/10/10/20, tskip=5, cov_update=1000,
    de_size=2000, hmc_stepsize=0.08, 3000 burn-in + 12000 timed iterations
    in blocks of 1000) through ``build_step``/``run_block``. The ChEES kernel
    must launch once per ChEES iteration; the bench's moment gate must pass
-   on every 8th cold chain (2048 of 16384). Prints one JSON line.
+   on every 8th cold chain (2048 of 16384). Prints one JSON line, with the
+   path's peak device memory.
 4. Profile of path 1: 100 more iterations under ``torch.profiler``; prints
    one JSON line with the device-busy share and the largest device times.
 5. Main path 2 at full width: the bench's ``grad_mode=nuts`` cycle
@@ -42,7 +47,10 @@ Phases, in order; any failure exits non-zero:
 6. Kernels line: each kernel's launches on its path, error against the
    plain version, device time (CUDA events, stream held, inputs from its
    path's final state), the time of a wrapper call, the plain version's time
-   and the bound.
+   and the bound. The NUTS entry adds the time of a NUTS call's draws, the
+   time over the deepest tree's leaves, and capped timings: every tree run
+   to the depth cap (a tiny step size), over the whole batch and over one
+   warp alone, for the per-leaf throughput and the lone per-leaf latency.
 7. Last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -60,7 +68,6 @@ SHORT_TOL = 1e-4
 KS_TOL = 0.01
 NEGINF_SHARE_TOL = 1e-3
 HMC_QXY_TOL = 1e-3
-NALPHA_SHARE_TOL = 1e-3
 
 T, C, D = 8, 16384, 2
 BURN_ITERS, TIMED_ITERS, BLOCK = 3000, 12000, 1000
@@ -70,17 +77,27 @@ NUTS_DEPTH, HMC_EPS, HMC_NMIN, HMC_NMAX = 10, 0.08, 2, 50
 DEVICE = "cuda:0"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor f32 op/s.
+# Integer operations are counted at the f32 rate too (the data sheet gives
+# no non-tensor integer rate; the H100 has half as many INT32 lanes as f32
+# ones), so the bound stays a lower bound.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # Per leapfrog step of the curved model (csrc/models.cuh): about 70 float
 # operations plus 4 transcendental ones, counted as one each.
 OPS_PER_STEP = 74
 # Per NUTS leaf: its leapfrog step, the joint and the slice tests (6), the
-# reservoir draw (3), the acceptance statistic (4) and, on average, one
-# U-turn check against a checkpoint (two D-dots and the difference: 12).
-OPS_PER_LEAF = OPS_PER_STEP + 25
+# reservoir test (3), the acceptance statistic (4), on average one U-turn
+# check against a checkpoint (two D-dots and the difference: 12), and the
+# leaf's Philox4x32-10 uniform (10 rounds of two 32 x 32 -> 64-bit
+# multiplies, counted as two operations each, two 3-way XORs and two key
+# additions; the shift and conversion: 80 integer operations).
+OPS_PER_LEAF = OPS_PER_STEP + 25 + 80
 # Per NUTS doubling: the whole-trajectory U-turn check and the accept.
 OPS_PER_LEVEL = 10
+# The capped NUTS timing: a step size small enough that (nearly) every tree
+# runs to the depth cap, and the least share of cap-cut trees it must give.
+CAPPED_EPS = 1e-5
+CAPPED_ALIVE_MIN = 0.99
 
 
 def log(msg):
@@ -147,16 +164,6 @@ def trajectory_inputs(gen, dev, max_nsteps):
     eps = (0.1 * 1.3 ** torch.arange(T, device=dev, dtype=torch.float32))[:, None].expand(T, C)
     nsteps = torch.randint(1, max_nsteps + 1, (T, C), generator=gen, device=dev, dtype=torch.int32)
     return q0, p0, betas, eps.contiguous(), nsteps, chol
-
-
-def tree_draws(gen, dev, depth):
-    """The NUTS tree's randomness, drawn as proposals/nuts.py draws it:
-    ``expo [T, C]``, ``dirs, accu [depth, T, C]``, ``resu [2**depth-1, T, C]``."""
-    expo = torch.empty((T, C), device=dev).exponential_(generator=gen)
-    dirs = torch.where(torch.rand((depth, T, C), generator=gen, device=dev) < 0.5, -1.0, 1.0)
-    accu = torch.rand((depth, T, C), generator=gen, device=dev)
-    resu = torch.rand(((1 << depth) - 1, T, C), generator=gen, device=dev)
-    return expo, dirs, accu, resu
 
 
 def phase_chees_vs_plain(model):
@@ -244,36 +251,54 @@ def tree_stats(nalpha, alive):
 
 
 def phase_nuts_vs_plain(model):
-    from ptmcmcsampler_torch.ops.nuts import nuts_trees, nuts_trees_plain
+    from ptmcmcsampler_torch.ops.nuts import nuts_trees, nuts_trees_plain, nuts_uniforms
+    from ptmcmcsampler_torch.proposals.nuts import draw_nuts
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(2024)
     max_err = 0.0
     for depth in (4, NUTS_DEPTH):
-        q0, r0, betas, eps, _, chol = trajectory_inputs(gen, dev, 1)
-        args = (q0, r0, betas, eps, *tree_draws(gen, dev, depth), chol)
-        q, l0, lp, alpha, nalpha, alive = nuts_trees(*args, model)
+        q0, _, betas, eps, _, chol = trajectory_inputs(gen, dev, 1)
+        r0, expo, dirs, accu, key, r_eps = draw_nuts(gen, T, D, C, depth, dev)
+        eps[:, ::97] = 0.0  # lanes that search their step size first
+        eps[:, 13::89] = -1.0
+        args = (q0, r0, betas, eps, expo, dirs, accu)
+        out = nuts_trees(*args, key, chol, model, r_eps=r_eps)
         t0 = time.time()
-        qp, l0p, lpp, alphap, nalphap, alivep = nuts_trees_plain(*args, model)
+        ref = nuts_trees_plain(*args, nuts_uniforms(key, depth, T, C), chol, model, r_eps)
         torch.cuda.synchronize()
+        plain_s = time.time() - t0
+        q, l0, lp, alpha, nalpha, alive, eps_used = out
+        qp, l0p, lpp, alphap, nalphap, alivep, eps_usedp = ref
+        lanes_differ = torch.zeros((T, C), dtype=torch.bool, device=dev)
+        for a, b in zip(out, ref):
+            ne = (a != b) & ~(torch.isnan(a) & torch.isnan(b))
+            lanes_differ |= ne.any(dim=1) if a.dim() == 3 else ne
+        n_differ = int(lanes_differ.sum())
+        searched = eps <= 0
+        eps_differ = int((eps_used != eps_usedp).sum())
         differ = float((nalpha != nalphap).float().mean())
         err_q = float((q - qp).abs().max())
         err_lp = float((lp - lpp).abs().max())
         err_a = float((alpha - alphap).abs().max())
-        max_err = max(max_err, err_q, err_lp)
+        err_eps = float((eps_used - eps_usedp).abs().max())
+        max_err = max(max_err, err_q, err_lp, err_eps)
         ks = ks_distance(lp[torch.isfinite(lp)].cpu().numpy(),
                          lpp[torch.isfinite(lpp)].cpu().numpy())
-        log(f"NUTS depth {depth}: max |q_prop - plain| {err_q:.3e}, |logp_prop - plain| "
-            f"{err_lp:.3e}, |alpha - plain| {err_a:.3e}, nalpha differs in {differ:.2e} of "
-            f"lanes, alive equal {torch.equal(alive, alivep)}, KS(logp_prop) {ks:.4f}, "
-            f"trees {tree_stats(nalpha, alive)}, plain took {time.time() - t0:.1f}s")
-        if depth <= 4:
-            ok = (torch.allclose(q, qp, rtol=SHORT_TOL, atol=SHORT_TOL)
-                  and torch.allclose(lp, lpp, rtol=SHORT_TOL, atol=SHORT_TOL)
-                  and torch.equal(nalpha, nalphap) and torch.equal(alive, alivep))
-        else:
-            ok = differ <= NALPHA_SHARE_TOL and ks < KS_TOL
+        log(f"NUTS depth {depth}: {n_differ} of {T * C} lanes differ from the plain version in "
+            f"any output; max |q_prop - plain| {err_q:.3e}, |logp_prop - plain| {err_lp:.3e}, "
+            f"|alpha - plain| {err_a:.3e}, nalpha differs in {differ:.2e} of lanes, alive equal "
+            f"{torch.equal(alive, alivep)}, KS(logp_prop) {ks:.4f}; step-size search in "
+            f"{int(searched.sum())} lanes, {eps_differ} differ, found eps in "
+            f"[{float(eps_used[searched].min()):.4g}, {float(eps_used[searched].max()):.4g}]; "
+            f"trees {tree_stats(nalpha, alive)}, plain took {plain_s:.1f}s")
+        ok = (eps_differ == 0 and bool((eps_used > 0).all())
+              and torch.allclose(q, qp, rtol=SHORT_TOL, atol=SHORT_TOL)
+              and torch.allclose(lp, lpp, rtol=SHORT_TOL, atol=SHORT_TOL, equal_nan=True)
+              and torch.allclose(alpha, alphap, rtol=SHORT_TOL, atol=SHORT_TOL, equal_nan=True)
+              and torch.equal(l0, l0p) and torch.equal(nalpha, nalphap)
+              and torch.equal(alive, alivep))
         if not ok:
             raise SystemExit(f"NUTS kernel disagrees with the plain version at depth {depth}")
     return max_err
@@ -317,6 +342,8 @@ def phase_main_path(model, card, path, cfg, wrappers):
     from ptmcmcsampler_torch.ladder import ladder_betas, temperature_ladder
 
     dev = torch.device(DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     _, run_block = build_step(cfg, model, device=dev)
     _, betas = ladder_betas(temperature_ladder(D, T))
     x0 = np.array([-0.1, -0.5])
@@ -341,6 +368,7 @@ def phase_main_path(model, card, path, cfg, wrappers):
         log(f"{path}: timed block {b + 1} at {time.time() - t1:.1f}s")
     elapsed = time.time() - t1
     launches = {kind: w.launches for kind, w in wrappers.items()}
+    peak_mem_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
     kinds = [j.kind for j in cfg.jumps]
     for kind, n in launches.items():
@@ -374,6 +402,7 @@ def phase_main_path(model, card, path, cfg, wrappers):
         "burn_sec": t1 - t0,
         "cold_acceptance": dict(zip(cfg.jump_names(), acc)),
         "launches": launches,
+        "peak_mem_gb": peak_mem_gb,
         "card": name,
         "power_limit": power,
     }
@@ -525,53 +554,91 @@ def hmc_kernel_entry(model, state, launches, max_err):
 
 
 def nuts_kernel_entry(model, state, launches, max_err):
-    """Time the NUTS kernel, its randomness and its plain version on inputs
-    from path 2's final state (its adapted step sizes), drawn as
-    proposals/nuts.py draws them."""
-    from ptmcmcsampler_torch.ops.nuts import nuts_trees, nuts_trees_plain
+    """Time the NUTS kernel, a NUTS call's draws and the plain version on
+    inputs from path 2's final state (its adapted step sizes), drawn as
+    proposals/nuts.py draws them; then the capped timings."""
+    from ptmcmcsampler_torch.ops.nuts import nuts_trees, nuts_trees_plain, nuts_uniforms
+    from ptmcmcsampler_torch.proposals.nuts import draw_nuts
 
     dev = state.x.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(97)
     chol = state.adapt.chol
     q0 = (state.adapt.chol_inv.T @ state.x).contiguous()
-    r0 = torch.randn((T, D, C), generator=gen, device=dev)
     eps = state.stepsize.epsilon.contiguous()
-    args = (q0, r0, state.betas, eps, *tree_draws(gen, dev, NUTS_DEPTH), chol, model)
+    r0, expo, dirs, accu, key, r_eps = draw_nuts(gen, T, D, C, NUTS_DEPTH, dev)
+    args = (q0, r0, state.betas, eps, expo, dirs, accu, key, chol, model)
 
-    kernel_ms = cuda_ms(lambda: nuts_trees(*args), 20, hold_stream=True)
-    wrapper_ms = cuda_ms(lambda: nuts_trees(*args), 20)
-    draw_ms = cuda_ms(lambda: tree_draws(gen, dev, NUTS_DEPTH), 20, hold_stream=True)
-    plain_ms = cuda_ms(lambda: nuts_trees_plain(*args), 2)
-    _, _, _, _, nalpha, alive = nuts_trees(*args)
+    kernel_ms = cuda_ms(lambda: nuts_trees(*args, r_eps=r_eps), 20, hold_stream=True)
+    wrapper_ms = cuda_ms(lambda: nuts_trees(*args, r_eps=r_eps), 20)
+    draw_ms = cuda_ms(lambda: draw_nuts(gen, T, D, C, NUTS_DEPTH, dev), 20, hold_stream=True)
+    resu = nuts_uniforms(key, NUTS_DEPTH, T, C)
+    plain_ms = cuda_ms(lambda: nuts_trees_plain(*args[:7], resu, chol, model, r_eps), 2)
+    del resu
+    _, _, _, _, nalpha, alive, _ = nuts_trees(*args, r_eps=r_eps)
     leaves = float(nalpha.sum())
     levels = float(torch.ceil(torch.log2(nalpha + 1.0)).sum())  # doublings a tree ran
-    # Per chain: q0, r0, q_prop (3 * D floats), beta, eps, expo and five
-    # statistics; per doubling run, dirs and accu; per leaf, one reservoir
-    # uniform.
-    bytes_moved = 4 * ((3 * D + 7) * T * C + 2 * levels + leaves) + 4 * (T + D * D)
+    searched = int((eps <= 0).sum())
+    # Per chain: q0, r0, q_prop (3 * D floats), eps, expo, the five
+    # statistics and the step size used; per doubling run, dirs and accu;
+    # per searching lane, its search momenta; beta, chol and the key. No
+    # per-leaf bytes: each leaf's uniform is computed from the key.
+    bytes_moved = (4 * ((3 * D + 8) * T * C + 2 * levels + D * searched)
+                   + 4 * (T + D * D) + 16)
     ops = OPS_PER_LEAF * leaves + OPS_PER_LEVEL * levels + OPS_PER_STEP * T * C
     stats = tree_stats(nalpha, alive)
+    capped = nuts_capped_timings(model, q0, state.betas, chol, gen)
     log(f"NUTS kernel {kernel_ms:.4f} ms, wrapper call {wrapper_ms:.4f} ms, draws "
-        f"{draw_ms:.4f} ms, plain {plain_ms:.1f} ms, trees {stats}")
+        f"{draw_ms:.4f} ms, plain {plain_ms:.1f} ms, trees {stats}, capped {capped}")
     return kernel_entry(
         "nuts_tree", "ptmcmcsampler_tpu/ops/nuts_pallas.py:74", launches, max_err,
-        kernel_ms, wrapper_ms, plain_ms, bytes_moved, ops, draw_ms=draw_ms, **stats,
+        kernel_ms, wrapper_ms, plain_ms, bytes_moved, ops, draw_ms=draw_ms,
+        us_per_leaf_critical=1e3 * kernel_ms / stats["max_nalpha"], **stats, **capped,
     )
+
+
+def nuts_capped_timings(model, q0, betas, chol, gen):
+    """The NUTS kernel with every tree run to the depth cap (step size
+    CAPPED_EPS): over the whole batch, the time a leaf level takes when all
+    chains are busy (throughput); over one warp alone (T = 1, C = 32), the
+    time a leaf takes on one thread's dependent chain (latency)."""
+    from ptmcmcsampler_torch.ops.nuts import nuts_trees
+    from ptmcmcsampler_torch.proposals.nuts import draw_nuts
+
+    dev = q0.device
+    leaves = (1 << NUTS_DEPTH) - 1
+    result = {}
+    for name, t, c, reps in (("batch", T, C, 3), ("warp", 1, 32, 10)):
+        q = q0[:t, :, :c].contiguous()
+        eps = torch.full((t, c), CAPPED_EPS, device=dev)
+        r0, expo, dirs, accu, key, r_eps = draw_nuts(gen, t, D, c, NUTS_DEPTH, dev)
+        args = (q, r0, betas[:t].contiguous(), eps, expo, dirs, accu, key, chol, model)
+        out = nuts_trees(*args, r_eps=r_eps)
+        alive_share = float(out[5].mean())
+        if alive_share < CAPPED_ALIVE_MIN:
+            raise SystemExit(f"capped NUTS timing: only {alive_share:.4f} of trees reached the "
+                             f"cap at eps {CAPPED_EPS}")
+        ms = cuda_ms(lambda: nuts_trees(*args, r_eps=r_eps), reps, hold_stream=True)
+        result[f"capped_{name}_ms"] = ms
+        result[f"capped_{name}_us_per_leaf"] = 1e3 * ms / leaves
+        result[f"capped_{name}_alive_share"] = alive_share
+    result["capped_batch_leaves_per_s"] = T * C * leaves / (result["capped_batch_ms"] / 1e3)
+    return result
 
 
 def nuts_path_extras(model, state):
     """NUTS step sizes per rung, and the tree sizes of one more call at the
     final state (made after the path's launches were read)."""
     from ptmcmcsampler_torch.ops.nuts import nuts_trees
+    from ptmcmcsampler_torch.proposals.nuts import draw_nuts
 
     dev = state.x.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(96)
     q0 = (state.adapt.chol_inv.T @ state.x).contiguous()
-    r0 = torch.randn((T, D, C), generator=gen, device=dev)
-    out = nuts_trees(q0, r0, state.betas, state.stepsize.epsilon.contiguous(),
-                     *tree_draws(gen, dev, NUTS_DEPTH), state.adapt.chol, model)
+    r0, expo, dirs, accu, key, r_eps = draw_nuts(gen, T, D, C, NUTS_DEPTH, dev)
+    out = nuts_trees(q0, r0, state.betas, state.stepsize.epsilon.contiguous(), expo, dirs, accu,
+                     key, state.adapt.chol, model, r_eps=r_eps)
     return {"nuts_eps": state.stepsize.epsilon.mean(1).tolist(), **tree_stats(out[4], out[5])}
 
 

@@ -1,4 +1,4 @@
-"""NUTS tree kernel: wrapper, plain version and binding.
+"""NUTS tree kernel: wrapper, plain version, reservoir uniforms and binding.
 
 ``nuts_trees`` builds, for every chain of the ``[T, C]`` batch, one
 slice-sampling NUTS tree (Hoffman & Gelman Algorithm 6) in whitened
@@ -7,11 +7,19 @@ by the caller, and returns the proposal and the tree's statistics. It is the
 port of ``ptmcmcsampler_tpu/ops/nuts_pallas.py::_nuts_kernel``; the
 algorithm is written out in ``csrc/nuts_tree.cu``.
 
+* Reservoir uniforms come from a two-word key: leaf row ``r`` of chain
+  ``n = t*C + c`` takes word 0 of Philox4x32-10 at counter ``(r, n, 0, 0)``
+  (``csrc/philox.cuh``), as ``(x >> 8) * 2**-24``. The kernel computes them
+  as it goes; ``nuts_uniforms`` materialises the same array, bit for bit.
+* Lanes with ``eps <= 0`` search their step size first
+  (``find_reasonable_epsilon``) when the caller passes the search's momenta
+  ``r_eps``.
 * On a CUDA tensor the wrapper launches the hand-written kernel (one thread
-  per chain, each running its own tree) or raises.
+  per chain, each running its own tree) with the key, or raises.
 * On a CPU tensor it runs ``nuts_trees_plain``: the same function as masked
-  PyTorch steps over levels and leaves, with the kernel's operation order.
-  The tests hold it to the JAX package's interpreted Pallas kernel, and
+  PyTorch steps over levels and leaves, with the kernel's operation order,
+  fed the uniforms as an array (given, or materialised from the key). The
+  tests hold it to the JAX package's interpreted Pallas kernel, and
   ``chip_smoke.py`` holds the kernel to it on the card.
 
 ``nuts_trees.launches`` counts the kernel's launches.
@@ -24,18 +32,78 @@ import ctypes
 import torch
 
 from ..config import NUTS_MAX_KERNEL_DEPTH
+from ..proposals.gradient import find_reasonable_epsilon
 from . import common
 
+# Philox4x32-10 (Salmon et al., SC'11): round multipliers and key bumps.
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_MASK32 = 0xFFFFFFFF
+_UNIFORMS_CHUNK = 1 << 24  # elements of int64 work per step of nuts_uniforms
 
-def nuts_trees_plain(q0, r0, beta, eps, expo, dirs, accu, resu, chol, model):
-    """Plain PyTorch version of the kernel (same arguments and results).
 
-    Lanes are masked where their tree or subtree has stopped. The loops stop
-    early once every lane has stopped, which reads the device: it is a
-    version for tests, never on the sampler's path on the card.
+def _mulhilo(a, b):
+    """High and low words of ``a * b`` for a 32-bit constant ``a`` and an
+    int64 tensor ``b`` of 32-bit words. torch has no unsigned 32 x 32 -> 64
+    multiply and an int64 product of two words overflows, so ``b`` is split
+    into 16-bit halves and each partial product stays below 2**48."""
+    pl = a * (b & 0xFFFF)
+    ph = a * (b >> 16)
+    return (ph + (pl >> 16)) >> 16, (pl + ((ph & 0xFFFF) << 16)) & _MASK32
+
+
+def philox4x32(ctr, key):
+    """Philox4x32-10 as Random123 and ``csrc/philox.cuh`` define it.
+
+    ``ctr``: four int64 tensors (or ints) of 32-bit words, broadcastable;
+    ``key``: two. Returns the four output words as int64 tensors.
+    """
+    c0, c1, c2, c3 = ctr
+    k0, k1 = key
+    for i in range(10):
+        if i:
+            k0 = (k0 + PHILOX_W[0]) & _MASK32
+            k1 = (k1 + PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo(PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def nuts_uniforms(key, depth, t, c):
+    """The ``[2**depth - 1, T, C]`` f32 reservoir uniforms the kernel draws
+    under ``key`` (int64 ``[2]``, words in ``[0, 2**32)``), bit for bit, on
+    ``key``'s device, without reading the key to the host."""
+    rows, n = (1 << depth) - 1, t * c
+    dev = key.device
+    chains = torch.arange(n, dtype=torch.int64, device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    out = torch.empty((rows, n), dtype=torch.float32, device=dev)
+    step = max(1, _UNIFORMS_CHUNK // max(n, 1))
+    for r in range(0, rows, step):
+        leaf = torch.arange(r, min(r + step, rows), dtype=torch.int64, device=dev)[:, None]
+        x = philox4x32((leaf, chains, zero, zero), (key[0], key[1]))[0]
+        out[r:r + step] = (x >> 8).to(torch.float32) * 2.0**-24
+    return out.view(rows, t, c)
+
+
+def nuts_trees_plain(q0, r0, beta, eps, expo, dirs, accu, resu, chol, model, r_eps=None):
+    """Plain PyTorch version of the kernel: the arguments and results of
+    ``nuts_trees``, with the reservoir uniforms as the array ``resu``.
+
+    Lanes are masked where their tree or subtree has stopped. The loops (and
+    the step-size search's) stop early once every lane has stopped, which
+    reads the device: it is a version for tests and the CPU, never on the
+    sampler's path on the card.
     """
     fgw = common.whitened(model, chol, beta[:, None])
     logp0, g0 = fgw(q0)
+    if r_eps is not None:
+        fresh = eps <= 0
+        if bool(fresh.any()):
+            found = find_reasonable_epsilon(lambda _ctx, q, _b: fgw(q), None, beta, q0, g0, logp0,
+                                            r_eps)
+            eps = torch.where(fresh, found, eps)
     joint0 = common.log_hamiltonian(logp0, r0)
     logu = joint0 - expo
     zm = zp = z_prop = q0
@@ -118,57 +186,69 @@ def nuts_trees_plain(q0, r0, beta, eps, expo, dirs, accu, resu, chol, model):
         dz = zp - zm
         alive = alive & active & (common.rdot(dz, rm) >= 0) & (common.rdot(dz, rp) >= 0)
 
-    return z_prop, logp0, logp_prop, alpha, nalpha, alive.to(logp0.dtype)
+    return z_prop, logp0, logp_prop, alpha, nalpha, alive.to(logp0.dtype), eps
 
 
-def nuts_trees(q0, r0, beta, eps, expo, dirs, accu, resu, chol, model):
+def nuts_trees(q0, r0, beta, eps, expo, dirs, accu, draws, chol, model, r_eps=None):
     """One NUTS tree per chain, from pre-drawn randomness.
 
     Args:
       q0, r0: ``[T, D, C]`` f32 whitened positions and momenta.
       beta:   ``[T]`` f32 inverse temperatures.
-      eps:    ``[T, C]`` f32 step sizes; a lane with ``eps <= 0`` stays put.
+      eps:    ``[T, C]`` f32 step sizes.
       expo:   ``[T, C]`` f32 Exp(1) slice draws.
       dirs:   ``[depth, T, C]`` f32 doubling directions, +-1.
       accu:   ``[depth, T, C]`` f32 uniforms of the across-doubling accept.
-      resu:   ``[2**depth - 1, T, C]`` f32 reservoir uniforms; level j reads
-              rows ``[2**j - 1, 2**(j+1) - 1)``.
+      draws:  the reservoir's Philox key, int64 ``[2]`` with words in
+              ``[0, 2**32)``; or, on the CPU only, its uniforms as an f32
+              ``[2**depth - 1, T, C]`` array (level j reads rows
+              ``[2**j - 1, 2**(j+1) - 1)``).
       chol:   ``[D, D]`` f32 Cholesky factor of the mass-matrix inverse.
       model:  gives ``value_grad`` (plain version) and ``cuda_functor``.
+      r_eps:  ``[T, D, C]`` f32 standard-normal momenta of the step-size
+              search, or None. Given, a lane with ``eps <= 0`` first runs
+              ``find_reasonable_epsilon`` and builds its tree with the step
+              size found; without it, such a lane stays put.
     Returns:
-      ``(q_prop [T, D, C], logp0, logp_prop, alpha, nalpha, alive)``, the
-      last five ``[T, C]`` f32; ``alive`` is 1 where the depth cap cut the
-      tree.
+      ``(q_prop [T, D, C], logp0, logp_prop, alpha, nalpha, alive, eps_used)``,
+      the last six ``[T, C]`` f32; ``alive`` is 1 where the depth cap cut the
+      tree; ``eps_used`` is the step size each tree used.
     """
     depth = dirs.shape[0]
     if not 1 <= depth <= NUTS_MAX_KERNEL_DEPTH:
         raise ValueError(f"nuts_trees: depth {depth} outside [1, {NUTS_MAX_KERNEL_DEPTH}]")
     if common.check_device("nuts_trees", q0):
-        return nuts_trees_plain(q0, r0, beta, eps, expo, dirs, accu, resu, chol, model)
+        resu = draws
+        if draws.dtype == torch.int64:
+            resu = nuts_uniforms(draws, depth, q0.shape[0], q0.shape[2])
+        return nuts_trees_plain(q0, r0, beta, eps, expo, dirs, accu, resu, chol, model, r_eps)
     t, d, c = q0.shape
     functor = common.cuda_functor("NUTS tree", model, d)
     f32 = torch.float32
-    common.check_args("nuts_trees", q0.device, {
+    expect = {
         "q0": (q0, (t, d, c), f32), "r0": (r0, (t, d, c), f32),
         "beta": (beta, (t,), f32), "eps": (eps, (t, c), f32), "expo": (expo, (t, c), f32),
         "dirs": (dirs, (depth, t, c), f32), "accu": (accu, (depth, t, c), f32),
-        "resu": (resu, ((1 << depth) - 1, t, c), f32), "chol": (chol, (d, d), f32),
-    })
+        "key": (draws, (2,), torch.int64), "chol": (chol, (d, d), f32),
+    }
+    if r_eps is not None:
+        expect["r_eps"] = (r_eps, (t, d, c), f32)
+    common.check_args("nuts_trees", q0.device, expect)
     if t * c >= 2**31:
         raise ValueError("nuts_trees: more than 2**31 - 1 chains")
     q_prop = torch.empty_like(q0)
-    stats = torch.empty((5, t, c), dtype=f32, device=q0.device)
+    outs = torch.empty((6, t, c), dtype=f32, device=q0.device).unbind(0)
     fn = common.entry(
         "nuts_tree", f"nuts_tree_{functor}",
-        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 17 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     )
-    ins = (q0, r0, beta, eps, expo, dirs, accu, resu, chol, q_prop)
+    args = (q0, r0, beta, eps, r_eps, expo, dirs, accu, draws, chol, q_prop, *outs)
     common.launch(
-        "nuts_tree", fn, q0.device, *(a.data_ptr() for a in ins),
-        *(stats[i].data_ptr() for i in range(5)), t, c, depth,
+        "nuts_tree", fn, q0.device, *(None if a is None else a.data_ptr() for a in args),
+        t, c, depth,
     )
     nuts_trees.launches += 1
-    return (q_prop, *stats.unbind(0))
+    return (q_prop, *outs)
 
 
 nuts_trees.launches = 0

@@ -140,8 +140,9 @@ def find_reasonable_epsilon(fgw, ctx, beta, theta0, grad0, logp0, r0, max_iters=
     ``theta0, grad0, r0 [T, D, C]`` (``r0`` standard normal), ``logp0
     [T, C]``, ``beta [T]``. The JAX package's two per-lane while loops become
     loops over masked lanes, each bounded by ``max_iters`` and left early once
-    no lane is still searching (which reads the device: the search runs once,
-    at a chain's first NUTS call). Returns ``eps [T, C]``.
+    no lane is still searching (which reads the device). It is the plain
+    version of the NUTS tree kernel's search (``ops/nuts.py``), run on the
+    CPU. Returns ``eps [T, C]``.
     """
     b = beta[:, None]
 

@@ -3,27 +3,29 @@
 Parity target: ``NUTSJump`` (nutsjump.py:379-840), as the JAX package runs it
 through its fused tree kernel (``ptmcmcsampler_tpu/ops/nuts_pallas.py``
 ``make_nuts_pallas``): slice-sampling NUTS per Hoffman & Gelman (2011)
-Algorithm 6, one tree per chain, with all randomness drawn up front as
-arrays, and dual-averaging step-size adaptation per chain.
+Algorithm 6, one tree per chain, with all randomness drawn up front, and
+dual-averaging step-size adaptation per chain.
 
 * The trees run in :func:`ptmcmcsampler_torch.ops.nuts.nuts_trees`: the
   hand-written CUDA kernel on the card, its plain version on the CPU.
-* Step sizes start at ``epsilon <= 0`` (the state's initial -1) and are set
-  by ``find_reasonable_epsilon`` at a chain's first NUTS call, unless
-  ``nuts_force_epsilon`` fixes them.
+* Every call searches the step size of each lane whose step size is
+  ``<= 0`` with ``find_reasonable_epsilon``, as ``make_nuts_pallas`` does
+  (nuts_pallas.py:497-515): at a chain's first NUTS call (the state's
+  initial -1), and after a dual-averaged step size underflows to 0 (an
+  exponent below about -103). The search runs inside the tree kernel, so no
+  host read decides it; those lanes restart dual averaging at
+  ``mu = log(10 * epsilon)``. ``nuts_force_epsilon`` fixes the step sizes
+  instead.
 * ``qxy = logp0 - logp_prop``, so the outer MH step always accepts
   (nutsjump.py:837-840).
 * Dual averaging uses the reference constants gamma=0.05, t0=10,
   kappa=0.75 (nutsjump.py:414-420) and its update equations (:804-816),
   with ``epsilon = epsilonbar`` after burn-in.
 
-No host read per iteration: whether any lane still needs its step size
-initialised is read from the device at most once for each step-size tensor
-the branch did not produce itself (the state's first, or one loaded from
-elsewhere); the tensors it produces have every lane set. A lane whose step
-size underflows to 0 in dual averaging (an exponent below about -103) is
-therefore not searched again, where the JAX package searches it at its next
-call.
+The reservoir's uniforms are not drawn as an array: the branch draws a
+two-word Philox key on the device and the kernel computes each leaf's
+uniform from it (``ops.nuts.nuts_uniforms`` materialises them for the plain
+version).
 """
 
 from __future__ import annotations
@@ -31,53 +33,61 @@ from __future__ import annotations
 import torch
 
 from ..ops.nuts import nuts_trees
-from .gradient import find_reasonable_epsilon, make_whitened_funcs
+from .gradient import make_whitened_funcs
 
 GAMMA = 0.05
 T0 = 10.0
 KAPPA = 0.75
 
 
+def draw_nuts(rng, t, d, c, depth, device):
+    """What one NUTS call draws from ``rng``, on ``device``: momenta ``r0``
+    and the step-size search's momenta ``r_eps`` ``[T, D, C]`` (standard
+    normal), Exp(1) slice draws ``expo [T, C]``, doubling directions ``dirs``
+    (+-1) and accept uniforms ``accu`` ``[depth, T, C]``, and the reservoir's
+    Philox key ``[2]`` (int64 words in ``[0, 2**32)``). Nothing is read to
+    the host. Returns ``(r0, expo, dirs, accu, key, r_eps)``."""
+    r0 = torch.randn((t, d, c), generator=rng, device=device)
+    expo = torch.empty((t, c), device=device).exponential_(generator=rng)
+    dirs = torch.where(torch.rand((depth, t, c), generator=rng, device=device) < 0.5, -1.0, 1.0)
+    accu = torch.rand((depth, t, c), generator=rng, device=device)
+    key = torch.randint(0, 2**32, (2,), generator=rng, device=device, dtype=torch.int64)
+    r_eps = torch.randn((t, d, c), generator=rng, device=device)
+    return r0, expo, dirs, accu, key, r_eps
+
+
 def make_nuts(config, model):
-    forward, backward, fgw = make_whitened_funcs(model.value_grad)
+    forward, backward, _ = make_whitened_funcs(model.value_grad)
     depth = config.nuts_max_depth
     delta = config.nuts_delta
     force_eps = config.nuts_force_epsilon
     nburn = config.burn
 
-    def core(x, betas, it, ctx, ss, r0, expo, dirs, accu, resu, r_eps, need=None):
+    def core(x, betas, it, ctx, ss, r0, expo, dirs, accu, draws, r_eps):
         """Deterministic NUTS step.
 
         ``r0 [T, D, C]`` standard-normal momenta; ``expo [T, C]`` Exp(1)
         slice draws; ``dirs [depth, T, C]`` doubling directions (+-1);
-        ``accu [depth, T, C]`` and ``resu [2**depth - 1, T, C]`` uniforms;
-        ``r_eps [T, D, C]`` the step-size search's momenta (read only if a
-        lane needs it). ``need``: whether any lane has ``epsilon <= 0``, or
-        None to read it from the device. Returns ``(q, qxy, ss)``.
+        ``accu [depth, T, C]`` uniforms; ``draws`` the reservoir's Philox
+        key (int64 ``[2]``) or, on the CPU, its uniforms ``[2**depth - 1, T,
+        C]``; ``r_eps [T, D, C]`` the step-size search's momenta (read by
+        lanes with ``epsilon <= 0``). Returns ``(q, qxy, ss)``.
         """
-        t, _, c = x.shape
         q0 = forward(ctx, x).contiguous()
         eps_state = ss["epsilon"]
         if force_eps is not None:
-            epsilon = torch.full_like(eps_state, force_eps)
+            eps_in, r_search = torch.full_like(eps_state, force_eps), None
+        else:
+            eps_in, r_search = eps_state, r_eps.contiguous()
+        q_prop, logp0, logp_prop, alpha, nalpha, _, epsilon = nuts_trees(
+            q0, r0.contiguous(), betas, eps_in.contiguous(), expo.contiguous(),
+            dirs.contiguous(), accu.contiguous(), draws.contiguous(),
+            ctx.chol.contiguous(), model, r_eps=r_search,
+        )
+        if force_eps is not None:
             mu = torch.log(10.0 * epsilon)
         else:
-            if need is None:
-                need = bool((eps_state <= 0).any())
-            if need:
-                logp_s, grad_s = fgw(ctx, q0, betas[:, None])
-                eps_init = find_reasonable_epsilon(fgw, ctx, betas, q0, grad_s, logp_s, r_eps)
-                fresh = eps_state <= 0
-                epsilon = torch.where(fresh, eps_init, eps_state)
-                mu = torch.where(fresh, torch.log(10.0 * epsilon), ss["mu"])
-            else:
-                epsilon, mu = eps_state, ss["mu"]
-
-        q_prop, logp0, logp_prop, alpha, nalpha, _ = nuts_trees(
-            q0, r0.contiguous(), betas, epsilon.contiguous(), expo.contiguous(),
-            dirs.contiguous(), accu.contiguous(), resu.contiguous(),
-            ctx.chol.contiguous(), model,
-        )
+            mu = torch.where(eps_state <= 0, torch.log(10.0 * epsilon), ss["mu"])
         qxy = logp0 - logp_prop
         qxy = torch.where(torch.isnan(qxy), float("-inf"), qxy)
 
@@ -105,28 +115,9 @@ def make_nuts(config, model):
                 new_ss["epsilon"] = ss["epsilonbar"]
         return backward(ctx, q_prop), qxy, new_ss
 
-    produced = [None]  # the last step-size tensor this branch returned
-
     def nuts(rng, x, betas, it, ctx, ss):
         t, d, c = x.shape
-        dev = x.device
-
-        def uniform(*shape):
-            return torch.rand(shape, generator=rng, device=dev)
-
-        r0 = torch.randn((t, d, c), generator=rng, device=dev)
-        expo = torch.empty((t, c), device=dev).exponential_(generator=rng)
-        dirs = torch.where(uniform(depth, t, c) < 0.5, -1.0, 1.0)
-        accu = uniform(depth, t, c)
-        resu = uniform((1 << depth) - 1, t, c)
-        need = False
-        if force_eps is None and ss["epsilon"] is not produced[0]:
-            need = bool((ss["epsilon"] <= 0).any())  # once per foreign tensor
-        r_eps = torch.randn((t, d, c), generator=rng, device=dev) if need else None
-        q, qxy, new_ss = core(x, betas, it, ctx, ss, r0, expo, dirs, accu, resu, r_eps,
-                              need=need)
-        produced[0] = new_ss["epsilon"]
-        return q, qxy, new_ss
+        return core(x, betas, it, ctx, ss, *draw_nuts(rng, t, d, c, depth, x.device))
 
     nuts.core = core
     return nuts

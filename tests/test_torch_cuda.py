@@ -20,7 +20,7 @@ from ptmcmcsampler_torch.models import CurvedLikelihood
 from ptmcmcsampler_torch.ops import build
 from ptmcmcsampler_torch.ops.chees import chees_trajectories, chees_trajectories_plain
 from ptmcmcsampler_torch.ops.hmc import hmc_trajectories, hmc_trajectories_plain
-from ptmcmcsampler_torch.ops.nuts import nuts_trees, nuts_trees_plain
+from ptmcmcsampler_torch.ops.nuts import nuts_trees, nuts_trees_plain, nuts_uniforms
 
 torch.set_num_threads(2)
 
@@ -48,15 +48,19 @@ def _inputs(dev, t=2, c=1000, max_nsteps=16, seed=0):
 
 
 def _tree_inputs(dev, depth, t=2, c=1000, seed=0):
+    """The tree's arguments, the reservoir's Philox key in place of its
+    uniforms; some lanes have eps <= 0, which the step-size search sets."""
     q0, r0, betas, _, _, chol = _inputs(dev, t, c, seed=seed)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1)
     eps = torch.full((t, c), 0.15, device=dev)
+    eps[:, ::7] = 0.0
+    eps[:, 3::11] = -1.0
     expo = torch.empty((t, c), device=dev).exponential_(generator=gen)
     dirs = torch.where(torch.rand((depth, t, c), generator=gen, device=dev) < 0.5, -1.0, 1.0)
     accu = torch.rand((depth, t, c), generator=gen, device=dev)
-    resu = torch.rand(((1 << depth) - 1, t, c), generator=gen, device=dev)
-    return q0, r0, betas, eps, expo, dirs, accu, resu, chol
+    key = torch.randint(0, 2**32, (2,), generator=gen, device=dev, dtype=torch.int64)
+    return q0, r0, betas, eps, expo, dirs, accu, key, chol
 
 
 @pytest.mark.cuda
@@ -88,21 +92,45 @@ def test_hmc_kernel_matches_plain(cuda, eps):
 @pytest.mark.cuda
 @pytest.mark.parametrize("depth", [4, 10])
 def test_nuts_kernel_matches_plain(cuda, depth):
+    """The kernel drawing its reservoir uniforms from a key against the
+    plain version fed those uniforms materialised, in every lane; the lanes
+    with eps <= 0 hold the in-kernel step-size search to the plain
+    find_reasonable_epsilon."""
     args = _tree_inputs(cuda, depth)
+    q0, r0, betas, eps, expo, dirs, accu, key, chol = args
+    r_eps = torch.randn(q0.shape, generator=torch.Generator(device=cuda).manual_seed(5),
+                        device=cuda)
     before = nuts_trees.launches
-    out = nuts_trees(*args, CurvedLikelihood())
+    out = nuts_trees(*args, CurvedLikelihood(), r_eps=r_eps)
     assert nuts_trees.launches == before + 1
-    ref = nuts_trees_plain(*args, CurvedLikelihood())
-    q, l0, lp, alpha, nalpha, alive = out
-    qp, l0p, lpp, alphap, nalphap, alivep = ref
-    assert (nalpha != nalphap).float().mean() <= 1e-3
-    same = nalpha == nalphap
-    torch.testing.assert_close(q.movedim(1, 2)[same], qp.movedim(1, 2)[same],
-                               rtol=1e-4, atol=1e-4)
+    resu = nuts_uniforms(key, depth, *eps.shape)
+    ref = nuts_trees_plain(q0, r0, betas, eps, expo, dirs, accu, resu, chol, CurvedLikelihood(),
+                           r_eps)
+    q, l0, lp, alpha, nalpha, alive, eps_used = out
+    qp, l0p, lpp, alphap, nalphap, alivep, eps_usedp = ref
+    assert torch.equal(eps_used, eps_usedp)
+    assert (eps_used > 0).all() and torch.equal(eps_used[eps > 0], eps[eps > 0])
+    assert torch.equal(nalpha, nalphap) and torch.equal(alive, alivep)
+    torch.testing.assert_close(q, qp, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(l0, l0p, rtol=0, atol=0)
-    torch.testing.assert_close(lp[same], lpp[same], rtol=1e-4, atol=1e-4)
-    if depth <= 4:
-        assert torch.equal(nalpha, nalphap) and torch.equal(alive, alivep)
+    torch.testing.assert_close(lp, lpp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(alpha, alphap, rtol=1e-4, atol=1e-4)
+    assert nalpha.max() > 1  # trees of several sizes
+
+
+@pytest.mark.cuda
+def test_nuts_kernel_without_search_leaves_nonpositive_lanes(cuda):
+    """Without r_eps the kernel searches no lane: a lane with eps <= 0 runs
+    no leaf and proposes its start, as the plain version does, and every
+    lane reports the step size it was given."""
+    args = _tree_inputs(cuda, 4)
+    q0, _, _, eps, _, _, _, key, _ = args
+    q, l0, lp, _, nalpha, _, eps_used = nuts_trees(*args, CurvedLikelihood())
+    assert torch.equal(eps_used, eps)
+    dead = eps <= 0
+    assert torch.equal(nalpha[dead], torch.zeros_like(nalpha[dead]))
+    assert torch.equal(q.movedim(1, 2)[dead], q0.movedim(1, 2)[dead])
+    assert torch.equal(lp[dead], l0[dead]) and (nalpha[~dead] >= 1).all()
 
 
 @pytest.mark.cuda
@@ -131,8 +159,12 @@ def test_wrapper_rejects_bad_layout(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         hmc_trajectories(q0, p0, betas, nsteps, chol.T, 0.1, CurvedLikelihood())
     tree = list(_tree_inputs(cuda, 3))
-    tree[7] = tree[7][:-1]  # too few reservoir rows for depth 3
-    with pytest.raises(ValueError, match="resu"):
+    tree[7] = tree[7][:-1]  # a key of one word
+    with pytest.raises(ValueError, match="key"):
+        nuts_trees(*tree, CurvedLikelihood())
+    tree = list(_tree_inputs(cuda, 3))
+    tree[7] = nuts_uniforms(tree[7], 3, 2, 1000)  # the kernel takes the key, not uniforms
+    with pytest.raises(ValueError, match="key"):
         nuts_trees(*tree, CurvedLikelihood())
     tree = list(_tree_inputs(cuda, 3))
     tree[3] = tree[3].double()
@@ -172,6 +204,17 @@ def test_build_key_follows_included_header(tmp_path, name):
     header = csrc / "models.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     assert build.library_path(name, csrc) != before
+
+
+def test_build_key_follows_philox_header(tmp_path):
+    """The Philox header keys the NUTS kernel's library and no other."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    before = {name: build.library_path(name, csrc) for name in build.SOURCES}
+    header = csrc / "philox.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: build.library_path(name, csrc) for name in build.SOURCES}
+    assert [n for n in build.SOURCES if after[n] != before[n]] == ["nuts_tree"]
 
 
 def _small_config(**jumps):

@@ -99,7 +99,8 @@ def _both_trees(inp, depth):
         "q0", "r0", "beta", "eps", "expo", "dirs", "accu", "resu", "chol")), TCurved())
     jq = _to_tdc(jout[0], t, c)
     jstats = [np.asarray(a).reshape(t, c) for a in jout[1:]]
-    return (jq, *jstats), tuple(a.numpy() for a in tout)
+    np.testing.assert_array_equal(tout[6].numpy(), inp["eps"])  # no lane searched
+    return (jq, *jstats), tuple(a.numpy() for a in tout[:6])
 
 
 @pytest.mark.parametrize("depth", [3, 5])
@@ -246,3 +247,52 @@ def test_jax_state_after_nuts_carries_into_the_port():
     ss = {k: arrays[f"stepsize/{k}"] for k in SS_NUTS}
     _compare_calls(jc, tc, tst.x.numpy(), tst.betas.numpy(), ctx.chol.numpy(),
                    ctx.chol_inv.numpy(), ss, tst.it + 1, seed=21)
+
+
+def test_underflowed_step_size_is_searched_again():
+    """A lane whose dual-averaged step size underflows to 0 is searched again
+    at its next NUTS call, as make_nuts_pallas searches every lane with
+    epsilon <= 0 at every call (nuts_pallas.py:497-515).
+
+    Lanes with mu = -110 (a tiny step size found long ago) underflow in the
+    first call of the drawing wrapper; its second call searches them, so
+    every lane leaves with epsilon > 0 and the searched lanes restart dual
+    averaging at mu = log(10 * epsilon), epsilon a power of two. Fed that
+    state, the port's core and make_nuts_pallas agree."""
+    t, c, depth = 2, 32, 4
+    jc, tc = _configs(t, c, depth)
+    inp = _tree_inputs(13, t, c, depth)
+    chol = inp["chol"]
+    chol_inv = np.linalg.inv(chol).astype(np.float32)
+    x = np.einsum("ki,tkc->tic", chol, inp["q0"]).astype(np.float32)
+    ss = _ss(t, c, first_call=False)
+    low = np.zeros((t, c), bool)
+    low[:, ::3] = True
+    ss["mu"][low] = -110.0
+    ctx = TCtx(group_u=None, group_s=None, chol=torch.tensor(chol),
+               chol_inv=torch.tensor(chol_inv), de_buf=None, de_valid=0)
+    nuts = t_nuts.make_nuts(tc, TCurved())
+    rng = torch.Generator().manual_seed(3)
+    betas = torch.tensor(inp["beta"])
+    q1, _, ss1 = nuts(rng, torch.tensor(x), betas, 5, ctx,
+                      {k: torch.tensor(v) for k, v in ss.items()})
+    eps1 = ss1["epsilon"].numpy()
+    assert (eps1[low] == 0).all() and (eps1[~low] > 0).all()
+
+    _, _, ss2 = nuts(rng, q1, betas, 6, ctx, ss1)
+    eps2, mu2 = ss2["epsilon"].numpy(), ss2["mu"].numpy()
+    assert (eps2 > 0).all()
+    np.testing.assert_array_equal(mu2[~low], ss1["mu"].numpy()[~low])
+    _assert_searched(mu2[low])
+
+    state = {k: v.numpy() for k, v in ss1.items()}
+    tss = _compare_calls(jc, tc, q1.numpy(), inp["beta"], chol, chol_inv, state, 6, seed=31)
+    assert (tss["epsilon"].numpy() > 0).all()
+    _assert_searched(tss["mu"].numpy()[low])
+
+
+def _assert_searched(mu):
+    """mu = log(10 * epsilon) with epsilon a power of two, as the search
+    returns."""
+    found = np.log2(np.exp(mu.astype(np.float64)) / 10.0)
+    np.testing.assert_allclose(found, np.round(found), atol=1e-5)
