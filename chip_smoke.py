@@ -17,7 +17,13 @@ Phases, in order; any failure exits non-zero:
      1e-3). Long trajectories on the banana's stiff flank are chaotic, so
      pointwise agreement holds only while kernel and plain version round
      identically (the kernels are built with --fmad=false for that); the run
-     logs the pointwise error too.
+     logs the pointwise error and the lanes that differ at all.
+   * The fused ChEES step (``chees_step``, the same kernel with the step's
+     per-chain prologue and epilogue) against ``chees_step_plain`` at
+     ``max_steps`` 32 and 256: at 32, x1, q0, z1 and r1 within SHORT_TOL,
+     qxy and alpha within HMC_QXY_TOL with equal -inf masks; at 256, the
+     energy-error KS check above. Then a ragged batch (8 x 16284 chains, not
+     a whole number of 256-chain blocks) for both entries, pointwise.
    * HMC trajectories at the path's settings (eps 0.08, nsteps in [2, 50))
      and at eps 5.0, where about half the lanes leave the prior box (qxy
      -inf): q1 within 1e-4, qxy within 1e-3 (HMC_QXY_TOL), equal -inf masks.
@@ -33,12 +39,15 @@ Phases, in order; any failure exits non-zero:
 3. Main path 1 at full width: the bench's headline configuration (8 x 16384
    chains, SCAM/AM/DE/ChEES at 10/10/10/20, tskip=5, cov_update=1000,
    de_size=2000, hmc_stepsize=0.08, 3000 burn-in + 12000 timed iterations
-   in blocks of 1000) through ``build_step``/``run_block``. The ChEES kernel
-   must launch once per ChEES iteration; the bench's moment gate must pass
-   on every 8th cold chain (2048 of 16384). Prints one JSON line, with the
-   path's peak device memory.
+   in blocks of 1000) through ``build_step``/``run_block``. The fused ChEES
+   step must launch once per ChEES iteration, and the trajectory entry not
+   at all; the bench's moment gate must pass on every 8th cold chain (2048
+   of 16384). Prints one JSON line, with the path's peak device memory.
 4. Profile of path 1: 100 more iterations under ``torch.profiler``; prints
-   one JSON line with the device-busy share and the largest device times.
+   one JSON line with the device-busy share, the device operations an
+   iteration and the largest device times. Then 100 ChEES iterations alone
+   (``step(state, kind)``, without ``run_block``'s row copies), for the
+   device operations of a ChEES iteration.
 5. Main path 2 at full width: the bench's ``grad_mode=nuts`` cycle
    (bench.py:163-199: SCAM/AM/DE/NUTS/HMC at 10 each, nuts_max_depth=10,
    hmc_stepsize=0.08, hmc_nmaxsteps=50, the same cadences and lengths). The
@@ -47,7 +56,11 @@ Phases, in order; any failure exits non-zero:
 6. Kernels line: each kernel's launches on its path, error against the
    plain version, device time (CUDA events, stream held, inputs from its
    path's final state), the time of a wrapper call, the plain version's time
-   and the bound. The NUTS entry adds the time of a NUTS call's draws, the
+   and the bound. The ChEES entry adds the fused step's times and bound,
+   the lane efficiency of the path's lengths with chain n on thread n and
+   grouped by length as the kernel runs them, and capped timings: every
+   chain at the largest length, over the whole batch and over one warp
+   alone. The NUTS entry adds the time of a NUTS call's draws, the
    time over the deepest tree's leaves, and capped timings: every tree run
    to the depth cap (a tiny step size), over the whole batch and over one
    warp alone, for the per-leaf throughput and the lone per-leaf latency.
@@ -85,6 +98,10 @@ F32_OPS_PER_S = 67e12
 # Per leapfrog step of the curved model (csrc/models.cuh): about 70 float
 # operations plus 4 transcendental ones, counted as one each.
 OPS_PER_STEP = 74
+# Per chain of the fused ChEES step besides its trajectory: step size and
+# length (6), q0 = chol_inv^T x and x1 = chol^T z1 (6 each), k0 and k1 (4
+# each), dH, qxy and alpha (6).
+OPS_PER_CHEES_CHAIN = 32
 # Per NUTS leaf: its leapfrog step, the joint and the slice tests (6), the
 # reservoir test (3), the acceptance statistic (4), on average one U-turn
 # check against a checkpoint (two D-dots and the difference: 12), and the
@@ -148,26 +165,101 @@ def bound(bytes_moved, ops):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def trajectory_inputs(gen, dev, max_nsteps):
-    """Synthetic kernel inputs at the main path's shape: positions around
-    both modes of the curved target, a non-trivial mass matrix, per-rung
-    step sizes like the adapted ones, nsteps uniform on [1, max_nsteps]."""
+def trajectory_inputs(gen, dev, max_nsteps, c=None):
+    """Synthetic kernel inputs at the main path's shape (``c`` chains a
+    rung): positions around both modes of the curved target, a non-trivial
+    mass matrix, per-rung step sizes like the adapted ones, nsteps uniform
+    on [1, max_nsteps]."""
     from ptmcmcsampler_torch.ladder import ladder_betas, temperature_ladder
 
-    mode = torch.where(torch.rand((T, 1, C), generator=gen, device=dev) < 0.5, -1.0, 2.0)
-    x = 0.3 * torch.randn((T, D, C), generator=gen, device=dev)
+    c = C if c is None else c
+    mode = torch.where(torch.rand((T, 1, c), generator=gen, device=dev) < 0.5, -1.0, 2.0)
+    x = 0.3 * torch.randn((T, D, c), generator=gen, device=dev)
     x[:, 1:] += mode
     chol = torch.linalg.cholesky(torch.tensor([[0.6, 0.15], [0.15, 0.9]], device=dev)).contiguous()
     q0 = (torch.linalg.inv(chol).T @ x).contiguous()
-    p0 = torch.randn((T, D, C), generator=gen, device=dev)
+    p0 = torch.randn((T, D, c), generator=gen, device=dev)
     betas = torch.tensor(ladder_betas(temperature_ladder(D, T))[1], dtype=torch.float32, device=dev)
-    eps = (0.1 * 1.3 ** torch.arange(T, device=dev, dtype=torch.float32))[:, None].expand(T, C)
-    nsteps = torch.randint(1, max_nsteps + 1, (T, C), generator=gen, device=dev, dtype=torch.int32)
+    eps = (0.1 * 1.3 ** torch.arange(T, device=dev, dtype=torch.float32))[:, None].expand(T, c)
+    nsteps = torch.randint(1, max_nsteps + 1, (T, c), generator=gen, device=dev, dtype=torch.int32)
     return q0, p0, betas, eps.contiguous(), nsteps, chol
 
 
+def step_inputs(gen, dev, max_steps, c=None):
+    """The fused ChEES step's inputs around ``trajectory_inputs``: the
+    positions x = chol^T q0, jitter u, and a step-size state with rung 0 at
+    its first call (step size 0, so HMC_EPS is used) and lengths
+    ``max_steps`` steps long, so nsteps is near uniform on [1, max_steps].
+    Returns the arguments of ``chees_step`` but the model."""
+    q0, r0, betas, eps, _, chol = trajectory_inputs(gen, dev, 1, c)
+    c = q0.shape[2]
+    x = (chol.T @ q0).contiguous()
+    u = torch.rand((T, c), generator=gen, device=dev) * (1.0 - 1e-3) + 1e-3
+    eps[0] = 0.0
+    tlen = torch.where(eps > 0, eps, HMC_EPS) * max_steps
+    chol_inv = torch.linalg.inv(chol).contiguous()
+    return x, r0, u, betas, eps, tlen, HMC_EPS, max_steps, chol, chol_inv
+
+
+def lanes_differ(out, ref):
+    """Chains whose outputs differ in any bit (NaN equal to NaN)."""
+    lanes = torch.zeros(out[-1].shape, dtype=torch.bool, device=out[-1].device)
+    for a, b in zip(out, ref):
+        ne = (a != b) & ~(torch.isnan(a) & torch.isnan(b))
+        lanes |= ne.any(dim=1) if a.dim() == 3 else ne
+    return int(lanes.sum())
+
+
+def energy_error(model, betas, x0, p0, x1, p1, lp1=None):
+    """|dH| of trajectories from (x0, p0) to (x1, p1) in the original
+    coordinates (the whitening leaves p.p unchanged); ``lp1`` is the end
+    point's tempered logp where the kernel gives it."""
+    lp0, _ = model.value_grad(x0, betas[:, None])
+    if lp1 is None:
+        lp1, _ = model.value_grad(x1, betas[:, None])
+        lp1 = torch.where(torch.isnan(lp1), float("-inf"), lp1)
+    dh = ((lp1 - 0.5 * (p1 * p1).sum(1)) - (lp0 - 0.5 * (p0 * p0).sum(1))).abs()
+    return dh.flatten().cpu().numpy()
+
+
+def check_energy_errors(label, dh_k, dh_p):
+    fin_k, fin_p = np.isfinite(dh_k), np.isfinite(dh_p)
+    ks = ks_distance(dh_k[fin_k], dh_p[fin_p])
+    share = abs(fin_k.mean() - fin_p.mean())
+    log(f"{label} |dH|: KS distance {ks:.4f}, finite share kernel {fin_k.mean():.5f} plain "
+        f"{fin_p.mean():.5f}, median |dH| kernel {np.median(dh_k[fin_k]):.4e} plain "
+        f"{np.median(dh_p[fin_p]):.4e}")
+    if ks >= KS_TOL or share > NEGINF_SHARE_TOL:
+        raise SystemExit(f"{label}: energy-error distribution differs from the plain version")
+
+
+def check_pointwise(label, pairs, tol, neginf=()):
+    """Max error over ``(name, kernel, plain)`` pairs; raise if any lies
+    outside rtol = atol = ``tol`` or, for the names in ``neginf``, if the
+    -inf masks differ (the error then counts the finite lanes)."""
+    max_err = 0.0
+    for name, a, b in pairs:
+        if name in neginf:
+            if not torch.equal(torch.isneginf(a), torch.isneginf(b)):
+                raise SystemExit(f"{label}: {name} -inf mask differs from the plain version")
+            fin = torch.isfinite(a) & torch.isfinite(b)
+            a, b = a[fin], b[fin]
+        err = (a - b).abs()
+        max_err = max(max_err, float(err.max()))
+        bad = int((err > tol + tol * b.abs()).sum())
+        log(f"{label} {name}: max |kernel - plain| = {float(err.max()):.3e}, {bad} of "
+            f"{a.numel()} outside rtol=atol={tol}")
+        if bad:
+            raise SystemExit(f"{label}: {name} disagrees with the plain version")
+    return max_err
+
+
 def phase_chees_vs_plain(model):
-    from ptmcmcsampler_torch.ops.chees import chees_trajectories, chees_trajectories_plain
+    """Both ChEES entries against their plain versions: the trajectory entry
+    and the fused step at 32 and 256 steps, then a ragged batch of each."""
+    from ptmcmcsampler_torch.ops.chees import (
+        chees_step, chees_step_plain, chees_trajectories, chees_trajectories_plain,
+    )
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
@@ -175,42 +267,55 @@ def phase_chees_vs_plain(model):
     max_err = 0.0
     for max_nsteps in (32, 256):
         args = trajectory_inputs(gen, dev, max_nsteps)
-        q1, p1, lp1 = chees_trajectories(*args, model)
-        q1p, p1p, lp1p = chees_trajectories_plain(*args, model)
+        out = chees_trajectories(*args, model)
+        ref = chees_trajectories_plain(*args, model)
         torch.cuda.synchronize()
-        if not (torch.isfinite(q1).all() and torch.isfinite(p1).all()):
+        if not (torch.isfinite(out[0]).all() and torch.isfinite(out[1]).all()):
             raise SystemExit("kernel returned non-finite positions or momenta")
-        for name, a, b in (("q1", q1, q1p), ("p1", p1, p1p)):
-            err = (a - b).abs()
-            max_err = max(max_err, float(err.max()))
-            bad = int((err > SHORT_TOL + SHORT_TOL * b.abs()).sum())
-            log(f"ChEES nsteps<={max_nsteps} {name}: max |kernel - plain| = "
-                f"{float(err.max()):.3e}, {bad} of {a.numel()} outside rtol=atol={SHORT_TOL}")
-            if max_nsteps <= 32 and bad:
-                raise SystemExit(f"ChEES kernel {name} disagrees with the plain version")
-        same_mask = torch.equal(torch.isneginf(lp1), torch.isneginf(lp1p))
-        log(f"ChEES nsteps<={max_nsteps} logp1 -inf masks equal: {same_mask}")
-        if max_nsteps <= 32 and not same_mask:
-            raise SystemExit("ChEES kernel logp1 -inf mask differs from the plain version")
-        if max_nsteps > 32:
-            q0, p0, betas = args[0], args[1], args[2]
-            lp0, _ = model.value_grad(args[5].T @ q0, betas[:, None])
-            k0 = 0.5 * (p0 * p0).sum(1)
+        label = f"ChEES trajectories nsteps<={max_nsteps}"
+        log(f"{label}: {lanes_differ(out, ref)} of {T * C} lanes differ in any output")
+        if max_nsteps <= 32:
+            max_err = max(max_err, check_pointwise(
+                label, zip(("q1", "p1", "logp1"), out, ref), SHORT_TOL, neginf=("logp1",)))
+        else:
+            q0, p0, betas, chol = args[0], args[1], args[2], args[5]
+            x0 = chol.T @ q0
+            check_energy_errors(label,
+                                energy_error(model, betas, x0, p0, chol.T @ out[0], out[1], out[2]),
+                                energy_error(model, betas, x0, p0, chol.T @ ref[0], ref[1], ref[2]))
 
-            def energy_error(lp1_, p1_):
-                dh = ((lp1_ - 0.5 * (p1_ * p1_).sum(1)) - (lp0 - k0)).abs()
-                return dh.flatten().cpu().numpy()
+    names = ("x1", "q0", "z1", "r1", "qxy", "alpha")
+    for max_steps in (32, 256):
+        args = step_inputs(gen, dev, max_steps)
+        out = chees_step(*args, model)
+        ref = chees_step_plain(*args, model)
+        torch.cuda.synchronize()
+        label = f"ChEES step max_steps={max_steps}"
+        log(f"{label}: {lanes_differ(out, ref)} of {T * C} lanes differ in any output")
+        if max_steps <= 32:
+            max_err = max(max_err, check_pointwise(label, zip(names[:4], out[:4], ref[:4]),
+                                                   SHORT_TOL))
+            max_err = max(max_err, check_pointwise(label, zip(names[4:], out[4:], ref[4:]),
+                                                   HMC_QXY_TOL, neginf=("qxy", "alpha")))
+        else:
+            x, r0, betas = args[0], args[1], args[3]
+            check_energy_errors(label, energy_error(model, betas, x, r0, out[0], out[3]),
+                                energy_error(model, betas, x, r0, ref[0], ref[3]))
 
-            dh_k, dh_p = energy_error(lp1, p1), energy_error(lp1p, p1p)
-            fin_k, fin_p = np.isfinite(dh_k), np.isfinite(dh_p)
-            ks = ks_distance(dh_k[fin_k], dh_p[fin_p])
-            share = abs(fin_k.mean() - fin_p.mean())
-            log(f"ChEES nsteps<=256 |dH|: KS distance {ks:.4f}, finite share kernel "
-                f"{fin_k.mean():.5f} plain {fin_p.mean():.5f}, median |dH| kernel "
-                f"{np.median(dh_k[fin_k]):.4e} plain {np.median(dh_p[fin_p]):.4e}")
-            if ks >= KS_TOL or share > NEGINF_SHARE_TOL:
-                raise SystemExit(
-                    "ChEES kernel energy-error distribution differs from the plain version")
+    ragged = C - 100  # at 8 x 16284 chains: 508 whole blocks and one of 224
+    args = trajectory_inputs(gen, dev, 32, ragged)
+    out, ref = chees_trajectories(*args, model), chees_trajectories_plain(*args, model)
+    label = f"ChEES trajectories ragged {T} x {ragged}"
+    log(f"{label}: {lanes_differ(out, ref)} of {T * ragged} lanes differ in any output")
+    max_err = max(max_err, check_pointwise(
+        label, zip(("q1", "p1", "logp1"), out, ref), SHORT_TOL, neginf=("logp1",)))
+    args = step_inputs(gen, dev, 32, ragged)
+    out, ref = chees_step(*args, model), chees_step_plain(*args, model)
+    label = f"ChEES step ragged {T} x {ragged}"
+    log(f"{label}: {lanes_differ(out, ref)} of {T * ragged} lanes differ in any output")
+    max_err = max(max_err, check_pointwise(label, zip(names[:4], out[:4], ref[:4]), SHORT_TOL))
+    max_err = max(max_err, check_pointwise(label, zip(names[4:], out[4:], ref[4:]),
+                                           HMC_QXY_TOL, neginf=("qxy", "alpha")))
     return max_err
 
 
@@ -333,10 +438,11 @@ def nuts_config():
     )
 
 
-def phase_main_path(model, card, path, cfg, wrappers):
+def phase_main_path(model, card, path, cfg, wrappers, absent=()):
     """Run ``cfg`` at full width; ``wrappers`` maps each jump kind whose
     kernel the path must launch once per iteration of that kind to the
-    kernel's wrapper (which counts its launches)."""
+    kernel's wrapper (which counts its launches); the wrappers in ``absent``
+    must not launch at all."""
     from ptmcmcsampler_torch import build_step, init_state
     from ptmcmcsampler_torch.diagnostics import moment_gate, split_rhat
     from ptmcmcsampler_torch.ladder import ladder_betas, temperature_ladder
@@ -344,7 +450,7 @@ def phase_main_path(model, card, path, cfg, wrappers):
     dev = torch.device(DEVICE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    _, run_block = build_step(cfg, model, device=dev)
+    step, run_block = build_step(cfg, model, device=dev)
     _, betas = ladder_betas(temperature_ladder(D, T))
     x0 = np.array([-0.1, -0.5])
     xs = torch.tensor(x0, dtype=torch.float32, device=dev)[None, :, None].expand(T, D, C)
@@ -352,7 +458,7 @@ def phase_main_path(model, card, path, cfg, wrappers):
         cfg, 7, x0, np.eye(D), betas, model.lnlike(xs), model.lnprior(xs), device=dev
     )
 
-    for w in wrappers.values():
+    for w in (*wrappers.values(), *absent):
         w.launches = 0
     t0 = time.time()
     for b in range(BURN_ITERS // BLOCK):
@@ -377,6 +483,9 @@ def phase_main_path(model, card, path, cfg, wrappers):
         if n == 0 or n != iters:
             raise SystemExit(
                 f"path {path} did not launch the {kind} kernel once per {kind} iteration")
+    for w in absent:
+        if w.launches:
+            raise SystemExit(f"path {path} launched {w.__name__} {w.launches} times")
     if not (torch.isfinite(state.x).all() and state.x.shape == (T, D, C)):
         raise SystemExit(f"path {path}: state is not finite or has the wrong shape")
 
@@ -406,7 +515,7 @@ def phase_main_path(model, card, path, cfg, wrappers):
         "card": name,
         "power_limit": power,
     }
-    return state, run_block, result, ok
+    return state, (step, run_block), result, ok
 
 
 def print_result(result, ok):
@@ -422,15 +531,16 @@ def _device_us(event):
     )
 
 
-def phase_profile(state, run_block, path, iters=PROFILE_ITERS):
-    """Device-busy share and the largest device times over ``iters`` more
-    iterations of a path, with the profiler on (which slows the host)."""
+def phase_profile(state, advance, path, iters=PROFILE_ITERS, iterations="all"):
+    """Device-busy share, device operations an iteration and the largest
+    device times over ``iters`` more iterations of a path, run by
+    ``advance(state, iters)``, with the profiler on (which slows the host)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        state, _ = run_block(state, iters)
+        state = advance(state, iters)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.time() - t0)
     # Device-side events only (kernels, copies, fills): the CPU-side aten
@@ -444,6 +554,7 @@ def phase_profile(state, run_block, path, iters=PROFILE_ITERS):
     result = {
         "phase": "profile",
         "path": path,
+        "iterations": iterations,
         "iters": iters,
         "wall_ms_per_iter": wall_us / 1e3 / iters,
         "device_busy_share": device_us / wall_us if device_us else "not measured",
@@ -453,6 +564,22 @@ def phase_profile(state, run_block, path, iters=PROFILE_ITERS):
     }
     print(json.dumps(result), flush=True)
     return state
+
+
+def advance_blocks(run_block):
+    return lambda state, iters: run_block(state, iters)[0]
+
+
+def advance_kind(step, cfg, kind):
+    """``iters`` iterations of one jump kind, by ``step(state, kind)``."""
+    index = [j.kind for j in cfg.jumps].index(kind)
+
+    def advance(state, iters):
+        for _ in range(iters):
+            state = step(state, index)
+        return state
+
+    return advance
 
 
 def kernel_entry(name, replaces, launches, max_err, kernel_ms, wrapper_ms, plain_ms, bytes_moved,
@@ -476,10 +603,17 @@ def kernel_entry(name, replaces, launches, max_err, kernel_ms, wrapper_ms, plain
 
 
 def chees_kernel_entry(model, state, launches, max_err):
-    """Time the ChEES kernel and its plain version on inputs from path 1's
-    final state: the adapted step sizes and trajectory lengths, fresh
-    momenta and jitter, drawn as proposals/chees.py draws them."""
-    from ptmcmcsampler_torch.ops.chees import chees_trajectories, chees_trajectories_plain
+    """Time both ChEES entries and their plain versions on inputs from path
+    1's final state: the adapted step sizes and trajectory lengths, fresh
+    momenta and jitter, drawn as proposals/chees.py draws them, with the
+    trajectory entry's start whitened by a matmul as before the fused step
+    existed (so its time compares with earlier runs); then the lane
+    efficiency of those lengths and the capped timings. ``launches`` maps
+    each entry to its launches on path 1."""
+    from ptmcmcsampler_torch.ops.chees import (
+        chees_step, chees_step_plain, chees_trajectories, chees_trajectories_plain,
+        lane_efficiency,
+    )
 
     dev = state.x.device
     gen = torch.Generator(device=dev)
@@ -494,21 +628,65 @@ def chees_kernel_entry(model, state, launches, max_err):
     q0 = (chol_inv.T @ state.x).contiguous()
     p0 = torch.randn((T, D, C), generator=gen, device=dev)
     args = (q0, p0, state.betas, eps, nsteps, chol, model)
+    fused = (state.x, p0, u, state.betas, eps, ss.chees_tlen.contiguous(), HMC_EPS, max_steps,
+             chol, chol_inv, model)
 
     kernel_ms = cuda_ms(lambda: chees_trajectories(*args), 50, hold_stream=True)
     wrapper_ms = cuda_ms(lambda: chees_trajectories(*args), 50)
     plain_ms = cuda_ms(lambda: chees_trajectories_plain(*args), 5)
+    fused_ms = cuda_ms(lambda: chees_step(*fused), 50, hold_stream=True)
+    fused_wrapper_ms = cuda_ms(lambda: chees_step(*fused), 50)
+    fused_plain_ms = cuda_ms(lambda: chees_step_plain(*fused), 5)
+    # The fused step runs these nsteps: its end point is the trajectory
+    # entry's from its own q0 (an ordered sum, where q0 above is a matmul).
+    out = chees_step(*fused)
+    z1, r1, _ = chees_trajectories(out[1], p0, state.betas, eps, nsteps, chol, model)
+    if not (torch.equal(out[2], z1) and torch.equal(out[3], r1)):
+        raise SystemExit("the fused ChEES step's trajectories differ from the trajectory entry's")
     steps = int(nsteps.sum())
+    max_nsteps = int(nsteps.max())
     # Per chain: q0, p0, q1, p1 (4 * D floats), eps, nsteps, logp1.
     bytes_moved = 4 * (4 * D + 3) * T * C + 4 * (T + D * D)
     ops = OPS_PER_STEP * (steps + T * C)  # + the starting gradient
+    # Per chain: x, r0, u, eps, tlen in; x1, q0, z1, r1, qxy, alpha out.
+    fused_bytes = 4 * (6 * D + 5) * T * C + 4 * (T + 2 * D * D)
+    fused_bound_ms, fused_bound_by = bound(fused_bytes, ops + OPS_PER_CHEES_CHAIN * T * C)
+    capped = chees_capped_timings(model, q0, p0, state.betas, eps, chol, max_nsteps)
+    extra = {
+        "launches_by_entry": launches,
+        "fused_ms": fused_ms, "fused_wrapper_ms": fused_wrapper_ms,
+        "fused_plain_ms": fused_plain_ms, "fused_bound_ms": fused_bound_ms,
+        "fused_bound_by": fused_bound_by,
+        "lane_efficiency_unsorted": lane_efficiency(nsteps, grouped=False),
+        "lane_efficiency_sorted": lane_efficiency(nsteps, grouped=True),
+        "mean_nsteps": steps / (T * C), "max_nsteps": max_nsteps, **capped,
+    }
     log(f"ChEES kernel {kernel_ms:.4f} ms, wrapper call {wrapper_ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms, mean nsteps {steps / (T * C):.2f}, max {int(nsteps.max())}")
+        f"{plain_ms:.3f} ms; fused step {fused_ms:.4f} ms, wrapper call {fused_wrapper_ms:.4f} "
+        f"ms, plain {fused_plain_ms:.3f} ms; {extra}")
     return kernel_entry(
-        "chees_trajectory", "ptmcmcsampler_tpu/ops/chees_pallas.py:41", launches, max_err,
-        kernel_ms, wrapper_ms, plain_ms, bytes_moved, ops,
-        mean_nsteps=steps / (T * C),
+        "chees_trajectory", "ptmcmcsampler_tpu/ops/chees_pallas.py:41",
+        launches["chees_step"] + launches["chees_trajectories"], max_err,
+        kernel_ms, wrapper_ms, plain_ms, bytes_moved, ops, **extra,
     )
+
+
+def chees_capped_timings(model, q0, p0, betas, eps, chol, nsteps):
+    """The trajectory entry with every chain at ``nsteps`` steps: over the
+    whole batch, the time a step takes when every lane is busy
+    (throughput); over one warp alone (T = 1, C = 32), the time a step
+    takes on one thread's dependent chain (latency)."""
+    from ptmcmcsampler_torch.ops.chees import chees_step, chees_trajectories
+
+    result = {}
+    for name, t, c, reps in (("batch", T, C, 20), ("warp", 1, 32, 50)):
+        args = (q0[:t, :, :c].contiguous(), p0[:t, :, :c].contiguous(), betas[:t].contiguous(),
+                eps[:t, :c].contiguous(),
+                torch.full((t, c), nsteps, dtype=torch.int32, device=q0.device), chol, model)
+        ms = cuda_ms(lambda: chees_trajectories(*args), reps, hold_stream=True)
+        result[f"capped_{name}_ms"] = ms
+        result[f"capped_{name}_us_per_step"] = 1e3 * ms / nsteps
+    return result
 
 
 def hmc_kernel_entry(model, state, launches, max_err):
@@ -649,7 +827,7 @@ def main():
     from ptmcmcsampler_torch.config import KIND_CHEES, KIND_HMC, KIND_NUTS
     from ptmcmcsampler_torch.models import CurvedLikelihood
     from ptmcmcsampler_torch.ops import build
-    from ptmcmcsampler_torch.ops.chees import chees_trajectories
+    from ptmcmcsampler_torch.ops.chees import chees_step, chees_trajectories
     from ptmcmcsampler_torch.ops.hmc import hmc_trajectories
     from ptmcmcsampler_torch.ops.nuts import nuts_trees
 
@@ -670,22 +848,25 @@ def main():
         "nuts": phase_nuts_vs_plain(model),
     }
 
-    state, run_block, result, ok = phase_main_path(
-        model, card, "chees", headline_config(), {KIND_CHEES: chees_trajectories})
+    cfg = headline_config()
+    state, (step, run_block), result, ok = phase_main_path(
+        model, card, "chees", cfg, {KIND_CHEES: chees_step}, absent=(chees_trajectories,))
     result.update(chees_eps=state.stepsize.chees_eps[:, 0].tolist(),
                   chees_tlen=state.stepsize.chees_tlen[:, 0].tolist())
     print_result(result, ok)
-    launches = result["launches"]
-    state = phase_profile(state, run_block, "chees")
-    kernels = [chees_kernel_entry(model, state, launches[KIND_CHEES], err["chees"])]
-    del state, run_block
+    launches = {"chees_step": result["launches"][KIND_CHEES], "chees_trajectories": 0}
+    state = phase_profile(state, advance_blocks(run_block), "chees")
+    state = phase_profile(state, advance_kind(step, cfg, KIND_CHEES), "chees",
+                          iterations=f"{KIND_CHEES} only")
+    kernels = [chees_kernel_entry(model, state, launches, err["chees"])]
+    del state, step, run_block
 
-    state, run_block, result, ok = phase_main_path(
+    state, (_, run_block), result, ok = phase_main_path(
         model, card, "nuts", nuts_config(), {KIND_NUTS: nuts_trees, KIND_HMC: hmc_trajectories})
     result.update(nuts_path_extras(model, state))
     print_result(result, ok)
     launches = result["launches"]
-    state = phase_profile(state, run_block, "nuts")
+    state = phase_profile(state, advance_blocks(run_block), "nuts")
     kernels.append(nuts_kernel_entry(model, state, launches[KIND_NUTS], err["nuts"]))
     kernels.append(hmc_kernel_entry(model, state, launches[KIND_HMC], err["hmc"]))
 

@@ -1,19 +1,29 @@
-"""ChEES trajectory kernel: wrapper, plain version and binding.
+"""ChEES trajectory kernel and fused ChEES step: wrappers, plain versions
+and binding.
 
 ``chees_trajectories`` runs, for every chain of the ``[T, C]`` batch, a
 whitened leapfrog trajectory of its own length ``nsteps`` with its own step
 size, and returns the end point ``(q1, p1, logp1)``. It is the port of
 ``ptmcmcsampler_tpu/ops/chees_pallas.py::_chees_kernel``.
 
-* On a CUDA tensor the wrapper launches the hand-written kernel in
-  ``csrc/chees_trajectory.cu`` (one thread per chain) or raises: a model
-  without a device functor, a wrong shape, type or layout, or a failed
-  launch all raise.
-* On a CPU tensor it runs ``chees_trajectories_plain``, the same function
-  written as a loop of masked PyTorch steps. The tests hold it to the JAX
-  package, and ``chip_smoke.py`` holds the kernel to it on the card.
+``chees_step`` is the per-chain part of a ChEES step around the same
+trajectory (``proposals/chees.py``): the step size and jittered length from
+the step-size state, the whitening, the trajectory, the kinetic energies,
+``qxy``, the acceptance probability and the end point mapped back. It is
+the same kernel with its prologue and epilogue, so a ChEES iteration pays
+one launch for all of it.
 
-``chees_trajectories.launches`` counts the kernel's launches.
+* On a CUDA tensor each wrapper launches the hand-written kernel in
+  ``csrc/chees_trajectory.cu`` (one thread per chain, the block's chains
+  grouped by length) or raises: a model without a device functor, a wrong
+  shape, type or layout, or a failed launch all raise.
+* On a CPU tensor it runs its plain version, the same function written as a
+  loop of masked PyTorch steps in the kernel's operation order. The tests
+  hold it to the JAX package, and ``chip_smoke.py`` holds the kernel to it
+  on the card.
+
+``chees_trajectories.launches`` and ``chees_step.launches`` count the
+kernel's launches through each entry.
 """
 
 from __future__ import annotations
@@ -24,19 +34,24 @@ import torch
 
 from . import common
 
+# The kernel's block, and its warps: each block orders its chains by length
+# (csrc/chees_trajectory.cu), lengths of SORT_BINS - 1 or more sharing a bin.
+BLOCK = 256
+WARP = 32
+SORT_BINS = 256
 
-def chees_trajectories_plain(q0, p0, beta, eps, nsteps, chol, model):
-    """Plain PyTorch version of the kernel (same arguments and results).
 
-    Each chain stops at its own ``nsteps``: the loop runs to the largest and
-    masks the rest, which equals the Pallas kernel's masked loop exactly.
-    """
+def _trajectories_plain(q0, p0, beta, eps, nsteps, chol, model):
+    """``(q1, p1, logp1, logp0)``: the kernel's trajectory and its first
+    evaluation. Each chain stops at its own ``nsteps``: the loop runs to the
+    largest and masks the rest, which equals the Pallas kernel's masked loop
+    exactly."""
     eps_b = eps[:, None, :]
     half = 0.5 * eps_b
     fgw = common.whitened(model, chol, beta[:, None])
 
-    logp, g = fgw(q0)
-    q, p = q0, p0
+    logp0, g = fgw(q0)
+    q, p, logp = q0, p0, logp0
     for i in range(int(nsteps.max())):  # a host read: CPU tensors only
         take = nsteps > i
         take_d = take[:, None, :]
@@ -48,7 +63,13 @@ def chees_trajectories_plain(q0, p0, beta, eps, nsteps, chol, model):
         p = torch.where(take_d, pn, p)
         g = torch.where(take_d, gn, g)
         logp = torch.where(take, logpn, logp)
-    return q, p, torch.where(torch.isnan(logp), float("-inf"), logp)
+    return q, p, torch.where(torch.isnan(logp), float("-inf"), logp), logp0
+
+
+def chees_trajectories_plain(q0, p0, beta, eps, nsteps, chol, model):
+    """Plain PyTorch version of the trajectory entry (same arguments and
+    results)."""
+    return _trajectories_plain(q0, p0, beta, eps, nsteps, chol, model)[:3]
 
 
 def chees_trajectories(q0, p0, beta, eps, nsteps, chol, model):
@@ -90,3 +111,102 @@ def chees_trajectories(q0, p0, beta, eps, nsteps, chol, model):
 
 
 chees_trajectories.launches = 0
+
+
+def chees_step_plain(x, r0, u, beta, eps, tlen, eps0, max_steps, chol, chol_inv, model):
+    """Plain PyTorch version of the fused step (same arguments and results).
+
+    Every product over ``D`` is an ordered sum (``common.matvec``,
+    ``common.rdot``), not ``torch.matmul``, so that it rounds as the kernel.
+    """
+    eps_tc = torch.where(eps > 0, eps, eps0)
+    tlen_tc = torch.maximum(tlen, eps_tc)
+    nsteps = torch.clamp(torch.ceil(u * tlen_tc / eps_tc), 1, max_steps).to(torch.int32)
+    q0 = common.matvec(chol_inv.T, x)
+    z1, r1, logp1, logp0 = _trajectories_plain(q0, r0, beta, eps_tc, nsteps, chol, model)
+    k0 = 0.5 * common.rdot(r0, r0)
+    k1 = 0.5 * common.rdot(r1, r1)
+    denergy = (logp1 - k1) - (logp0 - k0)
+    denergy = torch.where(torch.isnan(denergy), float("-inf"), denergy)
+    qxy = k0 - k1
+    qxy = torch.where(torch.isnan(qxy), float("-inf"), qxy)
+    alpha = torch.clamp(torch.exp(denergy), max=1.0)
+    return common.matvec(chol.T, z1), q0, z1, r1, qxy, alpha
+
+
+def chees_step(x, r0, u, beta, eps, tlen, eps0, max_steps, chol, chol_inv, model):
+    """The per-chain part of a ChEES step, one trajectory a chain.
+
+    Args:
+      x:        ``[T, D, C]`` f32 positions.
+      r0:       ``[T, D, C]`` f32 standard-normal momenta.
+      u:        ``[T, C]`` f32 jitter in ``[1e-3, 1)``.
+      beta:     ``[T]`` f32 inverse temperatures.
+      eps:      ``[T, C]`` f32 step sizes (``chees_eps``); ``<= 0`` takes ``eps0``.
+      tlen:     ``[T, C]`` f32 trajectory lengths (``chees_tlen``), at least eps.
+      eps0:     the fallback step size, a Python float (``hmc_stepsize``).
+      max_steps: the cap on a trajectory's steps, a Python int.
+      chol, chol_inv: ``[D, D]`` f32 Cholesky factor of the mass-matrix
+                inverse and its inverse.
+      model:    gives ``value_grad`` (plain version) and ``cuda_functor``.
+    Returns:
+      ``(x1, q0, z1, r1, qxy, alpha)``: ``x1 = chol^T z1`` the proposal,
+      ``q0 = chol_inv^T x`` the whitened start, ``(z1, r1)`` the end point
+      (``[T, D, C]``), ``qxy = k0 - k1`` and ``alpha = min(1, exp(dH))``
+      (``[T, C]``, NaN mapped to -inf before ``exp``).
+    """
+    if common.check_device("chees_step", x):
+        return chees_step_plain(x, r0, u, beta, eps, tlen, eps0, max_steps, chol, chol_inv,
+                                model)
+    t, d, c = x.shape
+    functor = common.cuda_functor("ChEES step", model, d)
+    f32 = torch.float32
+    common.check_args("chees_step", x.device, {
+        "x": (x, (t, d, c), f32), "r0": (r0, (t, d, c), f32), "u": (u, (t, c), f32),
+        "beta": (beta, (t,), f32), "eps": (eps, (t, c), f32), "tlen": (tlen, (t, c), f32),
+        "chol": (chol, (d, d), f32), "chol_inv": (chol_inv, (d, d), f32),
+    })
+    if t * c >= 2**31:
+        raise ValueError("chees_step: more than 2**31 - 1 chains")
+    if not 1 <= max_steps < 2**31:
+        raise ValueError(f"chees_step: max_steps {max_steps} is not in [1, 2**31)")
+    points = torch.empty((4, t, d, c), dtype=f32, device=x.device)
+    scalars = torch.empty((2, t, c), dtype=f32, device=x.device)
+    fn = common.entry(
+        "chees_trajectory", f"chees_step_{functor}",
+        [ctypes.c_void_p] * 8 + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 6
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    )
+    x1, q0, z1, r1 = points.unbind(0)
+    qxy, alpha = scalars.unbind(0)
+    ins = (x, r0, u, beta, eps, tlen, chol, chol_inv)
+    outs = (x1, q0, z1, r1, qxy, alpha)
+    common.launch(
+        "chees_step", fn, x.device, *(a.data_ptr() for a in ins), float(eps0), int(max_steps),
+        *(a.data_ptr() for a in outs), t, c,
+    )
+    chees_step.launches += 1
+    return x1, q0, z1, r1, qxy, alpha
+
+
+chees_step.launches = 0
+
+
+def lane_efficiency(nsteps, grouped=True):
+    """Share of the lane-steps a batch issues that do work: ``sum(nsteps) /
+    (32 * sum over warps of the warp's largest nsteps)``.
+
+    ``nsteps [T, C]`` in the kernel's lane order: chain ``n = t*C + c`` in
+    block ``n // 256``, lanes past ``T*C`` at length 0. ``grouped`` orders
+    each block by length as the kernel does (a top bin of ``SORT_BINS - 1``
+    and more; within a bin the kernel's order follows its shared atomics,
+    this keeps index order); ``grouped=False`` is chain ``n`` on thread ``n``.
+    """
+    n = nsteps.reshape(-1).to(torch.int64).cpu()
+    pad = (-n.numel()) % BLOCK
+    lanes = torch.cat([n, n.new_zeros(pad)]).view(-1, BLOCK)
+    if grouped:
+        order = torch.argsort(lanes.clamp(0, SORT_BINS - 1), dim=1, stable=True)
+        lanes = torch.gather(lanes, 1, order)
+    issued = WARP * lanes.view(-1, WARP).max(dim=1).values.sum()
+    return float(n.sum()) / float(issued)

@@ -7,9 +7,12 @@ is ``qxy = K0 - K1``, so the outer tempered accept equals the Hamiltonian
 error. During burn-in, ``log eps`` follows dual averaging toward
 ``chees_delta`` and ``log tlen`` an Adam ascent on the ChEES criterion
 (Hoffman, Radul & Sountsov); after burn-in both freeze, so the kernel is a
-fixed Markov kernel. The trajectories run in
-:func:`ptmcmcsampler_torch.ops.chees.chees_trajectories`: the hand-written
-CUDA kernel on the card, its plain version on the CPU.
+fixed Markov kernel. The per-chain part of a step (step size and length,
+whitening, trajectory, kinetic energies, ``qxy``, acceptance, the end point
+mapped back) runs in :func:`ptmcmcsampler_torch.ops.chees.chees_step`: one
+launch of the hand-written CUDA kernel on the card, its plain version on
+the CPU. The per-rung adaptation, which needs means over the chains, stays
+in PyTorch.
 
 The chees_* step-size entries are per-temperature values replicated along
 the chain axis.
@@ -20,8 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.chees import chees_trajectories
-from .gradient import make_whitened_funcs
+from ..ops.chees import chees_step
 from .nuts import GAMMA, KAPPA, T0  # dual averaging, shared with NUTS
 # Adam constants for the trajectory-length ascent (ChEES paper defaults).
 B1 = 0.9
@@ -30,7 +32,6 @@ ADAM_EPS = 1e-8
 
 
 def make_chees(config, model):
-    forward, backward, fgw = make_whitened_funcs(model.value_grad)
     max_steps = config.chees_max_steps
     delta = config.chees_delta
     lr = config.chees_lr
@@ -42,23 +43,13 @@ def make_chees(config, model):
         """Deterministic ChEES step: ``r0 [T, D, C]`` standard-normal momenta
         and ``u [T, C]`` jitter in ``[1e-3, 1)``. Returns ``(q, qxy, ss)``."""
         t, _, c = x.shape
-        eps_tc = torch.where(ss["chees_eps"] > 0, ss["chees_eps"], eps0)  # [T, C]
-        tlen_tc = torch.maximum(ss["chees_tlen"], eps_tc)
-        nsteps = torch.clamp(torch.ceil(u * tlen_tc / eps_tc), 1, max_steps).to(torch.int32)
-
-        q0 = forward(ctx, x)
-        logp0, _ = fgw(ctx, q0, betas[:, None])
-        k0 = 0.5 * torch.sum(r0 * r0, dim=1)
-        z1, r1, logp1 = chees_trajectories(
-            q0, r0, betas, eps_tc.contiguous(), nsteps, ctx.chol.contiguous(), model
+        x1, q0, z1, r1, qxy, alpha = chees_step(
+            x, r0, u, betas, ss["chees_eps"], ss["chees_tlen"], eps0, max_steps,
+            ctx.chol.contiguous(), ctx.chol_inv.contiguous(), model,
         )
-
-        k1 = 0.5 * torch.sum(r1 * r1, dim=1)
-        denergy = (logp1 - k1) - (logp0 - k0)
-        denergy = torch.where(torch.isnan(denergy), float("-inf"), denergy)
-        qxy = k0 - k1
-        qxy = torch.where(torch.isnan(qxy), float("-inf"), qxy)
-        alpha = torch.clamp(torch.exp(denergy), max=1.0)  # [T, C]
+        # The step size and length the trajectories used, per rung.
+        eps_prev = ss["chees_eps"][:, 0]
+        tlen_t = torch.maximum(ss["chees_tlen"][:, 0], torch.where(eps_prev > 0, eps_prev, eps0))
 
         in_burn = it <= nburn  # a host integer comparison
 
@@ -96,7 +87,7 @@ def make_chees(config, model):
         mhat = m_t / (1.0 - B1 ** ncalls)
         vhat = v_t / (1.0 - B2 ** ncalls)
         step = lr * mhat / (torch.sqrt(vhat) + ADAM_EPS)
-        log_tlen = torch.log(torch.clamp(tlen_tc[:, 0], min=1e-10))
+        log_tlen = torch.log(torch.clamp(tlen_t, min=1e-10))
         new_tlen = torch.exp(log_tlen + step) if in_burn else torch.exp(log_tlen)
         new_tlen = torch.minimum(torch.maximum(new_tlen, new_eps), new_eps * max_steps)
 
@@ -117,7 +108,7 @@ def make_chees(config, model):
         new_ss["chees_m"] = rep(freeze(m_t, ss["chees_m"][:, 0]))
         new_ss["chees_v"] = rep(freeze(v_t, ss["chees_v"][:, 0]))
         new_ss["chees_tlen"] = rep(new_tlen)
-        return backward(ctx, z1), qxy, new_ss
+        return x1, qxy, new_ss
 
     def chees(rng, x, betas, it, ctx, ss):
         t, d, c = x.shape

@@ -19,13 +19,16 @@ import torch
 
 from ptmcmcsampler_torch import config as t_config
 from ptmcmcsampler_torch.models import CurvedLikelihood as TCurved
-from ptmcmcsampler_torch.ops.chees import chees_trajectories
+from ptmcmcsampler_torch.ops.chees import (
+    chees_step, chees_step_plain, chees_trajectories, lane_efficiency,
+)
 from ptmcmcsampler_torch.proposals import chees as t_chees
 from ptmcmcsampler_torch.proposals.base import ProposalContext as TCtx
 from ptmcmcsampler_tpu import config as j_config
 from ptmcmcsampler_tpu.models import CurvedLikelihood as JCurved
 from ptmcmcsampler_tpu.ops.chees_pallas import fused_chees_trajectories
 from ptmcmcsampler_tpu.proposals import chees as j_chees
+from ptmcmcsampler_tpu.proposals import gradient as j_gradient
 from ptmcmcsampler_tpu.proposals.base import ProposalContext as JCtx
 from ptmcmcsampler_tpu.utils import split_grid
 
@@ -143,3 +146,143 @@ def test_chees_core_matches_make_chees(it, first_call):
                                    atol=SS_ATOL, err_msg=k)
     if it > 100:  # frozen after burn-in
         np.testing.assert_array_equal(tss["chees_count"].numpy(), ss["chees_count"])
+
+
+EPS0 = 0.08
+
+
+def _step_inputs(seed, start=(0.2, -0.8)):
+    """x, r0, u and the step-size state of a fused step: rung 0 at its first
+    call (eps 0, so eps0 is used), rung 1 with a length below its step
+    size (so tlen = eps). Chain (0, 3) starts at ``start``."""
+    rng, x, betas, chol, jctx, tctx = _setup(seed)
+    x[0, :, 3] = start
+    r0 = rng.normal(size=(T, D, C)).astype(np.float32)
+    u = rng.uniform(1e-3, 1.0, size=(T, C)).astype(np.float32)
+    eps = np.repeat(np.array([[0.0], [0.12]], np.float32), C, axis=1)
+    tlen = np.repeat(np.array([[1.3], [0.05]], np.float32), C, axis=1)
+    return x, r0, u, betas, eps, tlen, chol, jctx, tctx
+
+
+def _jax_step(x, r0, u, betas, eps, tlen, jctx):
+    """The JAX package's pieces of make_chees around its Pallas kernel
+    (chees.py:80-166, :235), run interpreted."""
+    forward, backward, fgw = j_gradient.make_whitened_funcs(_func_grad)
+    eps_tc = jnp.where(eps > 0, eps, EPS0)
+    tlen_tc = jnp.maximum(tlen, eps_tc)
+    nsteps = jnp.clip(jnp.ceil(u * tlen_tc / eps_tc), 1, MAX_STEPS).astype(jnp.int32)
+    q0 = jax.vmap(jax.vmap(lambda xx: forward(jctx, xx), in_axes=-1, out_axes=-1))(x)
+    fgw_b = jax.vmap(jax.vmap(lambda qq, b: fgw(jctx, qq, b), in_axes=(-1, None),
+                              out_axes=(0, -1)), in_axes=(0, 0))
+    logp0, _ = fgw_b(q0, betas)
+    n = T * C
+    z1f, r1f, logp1f = fused_chees_trajectories(
+        jnp.moveaxis(q0, 1, 2).reshape(n, D), jnp.moveaxis(r0, 1, 2).reshape(n, D),
+        jnp.repeat(betas, C), eps_tc.reshape(n), nsteps.reshape(n), jctx.chol,
+        func_grad=_func_grad, ndim=D, max_steps=MAX_STEPS, interpret=True,
+    )
+    z1 = jnp.moveaxis(z1f.reshape(T, C, D), 1, 2)
+    r1 = jnp.moveaxis(r1f.reshape(T, C, D), 1, 2)
+    k0 = 0.5 * jnp.sum(r0 * r0, axis=1)
+    k1 = 0.5 * jnp.sum(r1 * r1, axis=1)
+    denergy = (logp1f.reshape(T, C) - k1) - (logp0 - k0)
+    denergy = jnp.where(jnp.isnan(denergy), -jnp.inf, denergy)
+    qxy = jnp.where(jnp.isnan(k0 - k1), -jnp.inf, k0 - k1)
+    alpha = jnp.minimum(1.0, jnp.exp(denergy))
+    x1 = jax.vmap(jax.vmap(lambda zz: backward(jctx, zz), in_axes=-1, out_axes=-1))(z1)
+    return [np.asarray(a) for a in (x1, q0, z1, r1, qxy, alpha)]
+
+
+@pytest.mark.parametrize("seed,start,alpha_out", [
+    (0, (0.2, -0.8), None), (1, (0.2, -0.8), None),
+    (0, (30.0, 0.5), 0.0),  # starts and ends outside the box: dH NaN -> -inf
+    (0, (12.0, 0.5), 1.0),  # starts outside, ends inside: dH = +inf
+])
+def test_chees_step_plain_matches_jax_pieces(seed, start, alpha_out):
+    """The fused step's plain version against forward, fgw, the interpreted
+    Pallas trajectory, the qxy/alpha formulas and backward of the JAX
+    package; chain (0, 3) starts inside the prior box or outside it
+    (``alpha_out``: its acceptance probability)."""
+    x, r0, u, betas, eps, tlen, chol, jctx, tctx = _step_inputs(seed, start)
+    want = _jax_step(jnp.asarray(x), jnp.asarray(r0), jnp.asarray(u), jnp.asarray(betas),
+                     jnp.asarray(eps), jnp.asarray(tlen), jctx)
+    got = chees_step(
+        torch.tensor(x), torch.tensor(r0), torch.tensor(u), torch.tensor(betas),
+        torch.tensor(eps), torch.tensor(tlen), EPS0, MAX_STEPS, tctx.chol, tctx.chol_inv, TCurved(),
+    )
+    got = [g.numpy() for g in got]
+    for name, g, w in zip(("x1", "q0", "z1", "r1"), got[:4], want[:4]):
+        assert g.shape == (T, D, C)
+        np.testing.assert_allclose(g, w, rtol=Q_TOL, atol=Q_TOL, err_msg=name)
+    for name, g, w in zip(("qxy", "alpha"), got[4:], want[4:]):
+        assert g.shape == (T, C)
+        np.testing.assert_array_equal(np.isneginf(g), np.isneginf(w), err_msg=name)
+        fin = np.isfinite(w)
+        np.testing.assert_allclose(g[fin], w[fin], rtol=QXY_TOL, atol=QXY_TOL, err_msg=name)
+    alpha = got[5]
+    assert ((alpha >= 0) & (alpha <= 1)).all()
+    if alpha_out is None:
+        assert (alpha > 0).all()
+    else:  # logp0 = -inf; qxy depends on the momenta alone
+        assert alpha[0, 3] == alpha_out and np.isfinite(got[4][0, 3])
+
+
+def test_chees_step_plain_is_the_trajectory_entry_inside():
+    """The fused step's plain version runs the trajectory entry's plain
+    version from q0 = chol_inv^T x at its own nsteps."""
+    x, r0, u, betas, eps, tlen, chol, _, tctx = _step_inputs(3)
+    args = [torch.tensor(a) for a in (x, r0, u, betas, eps, tlen)]
+    x1, q0, z1, r1, _, _ = chees_step_plain(*args, EPS0, MAX_STEPS, tctx.chol, tctx.chol_inv,
+                                            TCurved())
+    eps_tc = torch.where(args[4] > 0, args[4], EPS0)
+    tlen_tc = torch.maximum(args[5], eps_tc)
+    nsteps = torch.clamp(torch.ceil(args[2] * tlen_tc / eps_tc), 1, MAX_STEPS).to(torch.int32)
+    assert int(nsteps[1].max()) == 1 and int(nsteps[0].max()) > 1  # tlen < eps: one step
+    zt, rt, _ = chees_trajectories(q0, args[1], args[3], eps_tc, nsteps, tctx.chol, TCurved())
+    assert torch.equal(z1, zt) and torch.equal(r1, rt)
+    torch.testing.assert_close(q0, tctx.chol_inv.T @ args[0], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(x1, tctx.chol.T @ z1, rtol=1e-6, atol=1e-6)
+
+
+def test_make_chees_core_goes_through_chees_step(monkeypatch):
+    """``make_chees(...).core`` computes its per-chain part in one
+    ``chees_step`` call and never calls the trajectory entry."""
+    calls = []
+
+    def counting(*args):
+        calls.append(args)
+        return chees_step(*args)
+
+    def refuse(*args):
+        raise AssertionError("core called chees_trajectories")
+
+    monkeypatch.setattr(t_chees, "chees_step", counting)
+    monkeypatch.setattr("ptmcmcsampler_torch.ops.chees.chees_trajectories", refuse)
+    x, r0, u, betas, _, _, _, _, tctx = _step_inputs(4, (30.0, 0.5))
+    tc = t_config.SamplerConfig(
+        ndim=D, ntemps=T, nchains=C, groups=((0, 1),), burn=100, hmc_stepsize=EPS0,
+        chees_max_steps=MAX_STEPS,
+        jumps=t_config.build_default_jumps(CHEESweight=1, have_grads=True))
+    ss = {k: torch.tensor(v) for k, v in _ss(False).items()}
+    q, qxy, _ = t_chees.make_chees(tc, TCurved()).core(
+        torch.tensor(x), torch.tensor(betas), 5, tctx, ss, torch.tensor(r0), torch.tensor(u))
+    assert len(calls) == 1
+    want = chees_step(*calls[0])
+    assert torch.equal(q, want[0]) and torch.equal(qxy, want[4])
+
+
+@pytest.mark.parametrize("grouped,want", [(False, 528 * 8 / (32 * 8 * 32)),
+                                          (True, 528 * 8 / (32 * 144))])
+def test_lane_efficiency_of_one_block(grouped, want):
+    """One block whose every warp holds the lengths 1..32: unsorted each warp
+    issues 32 steps; sorted, warp w holds 4w+1..4w+4."""
+    nsteps = (torch.arange(256) % 32 + 1).view(2, 128)
+    assert lane_efficiency(nsteps, grouped) == pytest.approx(want, rel=1e-12)
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_lane_efficiency_of_a_ragged_batch(grouped):
+    """300 chains of 5 steps: the last block's 212 padding lanes cost
+    nothing, sorted (padding first) or not (padding last)."""
+    nsteps = torch.full((3, 100), 5, dtype=torch.int32)
+    assert lane_efficiency(nsteps, grouped) == pytest.approx(1500 / (32 * 5 * 10), rel=1e-12)

@@ -18,7 +18,9 @@ from ptmcmcsampler_torch import SamplerConfig, build_default_jumps, build_step, 
 from ptmcmcsampler_torch.config import KIND_CHEES, KIND_HMC, KIND_NUTS
 from ptmcmcsampler_torch.models import CurvedLikelihood
 from ptmcmcsampler_torch.ops import build
-from ptmcmcsampler_torch.ops.chees import chees_trajectories, chees_trajectories_plain
+from ptmcmcsampler_torch.ops.chees import (
+    chees_step, chees_step_plain, chees_trajectories, chees_trajectories_plain,
+)
 from ptmcmcsampler_torch.ops.hmc import hmc_trajectories, hmc_trajectories_plain
 from ptmcmcsampler_torch.ops.nuts import nuts_trees, nuts_trees_plain, nuts_uniforms
 
@@ -40,11 +42,47 @@ def _inputs(dev, t=2, c=1000, max_nsteps=16, seed=0):
     chol = torch.tensor([[0.7, 0.0], [0.2, 0.9]], device=dev)
     q0 = (torch.linalg.inv(chol).T @ x).contiguous()
     p0 = torch.randn((t, 2, c), generator=gen, device=dev)
-    betas = torch.tensor([1.0, 0.25], device=dev)[:t]
+    betas = torch.linspace(1.0, 0.25, t, device=dev)
     eps = torch.full((t, c), 0.03, device=dev)
     nsteps = torch.randint(1, max_nsteps + 1, (t, c), generator=gen, device=dev,
                            dtype=torch.int32)
     return q0, p0, betas, eps, nsteps, chol
+
+
+EPS0 = 0.08
+
+
+def _step_inputs(dev, t=2, c=1000, max_steps=16, seed=0):
+    """The fused step's arguments around the trajectory entry's: rung 0 at
+    its first call (eps 0, so EPS0 is used), lengths up to ``max_steps``."""
+    q0, r0, betas, eps, _, chol = _inputs(dev, t, c, seed=seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 2)
+    x = (chol.T @ q0).contiguous()
+    u = torch.rand((t, c), generator=gen, device=dev) * (1.0 - 1e-3) + 1e-3
+    eps[0] = 0.0
+    tlen = torch.where(eps > 0, eps, EPS0) * max_steps
+    chol_inv = torch.linalg.inv(chol).contiguous()
+    return x, r0, u, betas, eps, tlen, chol, chol_inv
+
+
+def _length_case(dev, case):
+    """Both entries' arguments for one case of trajectory lengths, and the
+    fused entry's max_steps."""
+    t, c, max_steps = (3, 333, 16) if case == "ragged" else (2, 1000, 16)
+    traj = list(_inputs(dev, t, c, max_nsteps=max_steps))
+    step = list(_step_inputs(dev, t, c, max_steps))
+    if case == "all_equal":  # ceil(0.999 * 8) = 8 in every lane
+        traj[4] = torch.full_like(traj[4], 8)
+        step[2] = torch.full_like(step[2], 0.999)
+        step[5] = step[5] / max_steps * 8
+    elif case == "one_long":  # one lane at 256 steps, the rest at most 16
+        max_steps = 256
+        traj[4][1, 5] = max_steps
+        step[2] = step[2] * (16 / max_steps)
+        step[2][1, 5] = 0.999
+        step[5] = step[5] / 16 * max_steps
+    return traj, step, max_steps
 
 
 def _tree_inputs(dev, depth, t=2, c=1000, seed=0):
@@ -73,6 +111,28 @@ def test_kernel_matches_plain(cuda):
     torch.testing.assert_close(q1, q1p, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(p1, p1p, rtol=1e-4, atol=1e-4)
     assert torch.equal(torch.isneginf(lp1), torch.isneginf(lp1p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "all_equal", "one_long", "ragged"])
+def test_chees_entries_bitwise_equal_plain(cuda, case):
+    """Both ChEES entries against their plain versions, bit for bit, with
+    the block's lanes grouped by length: random lengths, all equal, one
+    lane at 256 steps, and a batch that is not a whole number of blocks."""
+    traj, step, max_steps = _length_case(cuda, case)
+    model = CurvedLikelihood()
+    out = chees_trajectories(*traj, model)
+    ref = chees_trajectories_plain(*traj, model)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    before = chees_step.launches
+    out = chees_step(*step[:6], EPS0, max_steps, *step[6:], model)
+    assert chees_step.launches == before + 1
+    ref = chees_step_plain(*step[:6], EPS0, max_steps, *step[6:], model)
+    for name, a, b in zip(("x1", "q0", "z1", "r1", "qxy", "alpha"), out, ref):
+        assert torch.equal(a, b), name
+    if case == "one_long":
+        assert int(traj[4].max()) == 256
 
 
 @pytest.mark.cuda
@@ -141,6 +201,9 @@ def test_wrapper_raises_for_model_without_functor(cuda):
     q0, p0, betas, eps, nsteps, chol = _inputs(cuda)
     with pytest.raises(NotImplementedError, match="NoFunctor"):
         chees_trajectories(q0, p0, betas, eps, nsteps, chol, NoFunctor())
+    step = _step_inputs(cuda)
+    with pytest.raises(NotImplementedError, match="NoFunctor"):
+        chees_step(*step[:6], EPS0, 16, *step[6:], NoFunctor())
     with pytest.raises(NotImplementedError, match="NoFunctor"):
         hmc_trajectories(q0, p0, betas, nsteps, chol, 0.1, NoFunctor())
     with pytest.raises(NotImplementedError, match="NoFunctor"):
@@ -156,6 +219,17 @@ def test_wrapper_rejects_bad_layout(cuda):
         chees_trajectories(q0, p0, betas, eps, nsteps.long(), chol, CurvedLikelihood())
     with pytest.raises(ValueError, match="nsteps"):
         hmc_trajectories(q0, p0, betas, nsteps.long(), chol, 0.1, CurvedLikelihood())
+    x, r0, u, betas, eps, tlen, chol, chol_inv = _step_inputs(cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        chees_step(x, r0, u, betas, eps, tlen, EPS0, 16, chol, chol_inv.T, CurvedLikelihood())
+    with pytest.raises(ValueError, match="u is"):
+        chees_step(x, r0, u.double(), betas, eps, tlen, EPS0, 16, chol, chol_inv,
+                   CurvedLikelihood())
+    with pytest.raises(ValueError, match="x is not contiguous"):
+        chees_step(x.movedim(1, 2).contiguous().movedim(2, 1), r0, u, betas, eps, tlen, EPS0, 16, chol, chol_inv,
+                   CurvedLikelihood())
+    with pytest.raises(ValueError, match="max_steps"):
+        chees_step(x, r0, u, betas, eps, tlen, EPS0, 0, chol, chol_inv, CurvedLikelihood())
     with pytest.raises(ValueError, match="contiguous"):
         hmc_trajectories(q0, p0, betas, nsteps, chol.T, 0.1, CurvedLikelihood())
     tree = list(_tree_inputs(cuda, 3))
@@ -178,6 +252,8 @@ def test_wrapper_rejects_other_devices():
         chees_trajectories(*meta, None, None, None, None, CurvedLikelihood())
     with pytest.raises(ValueError, match="unsupported device"):
         hmc_trajectories(*meta, None, None, None, 0.1, CurvedLikelihood())
+    with pytest.raises(ValueError, match="unsupported device"):
+        chees_step(*meta, None, None, None, None, 0.08, 16, None, None, CurvedLikelihood())
     dirs = torch.empty((3, 2, 4), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         nuts_trees(*meta, None, None, None, dirs, dirs, None, None, CurvedLikelihood())
@@ -260,10 +336,13 @@ def _iterations(cfg, state, kind):
 
 @pytest.mark.cuda
 def test_main_path_launches_kernel_each_chees_iteration(cuda):
+    """One fused-step launch a ChEES iteration; the trajectory entry is not
+    on the path."""
     cfg = _small_config()
-    chees_trajectories.launches = 0
+    chees_step.launches = chees_trajectories.launches = 0
     state = _run_small(cfg, cuda, 60)
-    assert chees_trajectories.launches == _iterations(cfg, state, KIND_CHEES) > 0
+    assert chees_step.launches == _iterations(cfg, state, KIND_CHEES) > 0
+    assert chees_trajectories.launches == 0
 
 
 @pytest.mark.cuda
