@@ -27,6 +27,17 @@ Phases, in order; any failure exits non-zero:
    * HMC trajectories at the path's settings (eps 0.08, nsteps in [2, 50))
      and at eps 5.0, where about half the lanes leave the prior box (qxy
      -inf): q1 within 1e-4, qxy within 1e-3 (HMC_QXY_TOL), equal -inf masks.
+   * The fused HMC step (``hmc_step``: whitening, momenta and length drawn
+     in the kernel from a Philox key, trajectory, back-mapping) against
+     ``hmc_step_plain`` under the same key: at eps 0.08 and 5.0, with 2% of
+     starts outside the prior box (their trajectories run their whole
+     length), on ragged batches (8 x 16284 and 8 x 16283 chains: the last
+     256-chain block of each rung part full) and with nmax = nmin + 1:
+     x1 within SHORT_TOL, qxy within HMC_QXY_TOL, equal -inf masks. The
+     kernel's draws (``hmc_kernel_draws``) against ``hmc_draws``: nsteps
+     equal in every lane, p0 within DRAW_ULP_TOL ulp; and the step's end
+     points equal, bit for bit, the trajectory entry's from those draws. The
+     run logs the lanes that differ at all and the draws' largest ulp.
    * NUTS trees, the kernel drawing its reservoir uniforms from a Philox key
      against the plain version fed ``nuts_uniforms(key)``, with about 2% of
      lanes at eps <= 0 so the in-kernel step-size search runs, at depth 4 and
@@ -51,8 +62,10 @@ Phases, in order; any failure exits non-zero:
 5. Main path 2 at full width: the bench's ``grad_mode=nuts`` cycle
    (bench.py:163-199: SCAM/AM/DE/NUTS/HMC at 10 each, nuts_max_depth=10,
    hmc_stepsize=0.08, hmc_nmaxsteps=50, the same cadences and lengths). The
-   NUTS and HMC kernels must launch once per NUTS and HMC iteration; the
-   moment gate must pass. Prints one JSON line, then its profile (as 4).
+   NUTS kernel and the fused HMC step must launch once per NUTS and HMC
+   iteration, and the HMC trajectory entry not at all; the moment gate must
+   pass. Prints one JSON line, then its profile (as 4), and a profile of 100
+   HMC iterations alone, for the device operations of one.
 6. Kernels line: each kernel's launches on its path, error against the
    plain version, device time (CUDA events, stream held, inputs from its
    path's final state), the time of a wrapper call, the plain version's time
@@ -64,12 +77,20 @@ Phases, in order; any failure exits non-zero:
    time over the deepest tree's leaves, and capped timings: every tree run
    to the depth cap (a tiny step size), over the whole batch and over one
    warp alone, for the per-leaf throughput and the lone per-leaf latency.
+   The HMC entry adds the fused step's times and bound, the time of its
+   draws alone (the test entry ``hmc_draws_curved``), its launches by
+   entry, its layout (one chain a thread, 256 threads a block) and ptxas
+   registers, spills and stack frames, the steps its draws take (the break test ends most
+   trajectories after one), and full-length timings: every chain started
+   outside the prior box so it runs its drawn length, over the whole batch
+   and over one warp's chains, in microseconds a step.
 7. Last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -81,6 +102,9 @@ SHORT_TOL = 1e-4
 KS_TOL = 0.01
 NEGINF_SHARE_TOL = 1e-3
 HMC_QXY_TOL = 1e-3
+# The kernel's momenta against hmc_draws': logf, sinf and cosf round apart
+# between CUDA's and PyTorch's math libraries by up to 2 ulp each.
+DRAW_ULP_TOL = 4
 
 T, C, D = 8, 16384, 2
 BURN_ITERS, TIMED_ITERS, BLOCK = 3000, 12000, 1000
@@ -102,6 +126,14 @@ OPS_PER_STEP = 74
 # length (6), q0 = chol_inv^T x and x1 = chol^T z1 (6 each), k0 and k1 (4
 # each), dH, qxy and alpha (6).
 OPS_PER_CHEES_CHAIN = 32
+# Per chain of the fused HMC step besides its evaluations: q0 = chol_inv^T x
+# and x1 = chol^T q1 (6 each), the two kinetic energies (2 each), one
+# Philox4x32-10 call (80 integer operations, as for a NUTS leaf), Box-Muller
+# and the length (about 25).
+OPS_PER_HMC_CHAIN = 12 + 4 + 80 + 25
+# A start outside the prior box (|y| < 10 fails) where the curved target's
+# gradient stays moderate, so a whole trajectory from it stays finite.
+OUTSIDE_Y = 10.5
 # Per NUTS leaf: its leapfrog step, the joint and the slice tests (6), the
 # reservoir test (3), the acceptance statistic (4), on average one U-turn
 # check against a checkpoint (two D-dots and the difference: 12), and the
@@ -320,6 +352,8 @@ def phase_chees_vs_plain(model):
 
 
 def phase_hmc_vs_plain(model):
+    """Both HMC entries against their plain versions: the trajectory entry
+    at two step sizes, then the fused step in the cases of the docstring."""
     from ptmcmcsampler_torch.ops.hmc import hmc_trajectories, hmc_trajectories_plain
 
     dev = torch.device(DEVICE)
@@ -347,7 +381,77 @@ def phase_hmc_vs_plain(model):
             f"{float(nsteps.float().mean()):.2f}")
         if bad_q or bad_x or not same_mask:
             raise SystemExit(f"HMC kernel disagrees with the plain version at eps={eps}")
+
+    for label, eps, c, outside, nmin, nmax in (
+        ("eps=0.08", HMC_EPS, C, 0.0, HMC_NMIN, HMC_NMAX),
+        ("eps=5.0", 5.0, C, 0.0, HMC_NMIN, HMC_NMAX),
+        ("2% outside the box", HMC_EPS, C, 0.02, HMC_NMIN, HMC_NMAX),
+        (f"ragged {T} x {C - 100}", HMC_EPS, C - 100, 0.0, HMC_NMIN, HMC_NMAX),
+        (f"ragged {T} x {C - 101}", HMC_EPS, C - 101, 0.0, HMC_NMIN, HMC_NMAX),
+        ("nmax = nmin + 1", HMC_EPS, C, 0.02, HMC_NMIN, HMC_NMIN + 1),
+    ):
+        args = hmc_step_inputs(gen, dev, c, outside)
+        max_err = max(max_err, check_hmc_step(model, label, *args, eps, nmin, nmax))
     return max_err
+
+
+def hmc_step_inputs(gen, dev, c=None, outside=0.0):
+    """The fused HMC step's inputs at the main path's shape (``c`` chains a
+    rung): positions around both modes of the curved target
+    (``trajectory_inputs``), a share ``outside`` of them moved outside the
+    prior box (to y = OUTSIDE_Y: joint0 = -inf there, so the break test
+    never holds and the trajectory runs its whole drawn length), and a
+    Philox key. Returns ``(x, betas, key, chol, chol_inv)``."""
+    q0, _, betas, _, _, chol = trajectory_inputs(gen, dev, 1, c)
+    x = (chol.T @ q0).contiguous()
+    moved = torch.rand(x[:, 1].shape, generator=gen, device=dev) < outside
+    x[:, 1] = torch.where(moved, OUTSIDE_Y, x[:, 1])
+    key = torch.randint(0, 2**32, (2,), generator=gen, device=dev, dtype=torch.int64)
+    return x, betas, key, chol, torch.linalg.inv(chol).contiguous()
+
+
+def ulps(a, b):
+    """Distance of two f32 tensors in units in the last place."""
+    def ordered(v):
+        i = v.view(torch.int32).to(torch.int64)
+        return torch.where(i >= 0, i, -(i & 0x7FFFFFFF))
+    return (ordered(a) - ordered(b)).abs()
+
+
+def check_hmc_step(model, label, x, betas, key, chol, chol_inv, eps, nmin, nmax):
+    """The fused HMC step against its plain version under one key; the
+    kernel's draws against ``hmc_draws``; the step's end points against the
+    trajectory entry's from the kernel's draws (bit for bit). Returns the
+    largest error against the plain version."""
+    from ptmcmcsampler_torch.ops import common
+    from ptmcmcsampler_torch.ops.hmc import (
+        hmc_draws, hmc_kernel_draws, hmc_step, hmc_step_plain, hmc_trajectories,
+    )
+
+    t, _, c = x.shape
+    args = (x, betas, key, chol, chol_inv, eps, nmin, nmax, model)
+    out, ref = hmc_step(*args), hmc_step_plain(*args)
+    p0, nsteps = hmc_kernel_draws(key, t, D, c, nmin, nmax, model)
+    p0t, nstepst = hmc_draws(key, t, D, c, nmin, nmax)
+    torch.cuda.synchronize()
+    max_ulp = int(ulps(p0, p0t).max())
+    same_nsteps = torch.equal(nsteps, nstepst)
+    label = f"HMC step {label}"
+    log(f"{label}: {lanes_differ(out, ref)} of {t * c} lanes differ in any output; draws: "
+        f"{lanes_differ((p0, nsteps), (p0t, nstepst))} lanes differ, p0 within {max_ulp} ulp, "
+        f"nsteps equal {same_nsteps}, in [{int(nsteps.min())}, {int(nsteps.max())}]; "
+        f"-inf qxy share "
+        f"{float(torch.isneginf(out[1]).float().mean()):.4f}")
+    err = check_pointwise(label, [("x1", out[0], ref[0])], SHORT_TOL)
+    err = max(err, check_pointwise(label, [("qxy", out[1], ref[1])], HMC_QXY_TOL,
+                                   neginf=("qxy",)))
+    if not same_nsteps or max_ulp > DRAW_ULP_TOL:
+        raise SystemExit(f"{label}: the kernel's draws differ from hmc_draws")
+    q1, qxy = hmc_trajectories(common.matvec(chol_inv.T, x), p0, betas, nsteps, chol, eps, model)
+    if not (torch.equal(common.matvec(chol.T, q1), out[0]) and torch.equal(qxy, out[1])):
+        raise SystemExit(f"{label}: the end points differ from the trajectory entry's on the "
+                         "kernel's own draws")
+    return err
 
 
 def tree_stats(nalpha, alive):
@@ -689,46 +793,127 @@ def chees_capped_timings(model, q0, p0, betas, eps, chol, nsteps):
     return result
 
 
-def hmc_kernel_entry(model, state, launches, max_err):
-    """Time the HMC kernel and its plain version on inputs from path 2's
-    final state, drawn as proposals/gradient.py make_hmc draws them."""
-    from ptmcmcsampler_torch.ops.hmc import hmc_trajectories, hmc_trajectories_plain
+def ptxas_info(text):
+    """Registers, spill bytes and stack frame of each kernel in an ``nvcc
+    -Xptxas -v`` log, by kernel and template integers: ``hmc_kernel<1>``
+    is the fused step, ``hmc_kernel<0>`` the trajectory entry."""
+    info = {}
+    for block in text.split("Compiling entry function '")[1:]:
+        mangled = block.split("'", 1)[0]
+        name = re.search(r"\d([a-z_]+_kernel)", mangled)
+        regs = re.search(r"Used (\d+) registers", block)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", block)
+        if not (name and regs and frame):
+            continue
+        label = f"{name.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', mangled))}>"
+        info[label] = {"registers": int(regs.group(1)), "stack_bytes": int(frame.group(1)),
+                       "spill_store_bytes": int(frame.group(2)),
+                       "spill_load_bytes": int(frame.group(3))}
+    return info
+
+
+def hmc_kernel_entry(model, state, launches, max_err, ptxas):
+    """Time both HMC entries and their plain versions on path 2's final
+    state: the fused step under a fresh key, as proposals/gradient.py
+    make_hmc draws it; the trajectory entry on that step's own draws
+    (``hmc_kernel_draws``), with its start whitened by a matmul as before
+    the fused step existed (so its time compares with earlier runs). Then
+    the steps those draws take, and the full-length timings. ``launches``
+    maps each entry to its launches on path 2; ``ptxas`` is the kernel
+    source's build log, parsed."""
+    from ptmcmcsampler_torch.ops import common
+    from ptmcmcsampler_torch.ops.hmc import (
+        hmc_kernel_draws, hmc_step, hmc_step_plain, hmc_trajectories, hmc_trajectories_plain,
+    )
 
     dev = state.x.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(98)
-    chol = state.adapt.chol
-    q0 = (state.adapt.chol_inv.T @ state.x).contiguous()
-    p0 = torch.randn((T, D, C), generator=gen, device=dev)
-    nsteps = torch.randint(HMC_NMIN, HMC_NMAX, (T, C), generator=gen, device=dev,
-                           dtype=torch.int32)
+    chol, chol_inv = state.adapt.chol, state.adapt.chol_inv
+    key = torch.randint(0, 2**32, (2,), generator=gen, device=dev, dtype=torch.int64)
+    fused = (state.x, state.betas, key, chol, chol_inv, HMC_EPS, HMC_NMIN, HMC_NMAX, model)
+    p0, nsteps = hmc_kernel_draws(key, T, D, C, HMC_NMIN, HMC_NMAX, model)
+    q0 = (chol_inv.T @ state.x).contiguous()
     args = (q0, p0, state.betas, nsteps, chol, HMC_EPS, model)
 
     kernel_ms = cuda_ms(lambda: hmc_trajectories(*args), 50, hold_stream=True)
     wrapper_ms = cuda_ms(lambda: hmc_trajectories(*args), 50)
     plain_ms = cuda_ms(lambda: hmc_trajectories_plain(*args), 5)
-    q1, qxy = hmc_trajectories(*args)
-    # The steps these inputs need. The break test (joint1 - 1000) < joint0,
+    fused_ms = cuda_ms(lambda: hmc_step(*fused), 50, hold_stream=True)
+    fused_wrapper_ms = cuda_ms(lambda: hmc_step(*fused), 50)
+    fused_plain_ms = cuda_ms(lambda: hmc_step_plain(*fused), 5)
+    draws_ms = cuda_ms(lambda: hmc_kernel_draws(key, T, D, C, HMC_NMIN, HMC_NMAX, model), 50,
+                       hold_stream=True)
+    # The steps these draws take. The break test (joint1 - 1000) < joint0,
     # kept from the reference (nutsjump.py:285-287), ends a trajectory after
     # its first step unless that step raised the joint by 1000 or more. A
-    # chain whose end point is its one-step point (kernel and plain version
-    # agree bitwise) took one step; count its drawn nsteps for any other.
-    one_step, _ = hmc_trajectories_plain(q0, p0, state.betas, torch.ones_like(nsteps), chol,
-                                         HMC_EPS, model)
+    # chain whose end point is its one-step point took one step; count its
+    # drawn nsteps for any other. The fused step's end points are the
+    # trajectory entry's from its own whitening, bit for bit.
+    x1, qxy = hmc_step(*fused)
+    q0_ordered = common.matvec(chol_inv.T, state.x)
+    q1, _ = hmc_trajectories(q0_ordered, p0, state.betas, nsteps, chol, HMC_EPS, model)
+    one_step, _ = hmc_trajectories(q0_ordered, p0, state.betas, torch.ones_like(nsteps), chol,
+                                   HMC_EPS, model)
+    if not torch.equal(common.matvec(chol.T, q1), x1):
+        raise SystemExit("the fused HMC step's end points differ from the trajectory entry's")
     stopped = (q1 == one_step).all(dim=1)
     steps = int(torch.where(stopped, 1, nsteps).sum())
-    # Per chain: q0, p0, q1 (3 * D floats), nsteps, qxy.
+    # Trajectory entry, per chain: q0, p0, q1 (3 * D floats), nsteps, qxy.
     bytes_moved = 4 * (3 * D + 2) * T * C + 4 * (T + D * D)
     ops = OPS_PER_STEP * (steps + T * C)
-    log(f"HMC kernel {kernel_ms:.4f} ms, wrapper call {wrapper_ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms, mean nsteps drawn {float(nsteps.float().mean()):.2f}, taken "
-        f"{steps / (T * C):.4f}, stopped after one step {float(stopped.float().mean()):.5f}, "
-        f"-inf qxy share {float(torch.isneginf(qxy).float().mean()):.5f}")
+    # Fused step, per chain: x in, x1 and qxy out; beta, chol, chol_inv, key.
+    fused_bytes = 4 * (2 * D + 1) * T * C + 4 * (T + 2 * D * D) + 16
+    fused_bound_ms, fused_bound_by = bound(fused_bytes, ops + OPS_PER_HMC_CHAIN * T * C)
+    full = hmc_full_timings(model, state, gen)
+    extra = {
+        "launches_by_entry": launches,
+        "fused_ms": fused_ms, "fused_wrapper_ms": fused_wrapper_ms,
+        "fused_plain_ms": fused_plain_ms, "fused_bound_ms": fused_bound_ms,
+        "fused_bound_by": fused_bound_by, "draws_kernel_ms": draws_ms,
+        "chains_per_thread": 1, "threads_per_block": 256, "ptxas": ptxas,
+        "mean_nsteps_drawn": float(nsteps.float().mean()), "mean_nsteps_taken": steps / (T * C),
+        "stopped_after_one_step": float(stopped.float().mean()), **full,
+    }
+    log(f"HMC trajectory entry {kernel_ms:.4f} ms, wrapper call {wrapper_ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms; fused step {fused_ms:.4f} ms, wrapper call {fused_wrapper_ms:.4f} "
+        f"ms, plain {fused_plain_ms:.3f} ms; -inf qxy share "
+        f"{float(torch.isneginf(qxy).float().mean()):.5f}; {extra}")
     return kernel_entry(
-        "hmc_trajectory", "ptmcmcsampler_tpu/ops/hmc_pallas.py:54", launches, max_err,
-        kernel_ms, wrapper_ms, plain_ms, bytes_moved, ops,
-        mean_nsteps_drawn=float(nsteps.float().mean()), mean_nsteps_taken=steps / (T * C),
+        "hmc_trajectory", "ptmcmcsampler_tpu/ops/hmc_pallas.py:54",
+        launches["hmc_step"] + launches["hmc_trajectories"], max_err,
+        kernel_ms, wrapper_ms, plain_ms, bytes_moved, ops, **extra,
     )
+
+
+def hmc_full_timings(model, state, gen):
+    """The fused step with every chain started outside the prior box (y =
+    OUTSIDE_Y): joint0 = -inf, so the break test never holds and each chain
+    runs its drawn length from [HMC_NMIN, HMC_NMAX), as it would without the
+    break test (ROADMAP C). Over the whole batch, and over one warp's chains
+    alone (T = 1, 32 threads' chains); microseconds a step over the longest
+    drawn length, which sets a warp's time."""
+    from ptmcmcsampler_torch.ops.hmc import hmc_kernel_draws, hmc_step
+
+    result = {}
+    for name, t, c, reps in (("batch", T, C, 20), ("warp", 1, 32, 50)):
+        x = state.x[:t, :, :c].clone()
+        x[:, 1] = OUTSIDE_Y
+        key = torch.randint(0, 2**32, (2,), generator=gen, device=x.device, dtype=torch.int64)
+        args = (x, state.betas[:t].contiguous(), key, state.adapt.chol, state.adapt.chol_inv,
+                HMC_EPS, HMC_NMIN, HMC_NMAX, model)
+        x1, qxy = hmc_step(*args)
+        _, nsteps = hmc_kernel_draws(key, t, D, c, HMC_NMIN, HMC_NMAX, model)
+        if not (torch.isfinite(x1).all() and torch.isneginf(qxy).all()):
+            raise SystemExit(f"full-length HMC timing ({name}): non-finite end points, or a "
+                             "start inside the box")
+        longest = int(nsteps.max())
+        ms = cuda_ms(lambda: hmc_step(*args), reps, hold_stream=True)
+        result[f"full_{name}_ms"] = ms
+        result[f"full_{name}_us_per_step"] = 1e3 * ms / longest
+        result[f"full_{name}_mean_nsteps"] = float(nsteps.float().mean())
+    return result
 
 
 def nuts_kernel_entry(model, state, launches, max_err):
@@ -828,7 +1013,7 @@ def main():
     from ptmcmcsampler_torch.models import CurvedLikelihood
     from ptmcmcsampler_torch.ops import build
     from ptmcmcsampler_torch.ops.chees import chees_step, chees_trajectories
-    from ptmcmcsampler_torch.ops.hmc import hmc_trajectories
+    from ptmcmcsampler_torch.ops.hmc import hmc_step, hmc_trajectories
     from ptmcmcsampler_torch.ops.nuts import nuts_trees
 
     card = card_line()
@@ -838,8 +1023,10 @@ def main():
                           check=True, timeout=60).stdout.strip().splitlines()[-1]
     log(f"nvcc: {nvcc}")
     t0 = time.time()
-    for name, text in build.build().items():
+    logs = build.build()
+    for name, text in logs.items():
         log(f"built {name} in {time.time() - t0:.1f}s:\n{text.strip()}")
+    hmc_ptxas = ptxas_info(logs.get("hmc_trajectory", "")) or "not measured (built before)"
 
     model = CurvedLikelihood()
     err = {
@@ -861,14 +1048,20 @@ def main():
     kernels = [chees_kernel_entry(model, state, launches, err["chees"])]
     del state, step, run_block
 
-    state, (_, run_block), result, ok = phase_main_path(
-        model, card, "nuts", nuts_config(), {KIND_NUTS: nuts_trees, KIND_HMC: hmc_trajectories})
+    cfg = nuts_config()
+    state, (step, run_block), result, ok = phase_main_path(
+        model, card, "nuts", cfg, {KIND_NUTS: nuts_trees, KIND_HMC: hmc_step},
+        absent=(hmc_trajectories,))
     result.update(nuts_path_extras(model, state))
     print_result(result, ok)
     launches = result["launches"]
     state = phase_profile(state, advance_blocks(run_block), "nuts")
+    state = phase_profile(state, advance_kind(step, cfg, KIND_HMC), "nuts",
+                          iterations=f"{KIND_HMC} only")
     kernels.append(nuts_kernel_entry(model, state, launches[KIND_NUTS], err["nuts"]))
-    kernels.append(hmc_kernel_entry(model, state, launches[KIND_HMC], err["hmc"]))
+    kernels.append(hmc_kernel_entry(
+        model, state, {"hmc_step": launches[KIND_HMC], "hmc_trajectories": 0}, err["hmc"],
+        hmc_ptxas))
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

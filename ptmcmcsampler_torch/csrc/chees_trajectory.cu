@@ -73,6 +73,7 @@
 namespace {
 
 using ptmc::dot;
+using ptmc::matvec_t;
 using ptmc::whitened_value_grad;
 
 constexpr int kThreads = 256;
@@ -138,20 +139,6 @@ struct Params {
   int T;
   int C;
 };
-
-// out = m^T v for m [D, D] row-major, summed over k in order with one
-// rounding per product and per sum (ops/common.py matvec of m.T).
-template <int D>
-__device__ __forceinline__ void matvec_t(const float (&m)[D][D], const float (&v)[D],
-                                         float (&out)[D]) {
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    float acc = m[0][i] * v[0];
-#pragma unroll
-    for (int k = 1; k < D; ++k) acc = acc + m[k][i] * v[k];
-    out[i] = acc;
-  }
-}
 
 template <class Model, bool kStep>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM) chees_kernel(const Params P) {

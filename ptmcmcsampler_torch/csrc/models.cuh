@@ -58,6 +58,22 @@ __device__ __forceinline__ float dot(const float (&a)[D], const float (&b)[D]) {
   return acc;
 }
 
+// out = m^T v for m [D, D] row-major, summed over k in order with one
+// rounding per product and per sum (ops/common.py matvec of m.T): the
+// whitening q = chol_inv^T x and the back-mapping x = chol^T q of the fused
+// steps.
+template <int D>
+__device__ __forceinline__ void matvec_t(const float (&m)[D][D], const float (&v)[D],
+                                         float (&out)[D]) {
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    float acc = m[0][i] * v[0];
+#pragma unroll
+    for (int k = 1; k < D; ++k) acc = acc + m[k][i] * v[k];
+    out[i] = acc;
+  }
+}
+
 // logp - p.p/2, with NaN mapped to -inf (gradient.loghamiltonian).
 template <int D>
 __device__ __forceinline__ float log_hamiltonian(float logp, const float (&p)[D]) {

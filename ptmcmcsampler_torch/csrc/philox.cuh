@@ -3,7 +3,7 @@
 // defines it: ten rounds of two 32 x 32 -> 64-bit multiplies, the key bumped
 // by the Weyl constants between rounds. A pure function of (counter, key), so
 // a thread draws any element of a stream in any order with no state in
-// memory. ops/nuts.py (philox4x32) computes the same words in PyTorch; the
+// memory. ops/common.py (philox4x32) computes the same words in PyTorch; the
 // CPU tests hold it to Random123's known-answer vectors.
 
 #pragma once

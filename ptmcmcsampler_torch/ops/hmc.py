@@ -1,4 +1,5 @@
-"""HMC trajectory kernel: wrapper, plain version and binding.
+"""HMC trajectory kernel and fused HMC step: wrappers, plain versions, the
+step's draws and binding.
 
 ``hmc_trajectories`` runs, for every chain of the ``[T, C]`` batch, a
 whitened leapfrog trajectory with one fixed step size to the chain's own
@@ -9,22 +10,47 @@ The break test is the reference's (nutsjump.py:285-287), as the JAX package
 keeps it; it holds unless a step raises the joint by 1000 or more, so nearly
 every trajectory ends after its first step.
 
-* On a CUDA tensor the wrapper launches the hand-written kernel in
-  ``csrc/hmc_trajectory.cu`` (one thread per chain) or raises.
-* On a CPU tensor it runs ``hmc_trajectories_plain``, the same function as
-  masked PyTorch steps, which the tests hold to the JAX package and
-  ``chip_smoke.py`` holds the kernel to on the card.
+``hmc_step`` is the whole per-chain HMC step around the same trajectory
+(``proposals/gradient.py`` make_hmc): the whitening ``q0 = chol_inv^T x``,
+the momenta and length drawn from a two-word Philox key, the trajectory and
+the end point mapped back, ``x1 = chol^T q1``. It is the same kernel with
+its prologue and epilogue, so an HMC iteration pays one launch for all of
+it, and no momentum or length array exists on the path.
 
-``hmc_trajectories.launches`` counts the kernel's launches.
+* Draws: chain ``n = t*C + c`` takes Philox4x32-10 at counters ``(j, n,
+  STREAM_HMC, 0)`` (``csrc/philox.cuh``); momentum pair ``m`` comes from
+  words ``2m, 2m + 1`` by Box-Muller, the length from word ``2 ceil(D/2)``
+  as ``nmin + (w * (nmax - nmin) >> 32)`` (``csrc/hmc_trajectory.cu`` has
+  the layout). ``hmc_draws`` computes them in PyTorch: ``nsteps`` bit for
+  bit, ``p0`` up to the rounding of ``log``, ``sin`` and ``cos`` between
+  math libraries.
+* On a CUDA tensor each wrapper launches the hand-written kernel in
+  ``csrc/hmc_trajectory.cu`` or raises: a model without a device functor, a
+  wrong shape, type or layout, array draws for the fused step, or a failed
+  launch all raise.
+* On a CPU tensor it runs its plain version: the same function as masked
+  PyTorch steps in the kernel's operation order, the fused step's whitening
+  and back-mapping as ordered sums (``common.matvec``). The tests hold the
+  plain versions to the JAX package, and ``chip_smoke.py`` holds the kernel
+  to them on the card.
+
+``hmc_trajectories.launches`` and ``hmc_step.launches`` count the kernel's
+launches through each entry.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import common
+
+# The Philox stream of the HMC draws: word 2 of the counter, != 0 so that it
+# never meets the NUTS reservoir's counters (r, n, 0, 0).
+STREAM_HMC = 1
+TWO_PI_F32 = float(torch.tensor(2.0 * math.pi, dtype=torch.float32))
 
 
 def hmc_trajectories_plain(q0, p0, beta, nsteps, chol, eps, model):
@@ -84,8 +110,7 @@ def hmc_trajectories(q0, p0, beta, nsteps, chol, eps, model):
         "beta": (beta, (t,), f32), "nsteps": (nsteps, (t, c), torch.int32),
         "chol": (chol, (d, d), f32),
     })
-    if t * c >= 2**31:
-        raise ValueError("hmc_trajectories: more than 2**31 - 1 chains")
+    _check_batch("hmc_trajectories", t, c)
     q1 = torch.empty_like(q0)
     qxy = torch.empty((t, c), dtype=f32, device=q0.device)
     fn = common.entry(
@@ -103,3 +128,132 @@ def hmc_trajectories(q0, p0, beta, nsteps, chol, eps, model):
 
 
 hmc_trajectories.launches = 0
+
+
+def _check_batch(fn_name, t, c):
+    if t * c >= 2**31:
+        raise ValueError(f"{fn_name}: more than 2**31 - 1 chains")
+    if t > 65535:
+        raise ValueError(f"{fn_name}: more than 65535 temperatures (the grid's y extent)")
+
+
+def _check_lengths(fn_name, nmin, nmax):
+    if not 0 <= nmin < nmax < 2**31:
+        raise ValueError(f"{fn_name}: lengths [{nmin}, {nmax}) need 0 <= nmin < nmax < 2**31")
+
+
+def hmc_draws(key, t, d, c, nmin, nmax):
+    """The momenta and lengths the fused step draws under ``key``.
+
+    ``key``: int64 ``[2]``, words in ``[0, 2**32)``. Returns ``(p0 [T, D, C]
+    f32, nsteps [T, C] int32)`` on the key's device, without reading the key
+    to the host: ``nsteps`` bit for bit as the kernel draws it, ``p0`` up to
+    the rounding of ``log``, ``sin`` and ``cos`` in this library and CUDA's.
+    """
+    _check_lengths("hmc_draws", nmin, nmax)
+    pairs = (d + 1) // 2
+    chains = torch.arange(t * c, dtype=torch.int64, device=key.device)
+    words = []
+    for j in range((2 * pairs + 4) // 4):  # Philox calls a chain
+        words += common.philox4x32((j, chains, STREAM_HMC, 0), (key[0], key[1]))
+    p = []
+    for m in range(pairs):
+        u1 = ((words[2 * m] >> 8) + 1).to(torch.float32) * 2.0**-24
+        u2 = (words[2 * m + 1] >> 8).to(torch.float32) * 2.0**-24
+        r = torch.sqrt(-2.0 * torch.log(u1))
+        theta = TWO_PI_F32 * u2
+        p += [r * torch.cos(theta), r * torch.sin(theta)]
+    p0 = torch.stack(p[:d]).view(d, t, c).transpose(0, 1).contiguous()
+    nsteps = nmin + ((words[2 * pairs] * (nmax - nmin)) >> 32)
+    return p0, nsteps.to(torch.int32).view(t, c)
+
+
+def hmc_step_plain(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model):
+    """Plain PyTorch version of the fused step (the arguments and results of
+    ``hmc_step``). ``draws`` is the key, or the draws as arrays ``(p0 [T, D,
+    C] f32, nsteps [T, C] int32)``; the key's are ``hmc_draws(key)``."""
+    t, d, c = x.shape
+    if isinstance(draws, torch.Tensor):
+        p0, nsteps = hmc_draws(draws, t, d, c, nmin, nmax)
+    else:
+        p0, nsteps = draws
+    q0 = common.matvec(chol_inv.T, x)
+    q1, qxy = hmc_trajectories_plain(q0, p0, beta, nsteps, chol, eps, model)
+    return common.matvec(chol.T, q1), qxy
+
+
+def hmc_step(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model):
+    """The per-chain part of an HMC step, one trajectory a chain.
+
+    Args:
+      x:        ``[T, D, C]`` f32 positions.
+      beta:     ``[T]`` f32 inverse temperatures.
+      draws:    the Philox key of the momenta and lengths, int64 ``[2]`` with
+                words in ``[0, 2**32)``; or, on the CPU only, the draws as
+                arrays ``(p0 [T, D, C] f32, nsteps [T, C] int32)``.
+      chol, chol_inv: ``[D, D]`` f32 Cholesky factor of the mass-matrix
+                inverse and its inverse.
+      eps:      the step size, a Python float (``hmc_stepsize``).
+      nmin, nmax: the lengths' range ``[nmin, nmax)``, Python ints.
+      model:    gives ``value_grad`` (plain version) and ``cuda_functor``.
+    Returns:
+      ``(x1 [T, D, C], qxy [T, C])``: the end point mapped back, ``chol^T
+      q1``, and ``qxy = (joint1 - joint0) - (logp1 - logp0)``, NaN mapped
+      to -inf.
+    """
+    if common.check_device("hmc_step", x):
+        return hmc_step_plain(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model)
+    if not isinstance(draws, torch.Tensor):
+        raise ValueError("hmc_step: on the card the draws are a Philox key (int64 [2]), "
+                         "not arrays")
+    t, d, c = x.shape
+    functor = common.cuda_functor("HMC step", model, d)
+    f32 = torch.float32
+    common.check_args("hmc_step", x.device, {
+        "x": (x, (t, d, c), f32), "beta": (beta, (t,), f32),
+        "key": (draws, (2,), torch.int64), "chol": (chol, (d, d), f32),
+        "chol_inv": (chol_inv, (d, d), f32),
+    })
+    _check_batch("hmc_step", t, c)
+    _check_lengths("hmc_step", nmin, nmax)
+    out = torch.empty(t * (d + 1) * c, dtype=f32, device=x.device)
+    x1 = out[:t * d * c].view(t, d, c)
+    qxy = out[t * d * c:].view(t, c)
+    fn = common.entry(
+        "hmc_trajectory", f"hmc_step_{functor}",
+        [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    )
+    common.launch(
+        "hmc_step", fn, x.device,
+        x.data_ptr(), beta.data_ptr(), draws.data_ptr(), chol.data_ptr(), chol_inv.data_ptr(),
+        float(eps), int(nmin), int(nmax), x1.data_ptr(), qxy.data_ptr(), t, c,
+    )
+    hmc_step.launches += 1
+    return x1, qxy
+
+
+hmc_step.launches = 0
+
+
+def hmc_kernel_draws(key, t, d, c, nmin, nmax, model):
+    """The draws the fused step's kernel makes under a key on the card, from
+    its own draw function (the arguments and results of ``hmc_draws``, and
+    the model whose kernel draws): a test entry, to hold them against
+    ``hmc_draws`` and to count the steps a batch takes."""
+    if common.check_device("hmc_kernel_draws", key):
+        raise ValueError("hmc_kernel_draws: the kernel runs on the card, not the CPU")
+    functor = common.cuda_functor("HMC draws", model, d)
+    common.check_args("hmc_kernel_draws", key.device, {"key": (key, (2,), torch.int64)})
+    _check_batch("hmc_kernel_draws", t, c)
+    _check_lengths("hmc_kernel_draws", nmin, nmax)
+    p0 = torch.empty((t, d, c), dtype=torch.float32, device=key.device)
+    nsteps = torch.empty((t, c), dtype=torch.int32, device=key.device)
+    fn = common.entry(
+        "hmc_trajectory", f"hmc_draws_{functor}",
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    )
+    common.launch("hmc_draws", fn, key.device, key.data_ptr(), int(nmin), int(nmax),
+                  p0.data_ptr(), nsteps.data_ptr(), t, c)
+    return p0, nsteps

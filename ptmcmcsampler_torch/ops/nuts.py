@@ -34,40 +34,9 @@ import torch
 from ..config import NUTS_MAX_KERNEL_DEPTH
 from ..proposals.gradient import find_reasonable_epsilon
 from . import common
+from .common import philox4x32
 
-# Philox4x32-10 (Salmon et al., SC'11): round multipliers and key bumps.
-PHILOX_M = (0xD2511F53, 0xCD9E8D57)
-PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-_MASK32 = 0xFFFFFFFF
 _UNIFORMS_CHUNK = 1 << 24  # elements of int64 work per step of nuts_uniforms
-
-
-def _mulhilo(a, b):
-    """High and low words of ``a * b`` for a 32-bit constant ``a`` and an
-    int64 tensor ``b`` of 32-bit words. torch has no unsigned 32 x 32 -> 64
-    multiply and an int64 product of two words overflows, so ``b`` is split
-    into 16-bit halves and each partial product stays below 2**48."""
-    pl = a * (b & 0xFFFF)
-    ph = a * (b >> 16)
-    return (ph + (pl >> 16)) >> 16, (pl + ((ph & 0xFFFF) << 16)) & _MASK32
-
-
-def philox4x32(ctr, key):
-    """Philox4x32-10 as Random123 and ``csrc/philox.cuh`` define it.
-
-    ``ctr``: four int64 tensors (or ints) of 32-bit words, broadcastable;
-    ``key``: two. Returns the four output words as int64 tensors.
-    """
-    c0, c1, c2, c3 = ctr
-    k0, k1 = key
-    for i in range(10):
-        if i:
-            k0 = (k0 + PHILOX_W[0]) & _MASK32
-            k1 = (k1 + PHILOX_W[1]) & _MASK32
-        hi0, lo0 = _mulhilo(PHILOX_M[0], c0)
-        hi1, lo1 = _mulhilo(PHILOX_M[1], c2)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-    return c0, c1, c2, c3
 
 
 def nuts_uniforms(key, depth, t, c):

@@ -12,8 +12,10 @@ whitened gradient is ``chol @ grad``.
 * ``make_hmc`` (nutsjump.py:238-291): fixed step size, trajectory length
   drawn from ``[hmc_nminsteps, hmc_nmaxsteps)``, the reference's break test
   (which ends nearly every trajectory after one step, see ops/hmc.py), and
-  the kinetic-energy correction as ``qxy``. The trajectories run in
-  :func:`ptmcmcsampler_torch.ops.hmc.hmc_trajectories`.
+  the kinetic-energy correction as ``qxy``. The whole per-chain step runs in
+  :func:`ptmcmcsampler_torch.ops.hmc.hmc_step`: the branch draws only a
+  two-word Philox key, from which the kernel draws each chain's momenta and
+  length.
 * ``find_reasonable_epsilon`` (nutsjump.py:435-463), every lane at once.
 
 Each jump has a deterministic ``core`` that takes its randomness as
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from ..ops.common import log_hamiltonian as loghamiltonian  # nutsjump.py:96-101
-from ..ops.hmc import hmc_trajectories
+from ..ops.hmc import hmc_step
 
 
 def make_whitened_funcs(value_grad):
@@ -100,28 +102,22 @@ def make_mala(config, model):
 
 
 def make_hmc(config, model):
-    forward, backward, _ = make_whitened_funcs(model.value_grad)
     nmin, nmax = config.hmc_nminsteps, config.hmc_nmaxsteps
     eps = float(config.hmc_stepsize)
 
-    def core(x, betas, ctx, p0, nsteps):
-        """``p0 [T, D, C]`` standard-normal momenta, ``nsteps [T, C]`` int32
-        trajectory lengths. Returns ``(q, qxy)``: the end point mapped back
-        to the original space and ``(joint1 - joint0) - (logp1 - logp0)``,
-        so the outer MH ratio equals the Hamiltonian error."""
-        q0 = forward(ctx, x).contiguous()
-        q1, qxy = hmc_trajectories(
-            q0, p0.contiguous(), betas, nsteps, ctx.chol.contiguous(), eps, model
-        )
-        return backward(ctx, q1), qxy
+    def core(x, betas, ctx, draws):
+        """``draws``: the Philox key of the momenta and lengths (int64
+        ``[2]``) or, on the CPU, the draws as arrays ``(p0 [T, D, C]
+        standard-normal momenta, nsteps [T, C] int32 lengths)``. Returns
+        ``(q, qxy)``: the end point mapped back to the original space and
+        ``(joint1 - joint0) - (logp1 - logp0)``, so the outer MH ratio equals
+        the Hamiltonian error."""
+        return hmc_step(x, betas, draws, ctx.chol.contiguous(), ctx.chol_inv.contiguous(), eps,
+                        nmin, nmax, model)
 
     def hmc(rng, x, betas, it, ctx, ss):
-        t, d, c = x.shape
-        p0 = torch.randn((t, d, c), generator=rng, device=x.device)
-        nsteps = torch.randint(
-            nmin, nmax, (t, c), generator=rng, device=x.device, dtype=torch.int32
-        )
-        q, qxy = core(x, betas, ctx, p0, nsteps)
+        key = torch.randint(0, 2**32, (2,), generator=rng, device=x.device, dtype=torch.int64)
+        q, qxy = core(x, betas, ctx, key)
         return q, qxy, ss
 
     hmc.core = core

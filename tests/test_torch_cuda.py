@@ -17,11 +17,14 @@ import torch
 from ptmcmcsampler_torch import SamplerConfig, build_default_jumps, build_step, init_state
 from ptmcmcsampler_torch.config import KIND_CHEES, KIND_HMC, KIND_NUTS
 from ptmcmcsampler_torch.models import CurvedLikelihood
-from ptmcmcsampler_torch.ops import build
+from ptmcmcsampler_torch.ops import build, common
 from ptmcmcsampler_torch.ops.chees import (
     chees_step, chees_step_plain, chees_trajectories, chees_trajectories_plain,
 )
-from ptmcmcsampler_torch.ops.hmc import hmc_trajectories, hmc_trajectories_plain
+from ptmcmcsampler_torch.ops.hmc import (
+    hmc_draws, hmc_kernel_draws, hmc_step, hmc_step_plain, hmc_trajectories,
+    hmc_trajectories_plain,
+)
 from ptmcmcsampler_torch.ops.nuts import nuts_trees, nuts_trees_plain, nuts_uniforms
 
 torch.set_num_threads(2)
@@ -149,6 +152,78 @@ def test_hmc_kernel_matches_plain(cuda, eps):
     torch.testing.assert_close(qxy[fin], qxyp[fin], rtol=1e-3, atol=1e-3)
 
 
+HMC_NMIN, HMC_NMAX = 2, 50
+
+
+def _hmc_step_inputs(dev, c=1000, outside=0.0, seed=0):
+    """The fused HMC step's arguments but the step size, lengths and model:
+    positions with a share ``outside`` of them outside the prior box (their
+    trajectories run their whole length), and a Philox key."""
+    q0, _, betas, _, _, chol = _inputs(dev, 2, c, seed=seed)
+    x = (chol.T @ q0).contiguous()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 3)
+    moved = torch.rand((2, c), generator=gen, device=dev) < outside
+    x[:, 0] = torch.where(moved, 12.0, x[:, 0])
+    key = torch.randint(0, 2**32, (2,), generator=gen, device=dev, dtype=torch.int64)
+    return x, betas, key, chol, torch.linalg.inv(chol).contiguous()
+
+
+def _ulps(a, b):
+    """Distance of two f32 tensors in units in the last place."""
+    def ordered(v):
+        i = v.view(torch.int32).to(torch.int64)
+        return torch.where(i >= 0, i, -(i & 0x7FFFFFFF))
+    return (ordered(a) - ordered(b)).abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["eps0.08", "eps5", "outside", "ragged", "odd", "one_length"])
+def test_hmc_step_matches_plain(cuda, case):
+    """The fused step against its plain version under the same key: at the
+    path's step size, at a step size where most lanes leave the box, with 2%
+    of starts outside the box (whole trajectories), on batches that are not
+    a whole number of 256-chain blocks (1002 and 999 chains a rung) and with
+    one possible length. The kernel's end points are the trajectory entry's
+    from the kernel's own draws, bit for bit."""
+    eps = 5.0 if case == "eps5" else 0.08
+    c = {"ragged": 1002, "odd": 999}.get(case, 1000)
+    nmin, nmax = (7, 8) if case == "one_length" else (HMC_NMIN, HMC_NMAX)
+    x, betas, key, chol, chol_inv = _hmc_step_inputs(cuda, c, 0.02 if case == "outside" else 0.0)
+    args = (x, betas, key, chol, chol_inv, eps, nmin, nmax, CurvedLikelihood())
+    before = hmc_step.launches
+    x1, qxy = hmc_step(*args)
+    assert hmc_step.launches == before + 1
+    x1p, qxyp = hmc_step_plain(*args)
+    torch.testing.assert_close(x1, x1p, rtol=1e-4, atol=1e-4)
+    assert torch.equal(torch.isneginf(qxy), torch.isneginf(qxyp))
+    fin = torch.isfinite(qxyp)
+    torch.testing.assert_close(qxy[fin], qxyp[fin], rtol=1e-3, atol=1e-3)
+
+    p0, nsteps = hmc_kernel_draws(key, 2, 2, c, nmin, nmax, CurvedLikelihood())
+    q1, qxyk = hmc_trajectories(common.matvec(chol_inv.T, x), p0, betas, nsteps, chol, eps,
+                                CurvedLikelihood())
+    assert torch.equal(common.matvec(chol.T, q1), x1) and torch.equal(qxyk, qxy)
+    if case == "outside":
+        moved = x[:, 0] == 12.0
+        assert moved.any() and torch.isneginf(qxy[moved]).all()
+    if case == "one_length":
+        assert (nsteps == nmin).all()
+
+
+@pytest.mark.cuda
+def test_hmc_kernel_draws_match_hmc_draws(cuda):
+    """The kernel's draws against the PyTorch ones: lengths equal in every
+    lane, momenta within 4 ulp (logf, sinf and cosf round apart between
+    math libraries)."""
+    key = torch.tensor([0xDEADBEEF, 0x0BADF00D], dtype=torch.int64, device=cuda)
+    p0, nsteps = hmc_kernel_draws(key, 8, 2, 4096, HMC_NMIN, HMC_NMAX, CurvedLikelihood())
+    p0t, nstepst = hmc_draws(key, 8, 2, 4096, HMC_NMIN, HMC_NMAX)
+    assert torch.equal(nsteps, nstepst)
+    assert int(_ulps(p0, p0t).max()) <= 4
+    assert int(nsteps.min()) == HMC_NMIN and int(nsteps.max()) == HMC_NMAX - 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("depth", [4, 10])
 def test_nuts_kernel_matches_plain(cuda, depth):
@@ -207,6 +282,8 @@ def test_wrapper_raises_for_model_without_functor(cuda):
     with pytest.raises(NotImplementedError, match="NoFunctor"):
         hmc_trajectories(q0, p0, betas, nsteps, chol, 0.1, NoFunctor())
     with pytest.raises(NotImplementedError, match="NoFunctor"):
+        hmc_step(*_hmc_step_inputs(cuda), 0.08, HMC_NMIN, HMC_NMAX, NoFunctor())
+    with pytest.raises(NotImplementedError, match="NoFunctor"):
         nuts_trees(*_tree_inputs(cuda, 3), NoFunctor())
 
 
@@ -232,6 +309,18 @@ def test_wrapper_rejects_bad_layout(cuda):
         chees_step(x, r0, u, betas, eps, tlen, EPS0, 0, chol, chol_inv, CurvedLikelihood())
     with pytest.raises(ValueError, match="contiguous"):
         hmc_trajectories(q0, p0, betas, nsteps, chol.T, 0.1, CurvedLikelihood())
+    x, betas, key, chol, chol_inv = _hmc_step_inputs(cuda)
+    lengths = (0.08, HMC_NMIN, HMC_NMAX, CurvedLikelihood())
+    for bad in (key[:1], key.to(torch.int32), key.cpu()):  # one word, int32, on the host
+        with pytest.raises(ValueError, match="key"):
+            hmc_step(x, betas, bad, chol, chol_inv, *lengths)
+    p0, nsteps = hmc_draws(key, 2, 2, 1000, HMC_NMIN, HMC_NMAX)
+    with pytest.raises(ValueError, match="Philox key"):  # no array draws on the card
+        hmc_step(x, betas, (p0, nsteps), chol, chol_inv, *lengths)
+    with pytest.raises(ValueError, match="contiguous"):
+        hmc_step(x, betas, key, chol, chol_inv.T, *lengths)
+    with pytest.raises(ValueError, match="lengths"):
+        hmc_step(x, betas, key, chol, chol_inv, 0.08, 5, 5, CurvedLikelihood())
     tree = list(_tree_inputs(cuda, 3))
     tree[7] = tree[7][:-1]  # a key of one word
     with pytest.raises(ValueError, match="key"):
@@ -254,6 +343,8 @@ def test_wrapper_rejects_other_devices():
         hmc_trajectories(*meta, None, None, None, 0.1, CurvedLikelihood())
     with pytest.raises(ValueError, match="unsupported device"):
         chees_step(*meta, None, None, None, None, 0.08, 16, None, None, CurvedLikelihood())
+    with pytest.raises(ValueError, match="unsupported device"):
+        hmc_step(meta[0], None, None, None, None, 0.08, 2, 50, CurvedLikelihood())
     dirs = torch.empty((3, 2, 4), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         nuts_trees(*meta, None, None, None, dirs, dirs, None, None, CurvedLikelihood())
@@ -283,14 +374,15 @@ def test_build_key_follows_included_header(tmp_path, name):
 
 
 def test_build_key_follows_philox_header(tmp_path):
-    """The Philox header keys the NUTS kernel's library and no other."""
+    """The Philox header keys the libraries of the kernels that draw from it
+    (the HMC step and the NUTS tree) and no other."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     before = {name: build.library_path(name, csrc) for name in build.SOURCES}
     header = csrc / "philox.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {name: build.library_path(name, csrc) for name in build.SOURCES}
-    assert [n for n in build.SOURCES if after[n] != before[n]] == ["nuts_tree"]
+    assert [n for n in build.SOURCES if after[n] != before[n]] == ["hmc_trajectory", "nuts_tree"]
 
 
 def _small_config(**jumps):
@@ -347,9 +439,12 @@ def test_main_path_launches_kernel_each_chees_iteration(cuda):
 
 @pytest.mark.cuda
 def test_nuts_path_launches_kernels_each_iteration(cuda):
+    """One NUTS tree launch a NUTS iteration and one fused-step launch an
+    HMC iteration; the HMC trajectory entry is not on the path."""
     cfg = _small_config(NUTSweight=10, HMCweight=10)
-    nuts_trees.launches = hmc_trajectories.launches = 0
+    nuts_trees.launches = hmc_step.launches = hmc_trajectories.launches = 0
     state = _run_small(cfg, cuda, 80)
     assert nuts_trees.launches == _iterations(cfg, state, KIND_NUTS) > 0
-    assert hmc_trajectories.launches == _iterations(cfg, state, KIND_HMC) > 0
+    assert hmc_step.launches == _iterations(cfg, state, KIND_HMC) > 0
+    assert hmc_trajectories.launches == 0
     assert (state.stepsize.epsilon > 0).all()
