@@ -66,7 +66,32 @@ Phases, in order; any failure exits non-zero:
    iteration, and the HMC trajectory entry not at all; the moment gate must
    pass. Prints one JSON line, then its profile (as 4), and a profile of 100
    HMC iterations alone, for the device operations of one.
-6. Kernels line: each kernel's launches on its path, error against the
+6. Sampler, the user's entry point at full width: ``PTSampler`` with the
+   bound methods of ``CurvedLikelihood`` (the kernel route) on path 1's
+   workload as a user writes it (8 x 16384 chains, SCAM/AM/DE/ChEES at
+   10/10/10/20, 15000 iterations, burn 1500, thin 10, isave 1000), writing
+   its chain files and a checkpoint after every block into a temporary
+   directory. ``chees_step`` must launch once per ChEES iteration and the
+   trajectory entry not at all; the moment gate must pass on every 8th
+   cold chain of ``sampler.chains`` past iteration 3000; ``chain_1.0.txt``
+   must have 1501 rows of 6 columns, ``chain_all_1.0.bin`` 1501 x 16384 x 2
+   float32, ``jumps.txt`` the four jumps and the checkpoint meta iteration
+   15000. Then ``resume=True`` on the same directory to 20000 iterations:
+   it must resume from the checkpoint at 15000, reach 2001 rows and 20
+   lines of each ``<name>_jump.txt``, launch ``chees_step`` once per ChEES
+   iteration and end finite. Then the plain route, torch lambdas of the
+   same model: with all four callables (gradients included) the
+   constructor must refuse the card, naming ``device="cpu"``, since on the
+   card a kernel wrapper launches its kernel or raises; with ``logl`` and
+   ``logp`` alone, at 8 x 1024 chains, 2000 iterations, the gradient
+   weights given and dropped, the route must be plain, only SCAM/AM/DE may
+   run, and no kernel may launch (the gate's max z is logged). Each drain
+   and checkpoint is timed on the host after the device queue has drained.
+   Prints one JSON line: iterations/s of ``sample()``'s wall (drains
+   included) beside path 1's ``run_block`` iterations/s, drain ms a block
+   and the drains' share of the wall, checkpoint ms a drain, ESS/s over
+   that wall, the gate, launches, peak device memory.
+7. Kernels line: each kernel's launches on its path, error against the
    plain version, device time (CUDA events, stream held, inputs from its
    path's final state), the time of a wrapper call, the plain version's time
    and the bound. The ChEES entry adds the fused step's times and bound,
@@ -83,16 +108,21 @@ Phases, in order; any failure exits non-zero:
    registers, spills and stack frames, the steps its draws take (the break test ends most
    trajectories after one), and full-length timings: every chain started
    outside the prior box so it runs its drawn length, over the whole batch
-   and over one warp's chains, in microseconds a step.
-7. Last line: ``{"ok": true, "device": {...}}``.
+   and over one warp's chains, in microseconds a step. The ChEES entry's
+   ``launches_by_path`` adds its launches in the sampler phase.
+8. Last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -147,6 +177,19 @@ OPS_PER_LEVEL = 10
 # runs to the depth cap, and the least share of cap-cut trees it must give.
 CAPPED_EPS = 1e-5
 CAPPED_ALIVE_MIN = 0.99
+# The sampler phase: path 1's workload through PTSampler.sample, as a user
+# writes it (thin 10, the reference's default, keeps the temperature-1
+# sidecar at 1501 x 16384 x 2 x 4 B), then a resume, then the plain route.
+SAMPLER_ITERS, SAMPLER_RESUME_ITERS, SAMPLER_GATE_FROM = 15000, 20000, 3000
+SAMPLER_KW = dict(burn=1500, Tskip=5, isave=1000, covUpdate=1000, thin=10, SCAMweight=10,
+                  AMweight=10, DEweight=10, CHEESweight=20, NUTSweight=0, HMCweight=0,
+                  MALAweight=0, HMCstepsize=0.08)
+# The plain route runs without gradients: the ChEES and HMC weights are
+# given, as a user may, and dropped.
+PLAIN_C, PLAIN_ITERS = 1024, 2000
+PLAIN_KW = dict(burn=500, Tskip=5, isave=500, covUpdate=500, thin=10, SCAMweight=10,
+                AMweight=10, DEweight=10, CHEESweight=10, HMCweight=10, NUTSweight=0,
+                MALAweight=0, HMCstepsize=HMC_EPS, HMCsteps=HMC_NMAX)
 
 
 def log(msg):
@@ -1005,6 +1048,225 @@ def nuts_path_extras(model, state):
     return {"nuts_eps": state.stepsize.epsilon.mean(1).tolist(), **tree_stats(out[4], out[5])}
 
 
+def time_drains(sampler, seconds):
+    """Record the host seconds of each of ``sampler``'s drains and
+    checkpoints in ``seconds[name]``, the device queue drained first, so
+    that a drain's time holds no wait for its block's device work."""
+    for name in ("_drain_block", "_save_checkpoint"):
+        fn = getattr(sampler, name)
+
+        def timed(*args, _fn=fn, _name=name):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args)
+            seconds[_name].append(time.perf_counter() - t0)
+            return out
+
+        setattr(sampler, name, timed)
+        seconds[name] = []
+
+
+def iterations(sampler, kind):
+    kinds = [j.kind for j in sampler.config.jumps]
+    return int(sampler.state.counters.jump_proposed[kinds.index(kind), 0, 0])
+
+
+def drain_stats(seconds, wall):
+    drains, ckpts = seconds["_drain_block"], seconds["_save_checkpoint"]
+    return {
+        "drains": len(drains),
+        "drain_ms_per_block": 1e3 * float(np.mean(drains)),
+        "drain_share": float(np.sum(drains)) / wall,
+        "checkpoint_ms_per_drain": 1e3 * float(np.mean(ckpts)),
+        "checkpoint_share": float(np.sum(ckpts)) / wall,
+    }
+
+
+def curved_sampler(model, outdir, callables="bound", nchains=None, grads=True, **kw):
+    """``PTSampler`` on the curved model as a user writes it: its bound
+    methods (the kernel route) or torch lambdas of them (the plain route),
+    with or without the gradient callables."""
+    from ptmcmcsampler_torch import PTSampler
+
+    fns = (model.lnlikefn, model.lnpriorfn, model.lnlikefn_grad, model.lnpriorfn_grad)
+    if callables == "lambda":
+        fns = tuple((lambda f: lambda x: f(x))(f) for f in fns)
+    grad_kw = dict(logl_grad=fns[2], logp_grad=fns[3]) if grads else {}
+    return PTSampler(2, fns[0], fns[1], np.eye(2), ntemps=T,
+                     nchains=C if nchains is None else nchains, outDir=outdir, **grad_kw, **kw)
+
+
+def phase_sampler(model, card, path1_iters_per_sec, wrappers):
+    """The sampler phase of the docstring. ``wrappers`` maps each kernel
+    wrapper's name to it. Returns ``(result, chees_launches)``: the JSON
+    line's dict and ``chees_step``'s launches in the full-width run and in
+    the resume."""
+    from ptmcmcsampler_torch.config import KIND_CHEES
+    from ptmcmcsampler_torch.diagnostics import moment_gate, split_rhat
+
+    dev = torch.device(DEVICE)
+    root = tempfile.mkdtemp(prefix="chip_smoke_sampler_")
+    outdir = os.path.join(root, "chains")
+    try:
+        # (a) Full width, the kernel route.
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        seconds = {}
+        with contextlib.redirect_stdout(sys.stderr):
+            s = curved_sampler(model, outdir, seed=7)
+            time_drains(s, seconds)
+            t0 = time.time()
+            s.sample([-0.1, -0.5], SAMPLER_ITERS, **SAMPLER_KW)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        launches = {name: w.launches for name, w in wrappers.items()}
+        peak_mem_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        chees_iters = iterations(s, KIND_CHEES)
+        log(f"sampler: route {s.route}, {chees_iters} ChEES iterations, launches {launches}, "
+            f"{SAMPLER_ITERS} iterations in {wall:.1f}s")
+        if s.route != "kernel":
+            raise SystemExit(f"sampler: route {s.route!r}, expected the kernel route")
+        if chees_iters == 0 or launches["chees_step"] != chees_iters or any(
+                n for name, n in launches.items() if name != "chees_step"):
+            raise SystemExit("sampler: chees_step did not launch once per ChEES iteration, or "
+                             f"another kernel launched: {launches}")
+        thin = SAMPLER_KW["thin"]
+        rows = 1 + SAMPLER_ITERS // thin
+        chains = s.chains[::GATE_STRIDE, SAMPLER_GATE_FROM // thin + 1:]  # [Csub, N, D]
+        target, _ = model.posterior_moments()
+        ok, max_z, ess = moment_gate(chains, target)
+        text = np.loadtxt(os.path.join(outdir, "chain_1.0.txt"), ndmin=2)
+        sidecar = os.path.getsize(os.path.join(outdir, "chain_all_1.0.bin"))
+        with open(os.path.join(outdir, "jumps.txt")) as f:
+            listed = tuple(line.split()[0] for line in f)
+        with open(os.path.join(outdir, "checkpoint.npz.json")) as f:
+            meta = json.load(f)
+        checks = {
+            "chain text rows x columns": (text.shape, (rows, 2 + 4)),
+            "chain_all_1.0.bin bytes": (sidecar, rows * C * D * 4),
+            "jumps.txt": (listed, s.config.jump_names()),
+            "four jumps": (len(listed), 4),
+            "checkpoint iter": (meta["iter"], SAMPLER_ITERS),
+            "chains window": (s.chains_row0, 0),
+        }
+        for what, (got, want) in checks.items():
+            if got != want:
+                raise SystemExit(f"sampler: {what} is {got}, expected {want}")
+        if not torch.isfinite(s.state.x).all():
+            raise SystemExit("sampler: state is not finite")
+        name, power = [v.strip() for v in card.split(",", 1)]
+        result = {
+            "phase": "sampler",
+            "route": s.route,
+            "iters_per_sec": SAMPLER_ITERS / wall,
+            "path1_run_block_iters_per_sec": path1_iters_per_sec,
+            "wall_sec": wall,
+            **drain_stats(seconds, wall),
+            "checkpoint_bytes": os.path.getsize(os.path.join(outdir, "checkpoint.npz")),
+            "ess_per_sec": float(ess.min()) / wall,
+            "ess_min_dim": float(ess.min()),
+            "ess_chains_used": int(chains.shape[0]),
+            "ess_rows_used": int(chains.shape[1]),
+            "moments_ok": ok,
+            "moments_max_z": max_z,
+            "rhat_max": float(np.nanmax(split_rhat(chains))),
+            "chees_iterations": chees_iters,
+            "launches": launches,
+            "peak_mem_gb": peak_mem_gb,
+            "rows": int(text.shape[0]),
+            "sidecar_bytes": sidecar,
+            "card": name,
+            "power_limit": power,
+        }
+        del chains, s
+        if not ok:
+            print(json.dumps(result), flush=True)
+            raise SystemExit(f"sampler: moment gate failed (max z {max_z})")
+
+        # (b) Resume to SAMPLER_RESUME_ITERS from the checkpoint.
+        for w in wrappers.values():
+            w.launches = 0
+        with contextlib.redirect_stdout(sys.stderr):
+            s = curved_sampler(model, outdir, seed=7, resume=True)
+            time_drains(s, seconds)
+            t0 = time.time()
+            s.sample([-0.1, -0.5], SAMPLER_RESUME_ITERS, **SAMPLER_KW)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        resumed_launches = {name: w.launches for name, w in wrappers.items()}
+        resumed_iters = iterations(s, KIND_CHEES) - chees_iters
+        rows = 1 + SAMPLER_RESUME_ITERS // thin
+        text_rows = np.loadtxt(os.path.join(outdir, "chain_1.0.txt"), ndmin=2).shape[0]
+        series = {}
+        for jump in s.config.jump_names():
+            with open(os.path.join(outdir, jump + "_jump.txt")) as f:
+                series[jump] = len(f.readlines())
+        log(f"sampler resume: from {s._resume_start_iter}, {text_rows} rows, series {series}, "
+            f"{resumed_iters} ChEES iterations, launches {resumed_launches}")
+        drains = SAMPLER_RESUME_ITERS // SAMPLER_KW["isave"]
+        if (s._resume_start_iter != SAMPLER_ITERS or text_rows != rows
+                or set(series.values()) != {drains} or resumed_iters == 0
+                or resumed_launches["chees_step"] != resumed_iters
+                or any(n for k, n in resumed_launches.items() if k != "chees_step")
+                or s.state.it != SAMPLER_RESUME_ITERS or not torch.isfinite(s.state.x).all()):
+            raise SystemExit("sampler: the resume from the checkpoint failed its checks")
+        result["resume"] = {
+            "from_iter": s._resume_start_iter, "to_iter": s.state.it, "rows": text_rows,
+            "jump_series_lines": drains, "chees_iterations": resumed_iters,
+            "launches": resumed_launches,
+            "iters_per_sec": (SAMPLER_RESUME_ITERS - SAMPLER_ITERS) / wall, "wall_sec": wall,
+            **drain_stats(seconds, wall),
+        }
+        del s
+
+        # (c) The plain route: torch lambdas, no functor. With gradients the
+        # card is refused (a kernel wrapper there launches or raises);
+        # without, SCAM/AM/DE run on the card and no kernel launches.
+        try:
+            curved_sampler(model, os.path.join(root, "refused"), callables="lambda",
+                           nchains=PLAIN_C, seed=11, verbose=False)
+        except NotImplementedError as e:
+            refusal = str(e)
+        else:
+            raise SystemExit("sampler: torch lambdas with gradients were not refused on the "
+                             "card")
+        if 'device="cpu"' not in refusal:
+            raise SystemExit(f"sampler: the refusal does not name the CPU: {refusal}")
+        log(f"sampler plain route with gradients refused: {refusal}")
+        for w in wrappers.values():
+            w.launches = 0
+        with contextlib.redirect_stdout(sys.stderr):
+            s = curved_sampler(model, os.path.join(root, "plain"), callables="lambda",
+                               nchains=PLAIN_C, grads=False, seed=11)
+            t0 = time.time()
+            s.sample([-0.1, -0.5], PLAIN_ITERS, **PLAIN_KW)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        plain_launches = {name: w.launches for name, w in wrappers.items()}
+        jumps = s.config.jump_names()
+        post = s.chains[:, PLAIN_KW["burn"] // PLAIN_KW["thin"] + 1:]
+        plain_ok, plain_z, _ = moment_gate(post, target)
+        log(f"sampler plain route: route {s.route}, jumps {jumps}, launches {plain_launches}, "
+            f"gate ok {plain_ok} max z {plain_z:.3f}, {wall:.1f}s")
+        if s.route != "plain" or len(jumps) != 3 or any(plain_launches.values()):
+            raise SystemExit("sampler: the plain route chose a kernel, kept a gradient jump or "
+                             "launched a kernel")
+        if not torch.isfinite(s.state.x).all():
+            raise SystemExit("sampler: the plain route's state is not finite")
+        result["plain"] = {
+            "route": s.route, "chains": [T, PLAIN_C], "iters": PLAIN_ITERS,
+            "iters_per_sec": PLAIN_ITERS / wall, "jumps": list(jumps),
+            "launches": plain_launches, "moments_ok": plain_ok, "moments_max_z": plain_z,
+            "with_gradients": "refused",
+        }
+        return result, {"sampler": launches["chees_step"],
+                        "sampler_resume": resumed_launches["chees_step"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1041,6 +1303,7 @@ def main():
     result.update(chees_eps=state.stepsize.chees_eps[:, 0].tolist(),
                   chees_tlen=state.stepsize.chees_tlen[:, 0].tolist())
     print_result(result, ok)
+    path1_iters_per_sec = result["iters_per_sec"]
     launches = {"chees_step": result["launches"][KIND_CHEES], "chees_trajectories": 0}
     state = phase_profile(state, advance_blocks(run_block), "chees")
     state = phase_profile(state, advance_kind(step, cfg, KIND_CHEES), "chees",
@@ -1062,6 +1325,13 @@ def main():
     kernels.append(hmc_kernel_entry(
         model, state, {"hmc_step": launches[KIND_HMC], "hmc_trajectories": 0}, err["hmc"],
         hmc_ptxas))
+    del state, step, run_block
+
+    wrappers = {w.__name__: w for w in (chees_step, chees_trajectories, hmc_step,
+                                        hmc_trajectories, nuts_trees)}
+    result, sampler_launches = phase_sampler(model, card, path1_iters_per_sec, wrappers)
+    print(json.dumps(result), flush=True)
+    kernels[0]["launches_by_path"] = {"chees": kernels[0]["launches"], **sampler_launches}
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,16 +2,19 @@
 
 The JAX package ``ptmcmcsampler_tpu`` is the reference; this package ports
 it module by module (same module names) and replaces its Pallas kernels with
-kernels written by hand for Hopper. Entry points run on the card
-(``device="cuda"``) unless the caller passes ``device="cpu"``.
+kernels written by hand for Hopper. Entry points (``PTSampler``,
+``build_step``) run on the card (``device="cuda"``) unless the caller passes
+``device="cpu"``.
 """
 
 from .config import JumpSpec, SamplerConfig, build_default_jumps
 from .kernel import build_step
+from .sampler import PTSampler
 from .state import init_state, state_from_numpy, state_to_numpy
 
 __all__ = [
     "JumpSpec",
+    "PTSampler",
     "SamplerConfig",
     "build_default_jumps",
     "build_step",

@@ -16,7 +16,7 @@ import torch
 
 from . import utils
 from .config import SamplerConfig
-from .state import AdaptState, DEState
+from .state import AdaptState, DEState, de_fill_count
 
 
 def welford_batch_update(adapt: AdaptState, xs: torch.Tensor) -> AdaptState:
@@ -79,7 +79,8 @@ def de_buffer_push(de: DEState, xs: torch.Tensor) -> DEState:
     ``xs[:, i]``, with ``start = filled % B``. The JAX version writes it as a
     masked roll, because a traced-index scatter is slow on a TPU; here the
     start is a host integer, so the write is one or two slice copies, done
-    in place on ``de.buf``.
+    in place on ``de.buf``. The count stays below ``2 * B``
+    (:func:`~ptmcmcsampler_torch.state.de_fill_count`).
     """
     rows = de.buf.shape[1]
     m = xs.shape[1]
@@ -88,7 +89,7 @@ def de_buffer_push(de: DEState, xs: torch.Tensor) -> DEState:
     de.buf[:, start:start + head] = xs[:, :head]
     if head < m:
         de.buf[:, : m - head] = xs[:, head:]
-    return DEState(buf=de.buf, filled=de.filled + m)
+    return DEState(buf=de.buf, filled=de_fill_count(de.filled + m, rows))
 
 
 def de_valid_rows(de: DEState) -> int:

@@ -1,5 +1,6 @@
-"""Chain diagnostics (host numpy): split R-hat, cross-chain ESS and the
-bench's posterior-moment gate."""
+"""Chain diagnostics (host numpy): the integrated autocorrelation time of
+one chain (the sampler's single-chain ``neff`` stop), split R-hat,
+cross-chain ESS and the bench's posterior-moment gate."""
 
 from __future__ import annotations
 
@@ -14,6 +15,45 @@ def _next_pow_two(n):
     while i < n:
         i <<= 1
     return i
+
+
+def autocorr_function(x):
+    """Normalized autocorrelation function of a 1-D series."""
+    x = np.asarray(x, dtype=np.float64)
+    n = len(x)
+    if n < 2:
+        return np.ones(1)
+    f = np.fft.fft(x - np.mean(x), n=2 * _next_pow_two(n))
+    acf = np.fft.ifft(f * np.conjugate(f))[:n].real
+    if acf[0] <= 0:
+        return np.ones(n)
+    return acf / acf[0]
+
+
+def integrated_autocorr_time(x, c=5.0):
+    """Integrated autocorrelation time with Sokal's automatic window."""
+    f = autocorr_function(x)
+    taus = 2.0 * np.cumsum(f) - 1.0
+    window = np.arange(len(taus)) < c * taus
+    if np.any(~window):
+        m = int(np.argmin(window))
+        return max(taus[m], 1.0)
+    return max(taus[-1], 1.0)
+
+
+def max_autocorr_time(chain):
+    """Largest integrated autocorrelation time over the columns of ``chain
+    [n, ndim]``: the reference's ``max_i acor(chain[:, i])``
+    (PTMCMCSampler.py:512-517)."""
+    chain = np.atleast_2d(np.asarray(chain))
+    taus = [integrated_autocorr_time(chain[:, i]) for i in range(chain.shape[1])]
+    return float(np.nanmax(taus)) if taus else 1.0
+
+
+def effective_samples(chain, niter=None):
+    """``niter / max tau``, the reference's N_eff (PTMCMCSampler.py:512)."""
+    n = niter if niter is not None else len(chain)
+    return n / max(1.0, max_autocorr_time(chain))
 
 
 def split_rhat(chains):

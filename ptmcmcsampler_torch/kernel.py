@@ -85,14 +85,7 @@ def build_step(config: SamplerConfig, model, device="cuda"):
     ``device`` is where the step runs, the card unless the caller asks for
     the CPU; the state must live there.
     """
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "build_step: device='cuda' but no CUDA device is available; "
-                "pass device='cpu' to run on the CPU"
-            )
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = utils.resolve_device(device, "build_step")
     t, c = config.ntemps, config.nchains
     branches = build_jump_branches(config, model, device)
 

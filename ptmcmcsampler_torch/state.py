@@ -47,7 +47,15 @@ class DEState:
     """Differential-evolution history ring buffer."""
 
     buf: torch.Tensor  # [D, B] (history-minor, like SamplerState.x)
-    filled: int  # columns written so far (host-known: grows by C per push)
+    filled: int  # columns written so far, below 2 * B (host-known)
+
+
+def de_fill_count(filled: int, rows: int) -> int:
+    """A fill count kept below ``2 * rows``: once the ring is full, ``rows +
+    (filled - rows) % rows`` has the same ring start (``filled % rows``) and
+    the same valid count (``rows``), and it fits the checkpoint's int32
+    however long the run."""
+    return filled if filled < rows else rows + (filled - rows) % rows
 
 
 SS_FIELDS = (
@@ -220,7 +228,8 @@ def state_to_numpy(state: SamplerState) -> dict:
         "lnprior": np_(state.lnprior),
         "betas": np_(state.betas),
         "de/buf": np_(state.de.buf),
-        "de/filled": np.asarray(state.de.filled, np.int32),
+        "de/filled": np.asarray(de_fill_count(state.de.filled, state.de.buf.shape[1]),
+                                np.int32),
     }
     for group, names in _TENSOR_GROUPS.items():
         sub = getattr(state, group)
@@ -232,15 +241,8 @@ def state_to_numpy(state: SamplerState) -> dict:
     return out
 
 
-def state_from_numpy(arrays, config: SamplerConfig, device="cuda", seed=0) -> SamplerState:
-    """Rebuild a state from ``{path: array}`` (see :func:`state_to_numpy`).
-
-    Every path the state needs must be present with the shape ``config``
-    implies; a missing or misshapen entry raises ``ValueError``. A ``"key"``
-    entry (the JAX PRNG key) is ignored; the generators are seeded from
-    ``seed``.
-    """
-    dev = torch.device(device)
+def state_shapes(config: SamplerConfig) -> dict:
+    """``{path: shape}`` of every array a state of ``config`` holds."""
     t, c, d, j = config.ntemps, config.nchains, config.ndim, config.njumps
     shapes = {
         "it": (), "x": (t, d, c), "lnlike": (t, c), "lnprior": (t, c), "betas": (t,),
@@ -258,7 +260,22 @@ def state_from_numpy(arrays, config: SamplerConfig, device="cuda", seed=0) -> Sa
     for i, g in enumerate(config.groups):
         shapes[f"adapt/group_u/{i}"] = (len(g), len(g))
         shapes[f"adapt/group_s/{i}"] = (len(g),)
-    for name, shape in shapes.items():
+    return shapes
+
+
+def state_from_numpy(arrays, config: SamplerConfig, device="cuda", seed=0) -> SamplerState:
+    """Rebuild a state from ``{path: array}`` (see :func:`state_to_numpy`).
+
+    Every path the state needs must be present with the shape ``config``
+    implies; a missing or misshapen entry raises ``ValueError``. A ``"key"``
+    entry (the JAX PRNG key) is ignored; the generators are seeded from
+    ``seed``. A negative ``"de/filled"``, which the JAX package's int32
+    count reaches after 2**31 pushes, is read as that count plus 2**32: a
+    full ring.
+    """
+    dev = torch.device(device)
+    c = config.nchains
+    for name, shape in state_shapes(config).items():
         if name not in arrays:
             raise ValueError(f"state arrays are missing {name!r}")
         if tuple(np.shape(arrays[name])) != shape:
@@ -274,6 +291,8 @@ def state_from_numpy(arrays, config: SamplerConfig, device="cuda", seed=0) -> Sa
         return torch.as_tensor(np.array(arrays[name], np.int32), device=dev)
 
     ng = len(config.groups)
+    de_rows = max(config.de_size, c)
+    filled = int(arrays["de/filled"])
     rng, host_rng = make_generators(seed, dev)
     return SamplerState(
         it=int(arrays["it"]),
@@ -286,7 +305,7 @@ def state_from_numpy(arrays, config: SamplerConfig, device="cuda", seed=0) -> Sa
             group_u=tuple(f32(f"adapt/group_u/{i}") for i in range(ng)),
             group_s=tuple(f32(f"adapt/group_s/{i}") for i in range(ng)),
         ),
-        de=DEState(buf=f32("de/buf"), filled=int(arrays["de/filled"])),
+        de=DEState(buf=f32("de/buf"), filled=de_fill_count(filled % 2**32, de_rows)),
         stepsize=StepSizeState(**{n: f32(f"stepsize/{n}") for n in SS_FIELDS}),
         counters=Counters(**{n: i32(f"counters/{n}") for n in _TENSOR_GROUPS["counters"]}),
         rng=rng,

@@ -7,6 +7,20 @@ import torch
 NEG_INF = float("-inf")
 
 
+def resolve_device(device, caller):
+    """``torch.device(device)``, with a bare ``"cuda"`` pinned to the current
+    card; raises when it names the card and there is none."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{caller}: device='cuda' but no CUDA device is available; "
+                "pass device='cpu' to run on the CPU"
+            )
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def tempered_lnprob(lnlike, lnprior, beta):
     """Tempered log-posterior ``beta * lnlike + lnprior``.
 

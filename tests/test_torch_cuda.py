@@ -1,6 +1,6 @@
 """The port on a CUDA card: each kernel against its plain version, the
-wrappers' refusals, and the main paths' launches; plus the kernel build's
-cache key, which needs no card.
+wrappers' refusals, the main paths' launches, and ``PTSampler``'s model
+routes and refusals; plus the kernel build's cache key, which needs no card.
 
 Tests that need a card carry the ``cuda`` marker and take the ``cuda``
 fixture, which skips them where there is none. This file imports no JAX, so
@@ -288,6 +288,36 @@ def test_wrapper_raises_for_model_without_functor(cuda):
 
 
 @pytest.mark.cuda
+def test_wrapper_raises_for_unknown_functor(cuda):
+    """A model naming a functor the kernels were not built with raises, on
+    every wrapper; it never falls back to the plain version."""
+    class NoSuchFunctor(CurvedLikelihood):
+        cuda_functor = "nosuch"
+
+    q0, p0, betas, eps, nsteps, chol = _inputs(cuda)
+    with pytest.raises(NotImplementedError, match="NoSuchFunctor"):
+        chees_trajectories(q0, p0, betas, eps, nsteps, chol, NoSuchFunctor())
+    step = _step_inputs(cuda)
+    with pytest.raises(NotImplementedError, match="NoSuchFunctor"):
+        chees_step(*step[:6], EPS0, 16, *step[6:], NoSuchFunctor())
+    with pytest.raises(NotImplementedError, match="NoSuchFunctor"):
+        hmc_trajectories(q0, p0, betas, nsteps, chol, 0.1, NoSuchFunctor())
+    with pytest.raises(NotImplementedError, match="NoSuchFunctor"):
+        hmc_step(*_hmc_step_inputs(cuda), 0.08, HMC_NMIN, HMC_NMAX, NoSuchFunctor())
+    with pytest.raises(NotImplementedError, match="NoSuchFunctor"):
+        nuts_trees(*_tree_inputs(cuda, 3), NoSuchFunctor())
+
+
+@pytest.mark.cuda
+def test_wrapper_raises_for_functor_of_another_dimension(cuda):
+    q0, p0, betas, eps, nsteps, chol = _inputs(cuda)
+    q3, p3 = (torch.cat([a, a[:, :1]], dim=1).contiguous() for a in (q0, p0))
+    with pytest.raises(ValueError, match="compiled for D=2"):
+        chees_trajectories(q3, p3, betas, eps, nsteps, torch.eye(3, device=cuda),
+                           CurvedLikelihood())
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_bad_layout(cuda):
     q0, p0, betas, eps, nsteps, chol = _inputs(cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -448,3 +478,83 @@ def test_nuts_path_launches_kernels_each_iteration(cuda):
     assert hmc_step.launches == _iterations(cfg, state, KIND_HMC) > 0
     assert hmc_trajectories.launches == 0
     assert (state.stepsize.epsilon > 0).all()
+
+
+def _sampler(model_kind, outdir, nchains=64, grads=True):
+    from ptmcmcsampler_torch import PTSampler
+
+    cl = CurvedLikelihood()
+    if model_kind == "lambda":
+        fns = (lambda x: cl.lnlikefn(x), lambda x: cl.lnpriorfn(x),
+               lambda x: cl.lnlikefn_grad(x), lambda x: cl.lnpriorfn_grad(x))
+    else:
+        if model_kind == "nosuch":
+            class NoSuchFunctor(CurvedLikelihood):
+                cuda_functor = "nosuch"
+            cl = NoSuchFunctor()
+        fns = (cl.lnlikefn, cl.lnpriorfn, cl.lnlikefn_grad, cl.lnpriorfn_grad)
+    grad_kw = dict(logl_grad=fns[2], logp_grad=fns[3]) if grads else {}
+    return PTSampler(2, fns[0], fns[1], np.eye(2), ntemps=2, nchains=nchains, seed=3,
+                     outDir=outdir, verbose=False, **grad_kw)
+
+
+_SAMPLE = dict(burn=40, Tskip=5, isave=40, covUpdate=40, thin=2, SCAMweight=10, AMweight=10,
+               DEweight=10, CHEESweight=10, HMCweight=10, NUTSweight=10, MALAweight=0,
+               HMCstepsize=0.08, HMCsteps=50)
+_COUNTED = {KIND_CHEES: chees_step, KIND_HMC: hmc_step, KIND_NUTS: nuts_trees}
+
+
+def _zero_launches():
+    for w in (*_COUNTED.values(), chees_trajectories, hmc_trajectories):
+        w.launches = 0
+
+
+@pytest.mark.cuda
+def test_sampler_kernel_route_on_the_card(cuda, tmp_path):
+    """PTSampler on the card with the bound methods of CurvedLikelihood
+    launches each gradient kernel once per iteration of its kind."""
+    s = _sampler("bound", str(tmp_path))
+    assert s.route == "kernel" and s.device.type == "cuda"
+    _zero_launches()
+    s.sample([-0.1, -0.5], 120, **_SAMPLE)
+    assert s.state.x.is_cuda and torch.isfinite(s.state.x).all()
+    for kind, w in _COUNTED.items():
+        iters = _iterations(s.config, s.state, kind)
+        assert iters > 0
+        assert w.launches == iters, kind
+    assert chees_trajectories.launches == hmc_trajectories.launches == 0
+    assert np.loadtxt(str(tmp_path / "chain_1.0.txt")).shape == (61, 6)
+
+
+@pytest.mark.cuda
+def test_sampler_refuses_gradients_without_functor_on_the_card(cuda, tmp_path):
+    """Torch lambdas with gradients have no kernel to run on the card: the
+    constructor refuses them, naming the CPU, instead of running plain
+    versions there."""
+    with pytest.raises(NotImplementedError, match=r'device="cpu".*A15'):
+        _sampler("lambda", str(tmp_path))
+
+
+@pytest.mark.cuda
+def test_sampler_without_gradients_on_the_card_launches_nothing(cuda, tmp_path):
+    """Torch lambdas without gradients run SCAM/AM/DE on the card, batched
+    by vmap: the gradient jumps are dropped and no kernel launches."""
+    s = _sampler("lambda", str(tmp_path), grads=False)
+    assert s.route == "plain" and s.device.type == "cuda"
+    _zero_launches()
+    s.sample([-0.1, -0.5], 120, **_SAMPLE)
+    assert s.state.x.is_cuda and torch.isfinite(s.state.x).all()
+    assert len(s.config.jumps) == 3
+    assert all(w.launches == 0 for w in (*_COUNTED.values(), chees_trajectories,
+                                         hmc_trajectories))
+    assert np.loadtxt(str(tmp_path / "chain_1.0.txt")).shape == (61, 6)
+
+
+@pytest.mark.cuda
+def test_sampler_raises_when_the_functor_kernel_cannot_launch(cuda, tmp_path):
+    """A model that takes the kernel route with a functor the kernels do not
+    have raises at its first gradient iteration: no plain fallback."""
+    s = _sampler("nosuch", str(tmp_path))
+    assert s.route == "kernel"
+    with pytest.raises(NotImplementedError, match="NoSuchFunctor"):
+        s.sample([-0.1, -0.5], 120, **_SAMPLE)
