@@ -47,6 +47,16 @@ Phases, in order; any failure exits non-zero:
      uniform changes the leaf some lane takes, and so its q_prop and
      logp_prop. The run logs the lanes that differ in any output at all, the
      pointwise error, the KS distance of logp_prop and the tree sizes.
+   * The wide ChEES entries (``chees_step`` and ``chees_trajectories`` on
+     bench.py's 40-, 50- and 200-D models: functors interval_gaussian,
+     hierarchical_gaussian, correlated_gaussian) against their plain
+     versions at 8 x 16384 chains (8 x 1024 at 200-D), on synthetic inputs
+     around each posterior (1 in 17 of the 200-D model's starts outside its
+     box): at ``max_steps`` 32 no lane may differ in any bit; at 256, on a
+     ragged batch and on short trajectories (4 steps of 1e-4, which keep the
+     200-D chains inside the box, so their values are compared too) every
+     output within SHORT_TOL with equal -inf masks. The trajectory entry,
+     from the fused step's own q0 and lengths, must end where the step does.
 3. Main path 1 at full width: the bench's headline configuration (8 x 16384
    chains, SCAM/AM/DE/ChEES at 10/10/10/20, tskip=5, cov_update=1000,
    de_size=2000, hmc_stepsize=0.08, 3000 burn-in + 12000 timed iterations
@@ -91,7 +101,27 @@ Phases, in order; any failure exits non-zero:
    included) beside path 1's ``run_block`` iterations/s, drain ms a block
    and the drains' share of the wall, checkpoint ms a drain, ESS/s over
    that wall, the gate, launches, peak device memory.
-7. Kernels line: each kernel's launches on its path, error against the
+7. Path 1's cycle on bench.py's wide workloads at 8 x 16384 chains, each
+   with bench.py's settings (x0 of bench.py:126-142, the block capped so
+   a block's history ``[block, T, D, C]`` stays near 1.5 GB: 71, 57 and 50
+   iterations; WIDE_ITERS burn-in and timed iterations; the ESS
+   and the gate on every 8th, 10th or more cold chain, kept on the card):
+   ``gaussian`` (IntervalTransformedGaussian, 40-D), ``hierarchical``
+   (HierarchicalGaussian, 50-D) and ``gaussian200`` (CorrelatedGaussian,
+   200-D, seed 1). ``chees_step`` must launch once per ChEES iteration and
+   the trajectory entry never; the moment gate must pass on the first two,
+   and gaussian200 (no target: its box truncates it) must end finite, its
+   split R-hat logged. Then ChEES iterations alone under the profiler (100
+   on hierarchical, 20 on the others: a profile line each) for the device
+   ms of one, and the wide kernel's timings on the final state. One JSON
+   line a workload, with any cut of its timed iterations.
+8. ``PTSampler`` with ``HierarchicalGaussian``'s bound methods on the card:
+   8 x 1024 chains, SCAM/AM/DE/ChEES, 2000 iterations, files in a
+   temporary directory; ``chees_step`` once per ChEES iteration, the chain
+   files' rows, the gate on the rows past iteration 1000. Then
+   ``NUTSweight=20`` must be refused when ``sample()`` starts (no wide NUTS
+   kernel yet: ROADMAP B4), naming ``device="cpu"``. One JSON line.
+9. Kernels line: each kernel's launches on its path, error against the
    plain version, device time (CUDA events, stream held, inputs from its
    path's final state), the time of a wrapper call, the plain version's time
    and the bound. The ChEES entry adds the fused step's times and bound,
@@ -109,8 +139,19 @@ Phases, in order; any failure exits non-zero:
    trajectories after one), and full-length timings: every chain started
    outside the prior box so it runs its drawn length, over the whole batch
    and over one warp's chains, in microseconds a step. The ChEES entry's
-   ``launches_by_path`` adds its launches in the sampler phase.
-8. Last line: ``{"ok": true, "device": {...}}``.
+   ``launches_by_path`` adds its launches in the sampler phase. Its
+   ``wide`` list has one item a wide functor, with every key of a kernel
+   entry: the wide entries' times (trajectory entry, fused step, wrapper
+   calls, the plain versions), their bounds (the two whitening products at
+   the operations the nonzero entries of the path's factor need: D^2 for a
+   triangular factor, D for the identity that bench.py's paths keep; the
+   model's a leapfrog step; 6 D + 5 floats a chain moved by the step),
+   one step's two whitening products as ``torch.matmul`` as ``library_ms``,
+   launches by path, lane efficiency in the layout's groups, capped timings
+   (every chain at the largest length: the batch, one group alone), ptxas
+   registers, spills and shared memory, and the layout (chains a group and
+   a block, blocks an SM, waves).
+10. Last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -191,6 +232,47 @@ PLAIN_KW = dict(burn=500, Tskip=5, isave=500, covUpdate=500, thin=10, SCAMweight
                 AMweight=10, DEweight=10, CHEESweight=10, HMCweight=10, NUTSweight=0,
                 MALAweight=0, HMCstepsize=HMC_EPS, HMCsteps=HMC_NMAX)
 
+# bench.py's three other workloads (bench.py:126-142), run through path 1's
+# cycle at 8 x 16384 chains: name -> (burn-in, timed) iterations. bench.py
+# runs 3000 and 12000; a smaller number is a cut to fit the script's time
+# limit, listed in the workload's JSON line. gaussian200's ChEES step size
+# collapses during burn-in (its trajectories leave the box whatever the
+# step size), and its trajectories lengthen toward the 256-step cap: after
+# 500 burn-in iterations a ChEES iteration takes about 0.13 s on an H100,
+# after bench.py's 3000 about 0.46 s, and those 3000 alone take about 560 s
+# (tools/torch_wide_workload.py), more than this script's limit leaves
+# beside its other phases. So its burn-in is cut as well as its timed
+# iterations.
+WIDE_ITERS = {"gaussian": (3000, 12000), "hierarchical": (3000, 12000),
+              "gaussian200": (500, 500)}
+# The wide kernel-vs-plain checks run the kernels at the main path's 8 x
+# 16384 chains and the plain version on the same batch, but for gaussian200
+# at 256 steps, where the plain version (its ordered sums are D launches a
+# product) runs on this many chains a rung: the first and the last half of
+# them, so both waves of blocks and the last block are checked. A chain's
+# arithmetic is its own, so the kernel's outputs on those columns must
+# equal the plain version's on the same columns.
+WIDE_PLAIN_COLUMNS = {"gaussian200": 1024}
+# Base step size of the wide checks' rungs (rung t at WIDE_EPS * 1.3**t),
+# in coordinates whitened by a factor near the posterior covariance.
+WIDE_EPS = 0.05
+# Per evaluation of a wide functor besides the two whitening products
+# (``product_ops`` each), counted from csrc/models.cuh: the correlated model's
+# S (x - mu) and its elementwise terms, the interval model's sigmoid, exp
+# and gradient terms (three transcendentals a dimension, counted as one
+# each) and its value, the hierarchy's residuals and sums.
+WIDE_MODEL_OPS = {
+    "correlated_gaussian": lambda d: 2 * d * d + 5 * d,
+    "interval_gaussian": lambda d: 25 * d,
+    "hierarchical_gaussian": lambda d: 10 * d,
+}
+# The wide sampler phase: HierarchicalGaussian's bound methods through
+# PTSampler on the card, 8 x 1024 chains, SCAM/AM/DE/ChEES.
+WIDE_SAMPLER_C, WIDE_SAMPLER_ITERS = 1024, 2000
+WIDE_SAMPLER_KW = dict(burn=500, Tskip=5, isave=500, covUpdate=500, thin=10, SCAMweight=10,
+                       AMweight=10, DEweight=10, CHEESweight=20, NUTSweight=0, HMCweight=0,
+                       MALAweight=0, HMCstepsize=HMC_EPS)
+
 
 def log(msg):
     print(f"[chip_smoke {time.strftime('%H:%M:%S')}] {msg}", file=sys.stderr, flush=True)
@@ -222,6 +304,18 @@ def cuda_ms(fn, reps, hold_stream=False):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def once_ms(fn):
+    """Milliseconds of one call of ``fn()`` by CUDA events (the plain
+    versions at 200-D take seconds a call)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def ks_distance(a, b):
@@ -319,6 +413,9 @@ def check_pointwise(label, pairs, tol, neginf=()):
                 raise SystemExit(f"{label}: {name} -inf mask differs from the plain version")
             fin = torch.isfinite(a) & torch.isfinite(b)
             a, b = a[fin], b[fin]
+            if not a.numel():
+                log(f"{label} {name}: -inf in every lane of both")
+                continue
         err = (a - b).abs()
         max_err = max(max_err, float(err.max()))
         bad = int((err > tol + tol * b.abs()).sum())
@@ -391,6 +488,148 @@ def phase_chees_vs_plain(model):
     max_err = max(max_err, check_pointwise(label, zip(names[:4], out[:4], ref[:4]), SHORT_TOL))
     max_err = max(max_err, check_pointwise(label, zip(names[4:], out[4:], ref[4:]),
                                            HMC_QXY_TOL, neginf=("qxy", "alpha")))
+    return max_err
+
+
+def wide_workload(name):
+    """bench.py's model and start for a wide workload (bench.py:126-142)."""
+    from ptmcmcsampler_torch.models import (
+        CorrelatedGaussian, HierarchicalGaussian, IntervalTransformedGaussian,
+    )
+
+    if name == "gaussian":
+        return IntervalTransformedGaussian(ndim=40), np.zeros(40)
+    if name == "hierarchical":
+        model = HierarchicalGaussian()
+        return model, np.zeros(model.ndim)
+    model = CorrelatedGaussian(ndim=200, seed=1)
+    return model, model.mu.copy()
+
+
+def wide_inputs(gen, dev, model, c, max_steps, eps_base=WIDE_EPS, eps0=HMC_EPS):
+    """The fused ChEES step's arguments (but the model) for a wide model at
+    ``c`` chains a rung: a factor ``chol`` with ``chol^T chol`` near the
+    posterior covariance (the correlated model's own; the others'
+    ``posterior_moments``), randomly mixed; positions around the posterior's centre (the
+    correlated model's clamped into its box, but 1 in 17 moved outside it);
+    per-rung step sizes
+    ``eps_base * 1.3**t``, rung 0 at its first call (``eps0`` used);
+    lengths ``max_steps`` steps long, so nsteps is near uniform on [1,
+    max_steps]."""
+    from ptmcmcsampler_torch.ladder import ladder_betas, temperature_ladder
+
+    d = model.ndim
+    if hasattr(model, "posterior_moments"):
+        centre, cov = model.posterior_moments()
+    else:
+        centre, cov = model.mu, model.cov
+    cov = torch.tensor(cov, dtype=torch.float64, device=dev)
+    low = torch.linalg.cholesky(cov)
+    z = torch.randn((T, d, c), generator=gen, device=dev).double()
+    centre = torch.tensor(centre, dtype=torch.float64, device=dev)[None, :, None]
+    x = (centre + 0.5 * torch.matmul(low, z)).float()
+    # x = chol^T q with chol = (low R)^T, R = I + 0.1 a / sqrt(D): the
+    # whitened Hessian is near -beta R^T R, well conditioned.
+    a = torch.randn((d, d), generator=gen, device=dev).double()
+    mix = low @ (torch.eye(d, dtype=torch.float64, device=dev) + 0.1 * a / d**0.5)
+    chol = mix.T.float().contiguous()
+    chol_inv = torch.linalg.inv(mix.T).float().contiguous()
+    if not hasattr(model, "posterior_moments"):
+        x = x.clamp(0.05, 9.95)  # inside the closed box [0, 10] ...
+        x[:, 0, ::17] = -0.5  # ... but for these
+    r0 = torch.randn((T, d, c), generator=gen, device=dev)
+    u = torch.rand((T, c), generator=gen, device=dev) * (1.0 - 1e-3) + 1e-3
+    betas = torch.tensor(ladder_betas(temperature_ladder(d, T))[1], dtype=torch.float32,
+                         device=dev)
+    eps = (eps_base * 1.3 ** torch.arange(T, device=dev, dtype=torch.float32))[:, None]
+    eps = eps.expand(T, c).contiguous()
+    eps[0] = 0.0
+    tlen = torch.where(eps > 0, eps, eps0) * max_steps
+    return x.contiguous(), r0, u, betas, eps, tlen, eps0, max_steps, chol, chol_inv
+
+
+def step_lengths(u, eps, tlen, eps0, max_steps):
+    """``(eps, nsteps)`` the fused step derives for each chain."""
+    eps = torch.where(eps > 0, eps, eps0).contiguous()
+    nsteps = torch.clamp(torch.ceil(u * torch.maximum(tlen, eps) / eps), 1, max_steps)
+    return eps, nsteps.to(torch.int32)
+
+
+def plain_columns(name, c, max_steps, dev):
+    """The columns (chains a rung) of a wide check on which the plain
+    version runs: all of them (None) but where WIDE_PLAIN_COLUMNS cuts a
+    256-step case to its first and last columns."""
+    n = WIDE_PLAIN_COLUMNS.get(name)
+    if n is None or max_steps < 256 or n >= c:
+        return None
+    return torch.cat([torch.arange(n // 2, device=dev), torch.arange(c - n // 2, c, device=dev)])
+
+
+def take_columns(values, c, cols):
+    """``values`` with every tensor of last dimension ``c`` and at least two
+    dimensions cut to the columns ``cols`` (None: unchanged)."""
+    if cols is None:
+        return list(values)
+    return [a.index_select(-1, cols).contiguous()
+            if torch.is_tensor(a) and a.dim() > 1 and a.shape[-1] == c else a for a in values]
+
+
+def phase_wide_vs_plain(name, model):
+    """Both wide ChEES entries of ``model``'s functor against their plain
+    versions, the kernels at the main path's T x C chains (and a ragged
+    batch of 100 chains a rung fewer): max_steps 32 (no lane may differ in
+    any bit), 256 and the ragged batch pointwise within SHORT_TOL with
+    equal -inf masks, the plain version on the columns of
+    ``plain_columns``. Then short trajectories (4 steps of 1e-4 and up),
+    which keep most of the correlated model's chains inside its box, where
+    the longer ones leave it (its marginal sds, about 4, rival the box's
+    width of 10) and their values are -inf. The trajectory entry starts from
+    the fused step's own q0 with the step's lengths. Returns the largest
+    error."""
+    from ptmcmcsampler_torch.ops.chees import (
+        chees_step, chees_step_plain, chees_trajectories, chees_trajectories_plain,
+    )
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4242)
+    names = ("x1", "q0", "z1", "r1", "qxy", "alpha")
+    max_err = 0.0
+    for label, c, max_steps, eps in (("", C, 32, WIDE_EPS), ("", C, 256, WIDE_EPS),
+                                     ("ragged ", C - 100, 32, WIDE_EPS),
+                                     ("short ", C, 4, 1e-4)):
+        args = wide_inputs(gen, dev, model, c, max_steps, eps, min(eps, HMC_EPS))
+        cols = plain_columns(name, c, max_steps, dev)
+        plain_c = c if cols is None else cols.numel()
+        label = (f"wide {name} (D={model.ndim}) {label}max_steps={max_steps} {T} x {c}, plain "
+                 f"{T} x {plain_c}")
+        t0 = time.time()
+        out = chees_step(*args, model)
+        ref = chees_step_plain(*take_columns(args, c, cols), model)
+        _, r0, u, betas, eps, tlen, eps0, _, chol, _ = args
+        eps_tc, nsteps = step_lengths(u, eps, tlen, eps0, max_steps)
+        traj = (out[1], r0, betas, eps_tc, nsteps, chol, model)
+        tout = chees_trajectories(*traj)
+        tref = chees_trajectories_plain(*take_columns(traj, c, cols))
+        torch.cuda.synchronize()
+        if not (torch.isfinite(out[2]).all() and torch.isfinite(tout[0]).all()):
+            raise SystemExit(f"{label}: non-finite end points")
+        if not (torch.equal(tout[0], out[2]) and torch.equal(tout[1], out[3])):
+            raise SystemExit(f"{label}: the step's end points differ from the trajectory "
+                             "entry's")
+        out, tout = take_columns(out, c, cols), take_columns(tout, c, cols)
+        n_step, n_traj = lanes_differ(out, ref), lanes_differ(tout, tref)
+        log(f"{label}: {n_step} (step) and {n_traj} (trajectory) of {T * plain_c} lanes differ "
+            f"in any output; -inf qxy share {float(torch.isneginf(out[4]).float().mean()):.4f}, "
+            f"-inf logp1 share {float(torch.isneginf(tout[2]).float().mean()):.4f}, mean "
+            f"nsteps {float(nsteps.float().mean()):.1f}; {time.time() - t0:.1f}s")
+        if max_steps == 32 and (n_step or n_traj):
+            raise SystemExit(f"{label}: lanes differ from the plain version")
+        max_err = max(max_err, check_pointwise(label, zip(names, out, ref), SHORT_TOL,
+                                               neginf=("qxy", "alpha")))
+        max_err = max(max_err, check_pointwise(label, zip(("q1", "p1", "logp1"), tout, tref),
+                                               SHORT_TOL, neginf=("logp1",)))
+        del out, ref, tout, tref, args, traj
     return max_err
 
 
@@ -585,41 +824,53 @@ def nuts_config():
     )
 
 
-def phase_main_path(model, card, path, cfg, wrappers, absent=()):
-    """Run ``cfg`` at full width; ``wrappers`` maps each jump kind whose
-    kernel the path must launch once per iteration of that kind to the
-    kernel's wrapper (which counts its launches); the wrappers in ``absent``
-    must not launch at all."""
+def phase_main_path(model, card, path, cfg, wrappers, absent=(), x0=(-0.1, -0.5),
+                    burn=BURN_ITERS, timed=TIMED_ITERS, block=BLOCK, stride=GATE_STRIDE):
+    """Run ``cfg`` at full width from ``x0``: ``burn`` then ``timed``
+    iterations in blocks of ``block``, keeping every ``stride``-th cold
+    chain of the timed ones on the card for the gate. ``wrappers`` maps each
+    jump kind whose kernel the path must launch once per iteration of that
+    kind to the kernel's wrapper (which counts its launches); the wrappers
+    in ``absent`` must not launch at all. A model without
+    ``posterior_moments`` (gaussian200) has no gate: it must end finite,
+    and its split R-hat is logged."""
     from ptmcmcsampler_torch import build_step, init_state
-    from ptmcmcsampler_torch.diagnostics import moment_gate, split_rhat
+    from ptmcmcsampler_torch.diagnostics import moment_gate, multichain_ess, split_rhat
     from ptmcmcsampler_torch.ladder import ladder_betas, temperature_ladder
 
     dev = torch.device(DEVICE)
+    t, d, c = cfg.ntemps, cfg.ndim, cfg.nchains
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     step, run_block = build_step(cfg, model, device=dev)
-    _, betas = ladder_betas(temperature_ladder(D, T))
-    x0 = np.array([-0.1, -0.5])
-    xs = torch.tensor(x0, dtype=torch.float32, device=dev)[None, :, None].expand(T, D, C)
+    _, betas = ladder_betas(temperature_ladder(d, t))
+    x0 = np.asarray(x0, dtype=np.float64)
+    xs = torch.tensor(x0, dtype=torch.float32, device=dev)[None, :, None].expand(t, d, c)
     state = init_state(
-        cfg, 7, x0, np.eye(D), betas, model.lnlike(xs), model.lnprior(xs), device=dev
+        cfg, 7, x0, np.eye(d), betas, model.lnlike(xs), model.lnprior(xs), device=dev
     )
+
+    def every(n):  # log about ten blocks of a phase
+        return max(1, n // 10)
 
     for w in (*wrappers.values(), *absent):
         w.launches = 0
     t0 = time.time()
-    for b in range(BURN_ITERS // BLOCK):
-        state, out = run_block(state, BLOCK)
+    for b in range(burn // block):
+        state, out = run_block(state, block)
         torch.cuda.synchronize()
-        log(f"{path}: burn-in block {b + 1} at {time.time() - t0:.1f}s")
+        if (b + 1) % every(burn // block) == 0:
+            log(f"{path}: burn-in block {b + 1} at {time.time() - t0:.1f}s")
     cold = []
     t1 = time.time()
-    for b in range(TIMED_ITERS // BLOCK):
-        state, out = run_block(state, BLOCK)
-        cold.append(out.x[:, 0, :, ::GATE_STRIDE].clone())  # [BLOCK, D, C / stride]
+    for b in range(timed // block):
+        state, out = run_block(state, block)
+        cold.append(out.x[:, 0, :, ::stride].clone())  # [block, D, C / stride]
         torch.cuda.synchronize()
-        log(f"{path}: timed block {b + 1} at {time.time() - t1:.1f}s")
+        if (b + 1) % every(timed // block) == 0:
+            log(f"{path}: timed block {b + 1} at {time.time() - t1:.1f}s")
     elapsed = time.time() - t1
+    del out
     launches = {kind: w.launches for kind, w in wrappers.items()}
     peak_mem_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
@@ -633,13 +884,19 @@ def phase_main_path(model, card, path, cfg, wrappers, absent=()):
     for w in absent:
         if w.launches:
             raise SystemExit(f"path {path} launched {w.__name__} {w.launches} times")
-    if not (torch.isfinite(state.x).all() and state.x.shape == (T, D, C)):
+    if not (torch.isfinite(state.x).all() and state.x.shape == (t, d, c)):
         raise SystemExit(f"path {path}: state is not finite or has the wrong shape")
 
-    chains = torch.cat(cold).permute(2, 0, 1).cpu().numpy()  # [Csub, N, D]
-    target, _ = model.posterior_moments()
-    ok, max_z, ess = moment_gate(chains, target)
+    chains = torch.cat(cold).permute(2, 0, 1)  # [C / stride, N, D], on the card
+    del cold
+    t2 = time.time()
+    if hasattr(model, "posterior_moments"):
+        target, _ = model.posterior_moments()
+        ok, max_z, ess = moment_gate(chains, target)
+    else:
+        ok, max_z, ess = bool(torch.isfinite(chains).all()), None, multichain_ess(chains)
     rhat_max = float(np.nanmax(split_rhat(chains)))
+    diag_sec = time.time() - t2
     ctr = state.counters
     acc = (ctr.jump_accepted[:, 0].sum(-1).double()
            / ctr.jump_proposed[:, 0].sum(-1).clamp(min=1).double()).tolist()
@@ -647,7 +904,9 @@ def phase_main_path(model, card, path, cfg, wrappers, absent=()):
     result = {
         "phase": "main_path",
         "path": path,
-        "iters_per_sec": TIMED_ITERS / elapsed,
+        "chains": [t, c],
+        "ndim": d,
+        "iters_per_sec": timed / elapsed,
         "ess_per_sec": float(ess.min()) / elapsed,
         "ess_min_dim": float(ess.min()),
         "ess_chains_used": int(chains.shape[0]),
@@ -656,12 +915,14 @@ def phase_main_path(model, card, path, cfg, wrappers, absent=()):
         "rhat_max": rhat_max,
         "elapsed_sec": elapsed,
         "burn_sec": t1 - t0,
+        "diagnostics_sec": diag_sec,
         "cold_acceptance": dict(zip(cfg.jump_names(), acc)),
         "launches": launches,
         "peak_mem_gb": peak_mem_gb,
         "card": name,
         "power_limit": power,
     }
+    del chains
     return state, (step, run_block), result, ok
 
 
@@ -710,7 +971,7 @@ def phase_profile(state, advance, path, iters=PROFILE_ITERS, iterations="all"):
         "top_device_ms_per_iter": [[e.key, _device_us(e) / 1e3 / iters] for e in top],
     }
     print(json.dumps(result), flush=True)
-    return state
+    return state, result
 
 
 def advance_blocks(run_block):
@@ -838,8 +1099,10 @@ def chees_capped_timings(model, q0, p0, betas, eps, chol, nsteps):
 
 def ptxas_info(text):
     """Registers, spill bytes and stack frame of each kernel in an ``nvcc
-    -Xptxas -v`` log, by kernel and template integers: ``hmc_kernel<1>``
-    is the fused step, ``hmc_kernel<0>`` the trajectory entry."""
+    -Xptxas -v`` log, by kernel and template arguments: ``hmc_kernel<1>``
+    is the fused step, ``hmc_kernel<0>`` the trajectory entry, and
+    ``chees_wide_kernel<WideHierarchicalGaussian,1>`` the wide fused step of
+    that functor."""
     info = {}
     for block in text.split("Compiling entry function '")[1:]:
         mangled = block.split("'", 1)[0]
@@ -847,12 +1110,16 @@ def ptxas_info(text):
         regs = re.search(r"Used (\d+) registers", block)
         frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                           r"(\d+) bytes spill loads", block)
+        smem = re.search(r"(\d+) bytes smem", block)
         if not (name and regs and frame):
             continue
-        label = f"{name.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', mangled))}>"
+        args = (re.findall(r"\d(Wide[A-Za-z]+Gaussian)E", mangled)
+                + re.findall(r"L[ib](\d+)E", mangled))
+        label = f"{name.group(1)}<{','.join(args)}>"
         info[label] = {"registers": int(regs.group(1)), "stack_bytes": int(frame.group(1)),
                        "spill_store_bytes": int(frame.group(2)),
-                       "spill_load_bytes": int(frame.group(3))}
+                       "spill_load_bytes": int(frame.group(3)),
+                       "static_smem_bytes": int(smem.group(1)) if smem else 0}
     return info
 
 
@@ -1267,6 +1534,302 @@ def phase_sampler(model, card, path1_iters_per_sec, wrappers):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def wide_counts(name, d):
+    """``(block, burn, timed, cuts, stride)`` of a wide workload: bench.py's
+    block cap (history ``[block, T, D, C]`` near 1.5 GB, bench.py:158-161),
+    WIDE_ITERS rounded to the block as bench.py rounds its counts, the cuts
+    against bench.py's counts, and bench.py's ESS stride (cold chains kept
+    near 4 GB, bench.py:243)."""
+    block = max(50, min(BLOCK, int(1.5e9 // (T * C * d * 4))))
+
+    def rounded(n):
+        return max(block, n // block * block)
+
+    burn, timed = (rounded(n) for n in WIDE_ITERS[name])
+    cuts = {what: {"bench": rounded(bench), "run": run}
+            for what, bench, run in (("burn_iters", BURN_ITERS, burn),
+                                     ("timed_iters", TIMED_ITERS, timed))
+            if run < rounded(bench)}
+    stride = max(1, int(np.ceil(timed * d * C * 4 / 4e9)))
+    return block, burn, timed, cuts, stride
+
+
+def wide_config(d, burn):
+    """Path 1's cycle on a wide workload, bench.py's settings."""
+    from ptmcmcsampler_torch import SamplerConfig, build_default_jumps
+
+    return SamplerConfig(
+        ndim=d, ntemps=T, nchains=C, groups=(tuple(range(d)),),
+        jumps=build_default_jumps(
+            SCAMweight=10, AMweight=10, DEweight=10, CHEESweight=20, burn=burn // 2,
+            have_grads=True,
+        ),
+        tskip=5, cov_update=1000, burn=burn // 2, thin=1, de_size=2000, hmc_stepsize=HMC_EPS,
+    )
+
+
+def phase_wide_path(name, card, max_err, chees_ptxas):
+    """Path 1's cycle on the wide workload ``name`` at 8 x 16384 chains
+    (``chees_step`` once per ChEES iteration, the trajectory entry never),
+    then ChEES iterations alone under the profiler (100 on hierarchical, 20
+    on the others) for the device ms of one, then the wide kernel's timings
+    on the final state. Prints the workload's JSON line; returns its kernel
+    item."""
+    from ptmcmcsampler_torch.config import KIND_CHEES
+    from ptmcmcsampler_torch.ops.chees import chees_step, chees_trajectories
+
+    model, x0 = wide_workload(name)
+    d = model.ndim
+    block, burn, timed, cuts, stride = wide_counts(name, d)
+    cfg = wide_config(d, burn)
+    state, (step, run_block), result, ok = phase_main_path(
+        model, card, name, cfg, {KIND_CHEES: chees_step}, absent=(chees_trajectories,), x0=x0,
+        burn=burn, timed=timed, block=block, stride=stride)
+    del run_block
+    state, prof = phase_profile(state, advance_kind(step, cfg, KIND_CHEES), name,
+                                iters=PROFILE_ITERS if name == "hierarchical" else 20,
+                                iterations=f"{KIND_CHEES} only")
+    result.update(
+        workload=name, block=block, burn_iters=burn, timed_iters=timed, gate_stride=stride,
+        cuts=cuts,
+        chees_device_ms_per_iter=prof["device_ms_per_iter"],
+        chees_eps=state.stepsize.chees_eps[:, 0].tolist(),
+        chees_tlen=state.stepsize.chees_tlen[:, 0].tolist(),
+    )
+    launches = result["launches"][KIND_CHEES]
+    item = wide_kernel_entry(name, model, state, cfg, launches, max_err, chees_ptxas)
+    result["chees_kernel_ms"] = item["fused_ms"]
+    del state, step
+    torch.cuda.empty_cache()
+    print_result(result, ok)
+    return item
+
+
+# The wide functors' classes in csrc/models.cuh, as ptxas names them.
+WIDE_CLASSES = {"correlated_gaussian": "WideCorrelatedGaussian",
+                "interval_gaussian": "WideIntervalGaussian",
+                "hierarchical_gaussian": "WideHierarchicalGaussian"}
+
+
+def product_ops(m):
+    """Operations of one product ``m v`` or ``m^T v`` counting only the
+    nonzero entries of ``m``: an output of n terms takes n multiplies and
+    n - 1 additions. The path's ``chol`` and ``chol_inv`` are lower
+    triangular (a Cholesky factor and its inverse: D^2 each), and with
+    ``mass_adapt`` off, as on bench.py's paths, the identity (D each)."""
+    return 2 * int(torch.count_nonzero(m)) - m.shape[0]
+
+
+def wide_kernel_entry(name, model, state, cfg, launches, max_err, chees_ptxas):
+    """The wide entries of ``model``'s functor timed on inputs from the
+    workload's final state, as ``chees_kernel_entry`` does for the curved
+    ones; the plain versions on the first WIDE_PLAIN_COLUMNS chains a rung
+    (all of them where it has no entry). Then the
+    lane efficiency of the lengths in the wide layout's groups, the capped
+    timings (every chain at the largest length: the whole batch, and one
+    group alone), one leapfrog step's two whitening products as
+    ``torch.matmul`` (TF32 off, PyTorch's default), the layout and the
+    ptxas report of the functor's kernels."""
+    from ptmcmcsampler_torch.ops.chees import (
+        chees_step, chees_step_plain, chees_trajectories, chees_trajectories_plain,
+        lane_efficiency, wide_group,
+    )
+
+    d, functor = model.ndim, model.cuda_functor
+    nb = wide_group(d)
+    dev = state.x.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(99)
+    chol, chol_inv = state.adapt.chol, state.adapt.chol_inv
+    ss = state.stepsize
+    eps = ss.chees_eps.contiguous()
+    tlen = torch.maximum(ss.chees_tlen, eps)
+    u = torch.rand((T, C), generator=gen, device=dev) * (1.0 - 1e-3) + 1e-3
+    max_steps = cfg.chees_max_steps
+    nsteps = torch.clamp(torch.ceil(u * tlen / eps), 1, max_steps).to(torch.int32)
+    q0 = (chol_inv.T @ state.x).contiguous()
+    p0 = torch.randn((T, d, C), generator=gen, device=dev)
+    args = (q0, p0, state.betas, eps, nsteps, chol, model)
+    fused = (state.x, p0, u, state.betas, eps, ss.chees_tlen.contiguous(), HMC_EPS, max_steps,
+             chol, chol_inv, model)
+    reps = 20 if d <= 64 else 5
+    kernel_ms = cuda_ms(lambda: chees_trajectories(*args), reps, hold_stream=True)
+    wrapper_ms = cuda_ms(lambda: chees_trajectories(*args), reps)
+    fused_ms = cuda_ms(lambda: chees_step(*fused), reps, hold_stream=True)
+    fused_wrapper_ms = cuda_ms(lambda: chees_step(*fused), reps)
+    pc = WIDE_PLAIN_COLUMNS.get(name, C)
+    sub = [a[..., :pc].contiguous() if torch.is_tensor(a) and a.dim() > 1 and a.shape[-1] == C
+           else a for a in args]
+    plain_ms = once_ms(lambda: chees_trajectories_plain(*sub))
+    sub = [a[..., :pc].contiguous() if torch.is_tensor(a) and a.dim() > 1 and a.shape[-1] == C
+           else a for a in fused]
+    fused_plain_ms = once_ms(lambda: chees_step_plain(*sub))
+    del sub
+    out = chees_step(*fused)
+    z1, r1, _ = chees_trajectories(out[1], p0, state.betas, eps, nsteps, chol, model)
+    if not (torch.equal(out[2], z1) and torch.equal(out[3], r1)):
+        raise SystemExit(f"{name}: the fused ChEES step's trajectories differ from the "
+                         "trajectory entry's")
+    del out, z1, r1
+    g = torch.randn_like(q0)
+    library_ms = cuda_ms(lambda: (torch.matmul(chol.T, q0), torch.matmul(chol, g)), reps,
+                         hold_stream=True)
+    del g
+    steps = int(nsteps.sum())
+    max_nsteps = int(nsteps.max())
+    nprm = model.cuda_params(dev).numel()
+    per_eval = 2 * product_ops(chol) + WIDE_MODEL_OPS[functor](d)
+    ops = per_eval * (steps + T * C) + 6 * d * steps  # + the starting evaluation
+    bytes_moved = 4 * (4 * d + 3) * T * C + 4 * (T + d * d + nprm)
+    bound_ms, bound_by = bound(bytes_moved, ops)
+    fused_bytes = 4 * (6 * d + 5) * T * C + 4 * (T + 2 * d * d + nprm)
+    fused_ops = ops + T * C * (product_ops(chol_inv) + 4 * d + OPS_PER_CHEES_CHAIN)
+    fused_bound_ms, fused_bound_by = bound(fused_bytes, fused_ops)
+    step_bound_us = 1e6 * (per_eval + 6 * d) * T * C / F32_OPS_PER_S
+    capped = {}
+    for label, t, c, n in (("batch", T, C, 3), ("group", 1, nb, 10)):
+        a = (q0[:t, :, :c].contiguous(), p0[:t, :, :c].contiguous(), state.betas[:t].contiguous(),
+             eps[:t, :c].contiguous(),
+             torch.full((t, c), max_nsteps, dtype=torch.int32, device=dev), chol, model)
+        ms = cuda_ms(lambda: chees_trajectories(*a), n, hold_stream=True)
+        capped[f"capped_{label}_ms"] = ms
+        capped[f"capped_{label}_us_per_step"] = 1e3 * ms / max_nsteps
+    ptxas = {k: v for k, v in chees_ptxas.items() if WIDE_CLASSES[functor] in k}
+    dyn_smem = 4 * d * (5 * nb + 2 * 16)
+    props = torch.cuda.get_device_properties(dev)
+    layout = {"group_chains": nb, "chains_per_block": 256, "threads_per_block": 256,
+              "dynamic_smem_bytes": dyn_smem}
+    if ptxas:
+        worst = max(ptxas.values(), key=lambda v: v["registers"])
+        regs_warp = -(-worst["registers"] * 32 // 256) * 256
+        by_smem = (228 * 1024) // (dyn_smem + worst["static_smem_bytes"] + 1024)
+        per_sm = min(8, by_smem, 65536 // (regs_warp * 8))
+        blocks = -(-T * C // 256)
+        layout.update(blocks_per_sm=per_sm, waves=-(-blocks // (per_sm * props.multi_processor_count)))
+    extra = {
+        "workload": name, "ndim": d, "functor": functor,
+        "launches_by_path": {name: launches},
+        "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "plain_chains": [T, pc],
+        "fused_ms": fused_ms, "fused_wrapper_ms": fused_wrapper_ms,
+        "fused_plain_ms": fused_plain_ms, "fused_bound_ms": fused_bound_ms,
+        "fused_bound_by": fused_bound_by,
+        "library_what": "one leapfrog step's two whitening products, torch.matmul "
+                        "[D, D] x [T, D, C] twice",
+        "lane_efficiency_unsorted": lane_efficiency(nsteps, grouped=False, lanes=nb),
+        "lane_efficiency_sorted": lane_efficiency(nsteps, grouped=True, lanes=nb),
+        "mean_nsteps": steps / (T * C), "max_nsteps": max_nsteps, **capped,
+        "step_bound_us": step_bound_us, "whitening_ops_per_product": product_ops(chol),
+        "ptxas": ptxas or "not measured (built before)", **layout,
+    }
+    log(f"wide ChEES {name}: trajectory entry {kernel_ms:.4f} ms, fused step {fused_ms:.4f} ms "
+        f"(bound {fused_bound_ms:.4f}, {fused_bound_by}), plain {plain_ms:.1f} / "
+        f"{fused_plain_ms:.1f} ms at {T} x {pc}, two matmuls {library_ms:.4f} ms; {extra}")
+    return {
+        "name": f"chees_trajectory_{functor}",
+        "route": "cuda",
+        "source": "ptmcmcsampler_torch/csrc/chees_trajectory.cu",
+        "replaces": "ptmcmcsampler_tpu/ops/chees_pallas.py:41",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+        **extra,
+    }
+
+
+def phase_wide_sampler(card, wrappers):
+    """``PTSampler`` with ``HierarchicalGaussian``'s bound methods on the
+    card (the kernel route): 8 x 1024 chains, SCAM/AM/DE/ChEES,
+    WIDE_SAMPLER_ITERS iterations, files in a temporary directory.
+    ``chees_step`` must launch once per ChEES iteration and nothing else;
+    the chain files must have their rows; the moment gate must pass on the
+    rows past iteration 1000. Then NUTSweight=20 must be refused when
+    ``sample()`` starts, naming ROADMAP B4 and ``device="cpu"``, before
+    any iteration or launch. Returns ``(result, chees_step launches)``."""
+    from ptmcmcsampler_torch import PTSampler
+    from ptmcmcsampler_torch.config import KIND_CHEES
+    from ptmcmcsampler_torch.diagnostics import moment_gate
+    from ptmcmcsampler_torch.models import HierarchicalGaussian
+
+    dev = torch.device(DEVICE)
+    model = HierarchicalGaussian()
+    d = model.ndim
+    root = tempfile.mkdtemp(prefix="chip_smoke_wide_sampler_")
+
+    def make(outdir):
+        return PTSampler(d, model.lnlikefn, model.lnpriorfn, np.eye(d),
+                         logl_grad=model.lnlikefn_grad, logp_grad=model.lnpriorfn_grad,
+                         ntemps=T, nchains=WIDE_SAMPLER_C, outDir=outdir, seed=7)
+
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        outdir = os.path.join(root, "chains")
+        with contextlib.redirect_stdout(sys.stderr):
+            s = make(outdir)
+            t0 = time.time()
+            s.sample(np.zeros(d), WIDE_SAMPLER_ITERS, **WIDE_SAMPLER_KW)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        launches = {name: w.launches for name, w in wrappers.items()}
+        chees_iters = iterations(s, KIND_CHEES)
+        thin = WIDE_SAMPLER_KW["thin"]
+        rows = 1 + WIDE_SAMPLER_ITERS // thin
+        text = np.loadtxt(os.path.join(outdir, "chain_1.0.txt"), ndmin=2)
+        sidecar = os.path.getsize(os.path.join(outdir, "chain_all_1.0.bin"))
+        target, _ = model.posterior_moments()
+        ok, max_z, ess = moment_gate(s.chains[:, 1000 // thin + 1:], target)
+        log(f"wide sampler: route {s.route}, {chees_iters} ChEES iterations, launches "
+            f"{launches}, {WIDE_SAMPLER_ITERS} iterations in {wall:.1f}s, gate ok {ok} max z "
+            f"{max_z:.3f}")
+        checks = {
+            "route": (s.route, "kernel"),
+            "chees_step launches": (launches["chees_step"], chees_iters),
+            "other launches": (sum(launches.values()) - launches["chees_step"], 0),
+            "chain text rows x columns": (text.shape, (rows, d + 4)),
+            "chain_all_1.0.bin bytes": (sidecar, rows * WIDE_SAMPLER_C * d * 4),
+            "finite state": (bool(torch.isfinite(s.state.x).all()), True),
+            "moment gate": (ok, True),
+        }
+        checks["ChEES iterations > 0"] = (chees_iters > 0, True)
+        for what, (got, want) in checks.items():
+            if got != want:
+                raise SystemExit(f"wide sampler: {what} is {got}, expected {want}")
+        del s
+
+        for w in wrappers.values():
+            w.launches = 0
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                s = make(os.path.join(root, "refused"))
+                s.sample(np.zeros(d), 100, **dict(WIDE_SAMPLER_KW, NUTSweight=20))
+        except NotImplementedError as e:
+            refusal = str(e)
+        else:
+            raise SystemExit("wide sampler: NUTSweight=20 on the card was not refused")
+        log(f"wide sampler: NUTSweight=20 refused: {refusal}")
+        if ("B4" not in refusal or 'device="cpu"' not in refusal or s.state is not None
+                or any(w.launches for w in wrappers.values())):
+            raise SystemExit(f"wide sampler: the refusal is not the expected one: {refusal}")
+        name, power = [v.strip() for v in card.split(",", 1)]
+        result = {
+            "phase": "wide_sampler", "model": "HierarchicalGaussian", "ndim": d,
+            "chains": [T, WIDE_SAMPLER_C], "iters": WIDE_SAMPLER_ITERS,
+            "iters_per_sec": WIDE_SAMPLER_ITERS / wall, "wall_sec": wall,
+            "chees_iterations": chees_iters, "launches": launches, "moments_ok": ok,
+            "moments_max_z": max_z, "ess_min_dim": float(ess.min()), "rows": int(text.shape[0]),
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "nuts_refused": refusal, "card": name, "power_limit": power,
+        }
+        return result, launches["chees_step"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1290,12 +1853,16 @@ def main():
         log(f"built {name} in {time.time() - t0:.1f}s:\n{text.strip()}")
     hmc_ptxas = ptxas_info(logs.get("hmc_trajectory", "")) or "not measured (built before)"
 
+    chees_ptxas = ptxas_info(logs.get("chees_trajectory", ""))
+
     model = CurvedLikelihood()
     err = {
         "chees": phase_chees_vs_plain(model),
         "hmc": phase_hmc_vs_plain(model),
         "nuts": phase_nuts_vs_plain(model),
     }
+    wide_err = {name: phase_wide_vs_plain(name, wide_workload(name)[0])
+                for name in WIDE_ITERS}
 
     cfg = headline_config()
     state, (step, run_block), result, ok = phase_main_path(
@@ -1305,9 +1872,9 @@ def main():
     print_result(result, ok)
     path1_iters_per_sec = result["iters_per_sec"]
     launches = {"chees_step": result["launches"][KIND_CHEES], "chees_trajectories": 0}
-    state = phase_profile(state, advance_blocks(run_block), "chees")
-    state = phase_profile(state, advance_kind(step, cfg, KIND_CHEES), "chees",
-                          iterations=f"{KIND_CHEES} only")
+    state, _ = phase_profile(state, advance_blocks(run_block), "chees")
+    state, _ = phase_profile(state, advance_kind(step, cfg, KIND_CHEES), "chees",
+                             iterations=f"{KIND_CHEES} only")
     kernels = [chees_kernel_entry(model, state, launches, err["chees"])]
     del state, step, run_block
 
@@ -1318,9 +1885,9 @@ def main():
     result.update(nuts_path_extras(model, state))
     print_result(result, ok)
     launches = result["launches"]
-    state = phase_profile(state, advance_blocks(run_block), "nuts")
-    state = phase_profile(state, advance_kind(step, cfg, KIND_HMC), "nuts",
-                          iterations=f"{KIND_HMC} only")
+    state, _ = phase_profile(state, advance_blocks(run_block), "nuts")
+    state, _ = phase_profile(state, advance_kind(step, cfg, KIND_HMC), "nuts",
+                             iterations=f"{KIND_HMC} only")
     kernels.append(nuts_kernel_entry(model, state, launches[KIND_NUTS], err["nuts"]))
     kernels.append(hmc_kernel_entry(
         model, state, {"hmc_step": launches[KIND_HMC], "hmc_trajectories": 0}, err["hmc"],
@@ -1332,6 +1899,14 @@ def main():
     result, sampler_launches = phase_sampler(model, card, path1_iters_per_sec, wrappers)
     print(json.dumps(result), flush=True)
     kernels[0]["launches_by_path"] = {"chees": kernels[0]["launches"], **sampler_launches}
+
+    wide = [phase_wide_path(name, card, wide_err[name], chees_ptxas) for name in WIDE_ITERS]
+    result, wide_sampler_launches = phase_wide_sampler(card, wrappers)
+    print(json.dumps(result), flush=True)
+    for item in wide:
+        if item["workload"] == "hierarchical":
+            item["launches_by_path"]["sampler"] = wide_sampler_launches
+    kernels[0]["wide"] = wide
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -58,6 +58,34 @@
 // __launch_bounds__(256, 4): 512 blocks of 8 x 16384 chains fit the 132 SMs
 // in one wave.
 //
+// The wide entries, chees_trajectory_<functor> and chees_step_<functor> for
+// the functors correlated_gaussian, interval_gaussian and
+// hierarchical_gaussian (models.cuh), run the same two computations at any
+// D up to kWideMaxD = 256 (a runtime argument): bench.py's gaussian (40-D),
+// hierarchical (50-D) and gaussian200 workloads. There a chain's vectors do
+// not fit in registers (5 D floats: q, p, the whitened gradient, x = chol^T q
+// and the model gradient; chol alone is D^2), and a step is matrix work: the
+// two whitening products are 4 D^2 operations a chain, the correlated
+// Gaussian's S (x - mu) 2 D^2 more, against 6 D + O(1) floats of the chain
+// read and written once. So the f32 issue rate binds (--fmad=false: a
+// multiply and an add are two instructions), not bytes. Layout: a block
+// still takes 256 chains and orders them by length as above, then runs them
+// as 256 / NB groups of NB consecutive ones in that order (NB = 64, 32 or
+// 16 as D <= 64, 128 or 256: two blocks fit an SM), a group's vectors in
+// shared memory as [d][NB]. Each
+// product over D is a small matrix product over the group: thread (is, cq)
+// keeps rows is, is + ni, ... (up to kWideJ) of 4 chains in registers and
+// sums over k in order, one rounding per product and per sum, so it rounds
+// as the plain version's ordered sum (models.cuh wide_matvec). chol, its
+// inverse and the correlated model's S stream through shared memory in
+// double-buffered tiles of 16 rows, each value shared by the group's
+// chains; the model's other constants are read through L1. A step of the group runs as long as its
+// longest chain; chains past their length keep their state. The model's
+// value (an ordered sum per chain, one thread a chain) is computed only
+// where it is used: at the first evaluation of the step entry and at each
+// chain's last step. No tensor cores: they would not round as the plain
+// version. __launch_bounds__(256, 2).
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC (see ptmcmcsampler_torch/ops/build.py). No fast
 // math: expf and log1pf are the accurate versions. --fmad=false keeps each
@@ -251,6 +279,200 @@ int launch(const Params& params, void* stream) {
   return (int)cudaGetLastError();
 }
 
+
+// The wide entries' arguments: as Params, and the model's constants and D.
+struct WideParams {
+  const float* q;
+  const float* p;
+  const float* beta;
+  const float* eps;
+  const int* nsteps;
+  const float* u;
+  const float* tlen;
+  const float* chol;
+  const float* chol_inv;
+  const float* prm;
+  float eps0;
+  int max_steps;
+  float* q1;
+  float* p1;
+  float* logp1;
+  float* x1;
+  float* q0;
+  float* qxy;
+  float* alpha;
+  int D;
+  int T;
+  int C;
+};
+
+constexpr int kWideMaxNB = 64;
+using ptmc::wide_group;
+
+template <class Model, bool kStep>
+__global__ void __launch_bounds__(kThreads, 2) chees_wide_kernel(const WideParams P) {
+  extern __shared__ __align__(16) float s_vec[];
+  __shared__ int s_count[kBins];
+  __shared__ int s_warp[kWarps];
+  __shared__ int s_perm[kThreads];
+  __shared__ int s_nsteps[kThreads];
+  __shared__ float s_eps[kThreads];
+  __shared__ long long s_n[kWideMaxNB];     // the group's chains, -1 past T*C
+  __shared__ long long s_base[kWideMaxNB];  // chain n's element (t, 0, c), -1 past T*C
+  __shared__ int s_ns[kWideMaxNB];
+  __shared__ float s_e[kWideMaxNB];
+  __shared__ float s_beta[kWideMaxNB];
+  __shared__ float s_logp[kWideMaxNB];
+  __shared__ int s_need[kWideMaxNB];
+  __shared__ int s_imax;
+
+  const int D = P.D;
+  const int NB = wide_group(D);
+  const int nv = D * NB;
+  float* q = s_vec;
+  float* p = q + nv;
+  float* gw = p + nv;  // the whitened gradient; the model's scratch in eval
+  float* xb = gw + nv;
+  float* g = xb + nv;
+  float* tile = g + nv;  // [2][kWideKT][D]
+  const long long N = (long long)P.T * P.C;
+  const long long first = (long long)blockIdx.x * kThreads;
+  const int tid = threadIdx.x;
+
+  {  // the step size and length of chain first + tid, then the block's order
+    const long long n = first + tid;
+    int ns = 0;
+    float e = 0.0f;
+    if (n < N) {
+      e = P.eps[n];
+      if constexpr (kStep) {
+        e = e > 0.0f ? e : P.eps0;
+        float tl = P.tlen[n];
+        tl = isnan(tl) ? tl : fmaxf(tl, e);  // torch.maximum
+        const float v = ceilf(P.u[n] * tl / e);
+        ns = (int)fminf(fmaxf(v, 1.0f), (float)P.max_steps);
+      } else {
+        ns = P.nsteps[n];
+      }
+    }
+    s_nsteps[tid] = ns;
+    s_eps[tid] = e;
+    group_by_length(min(max(ns, 0), kBins - 1), s_count, s_warp, s_perm);
+  }
+
+  const ptmc::Wide w{D, NB, P.prm, xb, g, gw, tile, s_beta, s_need, s_logp};
+  auto evaluate = [&]() {  // xb = chol^T q, the model, gw = chol g
+    ptmc::wide_matvec<false>(P.chol, q, xb, D, NB, tile);
+    Model::eval(w);
+    ptmc::wide_matvec<true>(P.chol, g, gw, D, NB, tile);
+  };
+  // Element idx = d*NB + c of the group's vectors lies at offset(idx) of the
+  // [T, D, C] arrays, or nowhere (-1) for a lane past T*C.
+  auto offset = [&](int idx) -> long long {
+    const int d = ptmc::wide_row(idx, NB);
+    const long long base = s_base[idx - d * NB];
+    return base < 0 ? -1 : base + (long long)d * P.C;
+  };
+
+  for (int sub = 0; sub < kThreads; sub += NB) {
+    if (tid == 0) s_imax = 0;
+    if (tid < NB) {
+      const int m = s_perm[sub + tid];
+      const long long n = first + m;
+      const bool valid = n < N;
+      s_n[tid] = valid ? n : -1;
+      s_base[tid] = valid ? (n / P.C) * D * (long long)P.C + n % P.C : -1;
+      s_ns[tid] = valid ? s_nsteps[m] : 0;
+      s_e[tid] = s_eps[m];
+      s_beta[tid] = valid ? __ldg(P.beta + n / P.C) : 0.0f;
+      s_need[tid] = kStep || !valid || s_nsteps[m] <= 0;
+    }
+    __syncthreads();
+    if (tid < NB) atomicMax(&s_imax, s_ns[tid]);
+    for (int idx = tid; idx < nv; idx += kThreads) {
+      const long long o = offset(idx);
+      (kStep ? xb : q)[idx] = o < 0 ? 0.0f : P.q[o];
+      p[idx] = o < 0 ? 0.0f : P.p[o];
+    }
+    __syncthreads();
+    float k0 = 0.0f;
+    if constexpr (kStep) {
+      ptmc::wide_matvec<false>(P.chol_inv, xb, q, D, NB, tile);  // q0 = chol_inv^T x
+      for (int idx = tid; idx < nv; idx += kThreads) {
+        const long long o = offset(idx);
+        if (o >= 0) P.q0[o] = q[idx];
+      }
+      if (tid < NB) {  // k0 = r0.r0 / 2, in order
+        float acc = p[tid] * p[tid];
+        for (int d = 1; d < D; ++d) acc = acc + p[d * NB + tid] * p[d * NB + tid];
+        k0 = 0.5f * acc;
+      }
+    }
+    evaluate();
+    const float logp0 = tid < NB ? s_logp[tid] : 0.0f;
+    const int imax = s_imax;
+    for (int i = 0; i < imax; ++i) {
+      for (int idx = tid; idx < nv; idx += kThreads) {
+        const int c = (idx & (NB - 1));
+        if (i < s_ns[c]) {
+          const float e = s_e[c];
+          const float ph = p[idx] + (0.5f * e) * gw[idx];
+          p[idx] = ph;
+          q[idx] = q[idx] + e * ph;
+        }
+      }
+      if (tid < NB) s_need[tid] = i == s_ns[tid] - 1;
+      __syncthreads();
+      evaluate();
+      for (int idx = tid; idx < nv; idx += kThreads) {
+        const int c = (idx & (NB - 1));
+        if (i < s_ns[c]) p[idx] = p[idx] + (0.5f * s_e[c]) * gw[idx];
+      }
+      __syncthreads();
+    }
+
+    for (int idx = tid; idx < nv; idx += kThreads) {
+      const long long o = offset(idx);
+      if (o < 0) continue;
+      P.q1[o] = q[idx];
+      P.p1[o] = p[idx];
+      if constexpr (kStep) P.x1[o] = xb[idx];  // chol^T z1, from the last evaluation
+    }
+    if (tid < NB && s_n[tid] >= 0) {
+      const long long n = s_n[tid];
+      const float logp1 = isnan(s_logp[tid]) ? -INFINITY : s_logp[tid];
+      if constexpr (kStep) {
+        float acc = p[tid] * p[tid];
+        for (int d = 1; d < D; ++d) acc = acc + p[d * NB + tid] * p[d * NB + tid];
+        const float k1 = 0.5f * acc;
+        float de = (logp1 - k1) - (logp0 - k0);
+        de = isnan(de) ? -INFINITY : de;
+        const float r = k0 - k1;
+        P.qxy[n] = isnan(r) ? -INFINITY : r;
+        P.alpha[n] = min1(expf(de));
+      } else {
+        P.logp1[n] = logp1;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <class Model, bool kStep>
+int launch_wide(const WideParams& params, void* stream) {
+  if (params.D < 1 || params.D > ptmc::kWideMaxD) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)params.T * params.C;
+  if (n <= 0) return (int)cudaSuccess;
+  const size_t smem =
+      sizeof(float) * params.D * (5 * wide_group(params.D) + 2 * ptmc::kWideKT);
+  auto kernel = chees_wide_kernel<Model, kStep>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(params);
+  return (int)cudaGetLastError();
+}
 }  // namespace
 
 // All arrays are device pointers: q0, p0, q1, p1 [T, D, C]; beta [T];
@@ -307,3 +529,61 @@ extern "C" int chees_step_curved(const float* x, const float* r0, const float* u
   params.C = C;
   return launch<ptmc::CurvedLikelihood, true>(params, stream);
 }
+
+// The wide entries: the arguments of the curved ones, plus prm (the model's
+// constants, model.cuda_params) and D (1 <= D <= 256). They launch 256
+// threads a block and (5 * NB + 32) * D * 4 bytes of dynamic shared memory (NB =
+// wide_group(D)).
+#define PTMC_CHEES_WIDE_ENTRIES(NAME, MODEL)                                                  \
+  extern "C" int chees_trajectory_##NAME(                                                     \
+      const float* q0, const float* p0, const float* beta, const float* eps,                  \
+      const int* nsteps, const float* chol, const float* prm, float* q1, float* p1,           \
+      float* logp1, int D, int T, int C, void* stream) {                                      \
+    WideParams params{};                                                                      \
+    params.q = q0;                                                                            \
+    params.p = p0;                                                                            \
+    params.beta = beta;                                                                       \
+    params.eps = eps;                                                                         \
+    params.nsteps = nsteps;                                                                   \
+    params.chol = chol;                                                                       \
+    params.prm = prm;                                                                         \
+    params.q1 = q1;                                                                           \
+    params.p1 = p1;                                                                           \
+    params.logp1 = logp1;                                                                     \
+    params.D = D;                                                                             \
+    params.T = T;                                                                             \
+    params.C = C;                                                                             \
+    return launch_wide<MODEL, false>(params, stream);                                         \
+  }                                                                                           \
+  extern "C" int chees_step_##NAME(                                                           \
+      const float* x, const float* r0, const float* u, const float* beta, const float* eps,   \
+      const float* tlen, const float* chol, const float* chol_inv, const float* prm,          \
+      float eps0, int max_steps, float* x1, float* q0, float* z1, float* r1, float* qxy,      \
+      float* alpha, int D, int T, int C, void* stream) {                                      \
+    WideParams params{};                                                                      \
+    params.q = x;                                                                             \
+    params.p = r0;                                                                            \
+    params.beta = beta;                                                                       \
+    params.eps = eps;                                                                         \
+    params.u = u;                                                                             \
+    params.tlen = tlen;                                                                       \
+    params.chol = chol;                                                                       \
+    params.chol_inv = chol_inv;                                                               \
+    params.prm = prm;                                                                         \
+    params.eps0 = eps0;                                                                       \
+    params.max_steps = max_steps;                                                             \
+    params.q1 = z1;                                                                           \
+    params.p1 = r1;                                                                           \
+    params.x1 = x1;                                                                           \
+    params.q0 = q0;                                                                           \
+    params.qxy = qxy;                                                                         \
+    params.alpha = alpha;                                                                     \
+    params.D = D;                                                                             \
+    params.T = T;                                                                             \
+    params.C = C;                                                                             \
+    return launch_wide<MODEL, true>(params, stream);                                          \
+  }
+
+PTMC_CHEES_WIDE_ENTRIES(correlated_gaussian, ptmc::WideCorrelatedGaussian)
+PTMC_CHEES_WIDE_ENTRIES(interval_gaussian, ptmc::WideIntervalGaussian)
+PTMC_CHEES_WIDE_ENTRIES(hierarchical_gaussian, ptmc::WideHierarchicalGaussian)

@@ -118,4 +118,248 @@ __device__ __forceinline__ void load_chol(const float* __restrict__ chol_in,
     for (int k = 0; k < D; ++k) chol[i][k] = __ldg(chol_in + i * D + k);
 }
 
+// ---------------------------------------------------------------------------
+// The wide layout (D up to kWideMaxD, a runtime value), for the models whose
+// vectors do not fit in registers. A block of kWideThreads threads evaluates
+// NB chains at once (NB = 16, 32 or 64, wide_group); each per-chain vector
+// lies in shared memory as [d][NB], element (d, c) at d*NB + c.
+
+constexpr int kWideThreads = 256;
+constexpr int kWideJ = 4;       // rows a thread keeps per chain in wide_matvec
+constexpr int kWideMaxD = 256;  // kWideJ rows of 64 threads at NB = 16; one tile column a thread
+constexpr int kWideKT = 16;     // rows of A a tile of wide_matvec
+
+// Chains a group of the wide layout takes at dimension D (a power of two):
+// as many as keep each thread at kWideJ rows and two blocks on an SM.
+__host__ __device__ __forceinline__ int wide_group(int D) {
+  return D <= 64 ? 64 : (D <= 128 ? 32 : 16);
+}
+
+// Row d of element idx = d*NB + c of a group's vector (NB a power of two).
+__device__ __forceinline__ int wide_row(int idx, int NB) { return idx >> (31 - __clz(NB)); }
+
+// out[i][c] = sum_k A(k, i) * in[k][c] for i < D, c < NB, summed over k in
+// order with one rounding per product and per sum (common.matvec of the
+// matrix A(., i) stands for). A(k, i) is A[k*D + i], or A[i*D + k] with
+// kRowDot (then out = A in, as matvec(A, in)). Thread (is, cq) computes rows
+// is + ni*j (j < kWideJ, ni = 1024 / NB rows apart) for chains 4cq..4cq+3.
+// Row k = 0 starts every sum; rows 1.. stream through shared memory in tiles
+// of kWideKT rows, double-buffered in tile [2][KT][D]: thread i < D loads
+// column i of the next tile into registers while the block computes on the
+// current one, whose kWideKT rows run without a branch. Every thread of the
+// block calls it with in complete; it returns after a barrier.
+template <bool kRowDot>
+__device__ __forceinline__ void wide_matvec(const float* __restrict__ A, const float* in,
+                                            float* out, int D, int NB, float* tile) {
+  const int tid = threadIdx.x;
+  const int nq = NB >> 2;
+  const int ni = kWideThreads / nq;
+  const int cq = tid % nq;
+  const int is = tid / nq;
+  const int tile_n = kWideKT * D;
+  const float* inq = in + 4 * cq;
+  // A(k, tid) at a_col + k * dk: this thread's column of each tile.
+  const long long dk = kRowDot ? 1 : D;
+  const float* a_col = A + (kRowDot ? (long long)tid * D : tid);
+  float pre[kWideKT];
+  auto fetch = [&](int k0) {
+    if (tid < D) {
+#pragma unroll
+      for (int kk = 0; kk < kWideKT; ++kk)
+        pre[kk] = k0 + kk < D ? __ldg(a_col + (k0 + kk) * dk) : 0.0f;
+    }
+  };
+  auto put = [&](float* buf) {
+    if (tid < D) {
+#pragma unroll
+      for (int kk = 0; kk < kWideKT; ++kk) buf[kk * D + tid] = pre[kk];
+    }
+  };
+  int col[kWideJ];
+#pragma unroll
+  for (int j = 0; j < kWideJ; ++j) col[j] = min(is + ni * j, D - 1);
+  float acc[kWideJ][4];
+  auto madd = [&](const float* arow, const float4 v) {
+#pragma unroll
+    for (int j = 0; j < kWideJ; ++j) {
+      const float a = arow[col[j]];
+      acc[j][0] = acc[j][0] + a * v.x;
+      acc[j][1] = acc[j][1] + a * v.y;
+      acc[j][2] = acc[j][2] + a * v.z;
+      acc[j][3] = acc[j][3] + a * v.w;
+    }
+  };
+
+  fetch(1);
+  {  // row 0: the first products
+    const float4 v = *reinterpret_cast<const float4*>(inq);
+#pragma unroll
+    for (int j = 0; j < kWideJ; ++j) {
+      const float a = __ldg(A + (kRowDot ? (long long)col[j] * D : col[j]));
+      acc[j][0] = a * v.x;
+      acc[j][1] = a * v.y;
+      acc[j][2] = a * v.z;
+      acc[j][3] = a * v.w;
+    }
+  }
+  put(tile);
+  __syncthreads();
+  int b = 0;
+  for (int k0 = 1; k0 < D; k0 += kWideKT, b ^= 1) {
+    const bool more = k0 + kWideKT < D;
+    if (more) fetch(k0 + kWideKT);
+    const float* t = tile + b * tile_n;
+    const float* vk = inq + k0 * NB;
+    if (k0 + kWideKT <= D) {
+#pragma unroll
+      for (int kk = 0; kk < kWideKT; ++kk)
+        madd(t + kk * D, *reinterpret_cast<const float4*>(vk + kk * NB));
+    } else {
+      for (int kk = 0; kk < D - k0; ++kk)
+        madd(t + kk * D, *reinterpret_cast<const float4*>(vk + kk * NB));
+    }
+    if (more) put(tile + (b ^ 1) * tile_n);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < kWideJ; ++j) {
+    const int i = is + ni * j;
+    if (i < D)
+      *reinterpret_cast<float4*>(out + i * NB + 4 * cq) =
+          make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+  }
+  __syncthreads();
+}
+
+// What a wide functor's eval reads and writes. x, g and tmp are [D][NB] in
+// shared memory; beta, need and logp are [NB].
+struct Wide {
+  int D;
+  int NB;
+  const float* __restrict__ prm;  // the model's constants (model.cuda_params)
+  const float* x;                 // the points, left unchanged
+  float* g;                       // out: the tempered gradient
+  float* tmp;                     // scratch
+  float* tile;                    // wide_matvec's tiles, [2][kWideKT][D]
+  const float* beta;
+  const int* need;  // chains whose tempered value eval writes to logp
+  float* logp;
+};
+
+// A wide functor's eval(w): every thread of the block calls it with w.x
+// complete; it writes (beta*ll + lp) to logp[c] for the chains with need[c]
+// and the tempered gradient to g, in the operation order of the model's
+// value_grad (models/examples.py), and returns after a barrier.
+
+// Correlated Gaussian, prior the closed box [a, b]. prm: mu [D], a [D],
+// b [D], S = icov + icov^T [D*D] (exactly symmetric, so S[k][i] = S[i][k]).
+struct WideCorrelatedGaussian {
+  __device__ static void eval(const Wide& w) {
+    const int D = w.D, NB = w.NB;
+    const float* mu = w.prm;
+    const float* lo = w.prm + D;
+    const float* hi = w.prm + 2 * D;
+    for (int idx = threadIdx.x; idx < D * NB; idx += kWideThreads)
+      w.tmp[idx] = w.x[idx] - __ldg(mu + wide_row(idx, NB));  // diff
+    __syncthreads();
+    wide_matvec<false>(w.prm + 3 * D, w.tmp, w.g, D, NB, w.tile);  // sd = S diff
+    const int c = threadIdx.x;
+    if (c < NB && w.need[c]) {
+      float acc = w.tmp[c] * w.g[c];
+      bool inside = __ldg(lo) <= w.x[c] && __ldg(hi) >= w.x[c];
+      for (int d = 1; d < D; ++d) {
+        const float xd = w.x[d * NB + c];
+        acc = acc + w.tmp[d * NB + c] * w.g[d * NB + c];
+        inside = inside && __ldg(lo + d) <= xd && __ldg(hi + d) >= xd;
+      }
+      const float ll = -0.25f * acc;
+      w.logp[c] = w.beta[c] * ll + (inside ? 0.0f : -INFINITY);
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < D * NB; idx += kWideThreads)
+      w.g[idx] = w.beta[(idx & (NB - 1))] * (-0.5f * w.g[idx]);
+    __syncthreads();
+  }
+};
+
+// Standard normal on the box (a, b) in logit coordinates p, flat prior.
+// prm: a, b - a, log(b - a), D/2 log(2 pi).
+struct WideIntervalGaussian {
+  __device__ __forceinline__ static void terms(float p, float wd, float lo, float& s, float& x,
+                                               float& e) {
+    s = 1.0f / (1.0f + expf(-p));
+    x = wd * s + lo;
+    e = expf(p);
+  }
+
+  __device__ static void eval(const Wide& w) {
+    const int D = w.D, NB = w.NB;
+    const float lo = __ldg(w.prm), wd = __ldg(w.prm + 1), lw = __ldg(w.prm + 2);
+    const float c0 = __ldg(w.prm + 3);
+    for (int idx = threadIdx.x; idx < D * NB; idx += kWideThreads) {
+      float s, x, e;
+      terms(w.x[idx], wd, lo, s, x, e);
+      const float gll = (-x) * wd * (s * (1.0f - s)) + (1.0f + (-2.0f * (1.0f / (e + 1.0f))) * e);
+      w.g[idx] = w.beta[(idx & (NB - 1))] * gll;
+    }
+    const int c = threadIdx.x;
+    if (c < NB && w.need[c]) {
+      float sx = 0.0f, sj = 0.0f;
+      for (int d = 0; d < D; ++d) {
+        const float p = w.x[d * NB + c];
+        float s, x, e;
+        terms(p, wd, lo, s, x, e);
+        const float jac = (lw + p) - 2.0f * log1pf(e);
+        sx = d ? sx + x * x : x * x;
+        sj = d ? sj + jac : jac;
+      }
+      const float ll = (-0.5f * sx - c0) + sj;
+      w.logp[c] = w.beta[c] * ll;
+    }
+    __syncthreads();
+  }
+};
+
+// The linear-Gaussian hierarchy, x = (mu, theta_1..theta_G), D = G + 1 >= 2.
+// prm: 1/s_mu, 1/s_t, 1/s_y, y [G].
+struct WideHierarchicalGaussian {
+  __device__ static void eval(const Wide& w) {
+    const int D = w.D, NB = w.NB;
+    const float r_mu = __ldg(w.prm), r_t = __ldg(w.prm + 1), r_y = __ldg(w.prm + 2);
+    const float* y = w.prm + 3;
+    for (int idx = NB + threadIdx.x; idx < D * NB; idx += kWideThreads) {
+      const int c = (idx & (NB - 1));
+      const float th = w.x[idx];
+      const float u = (th - w.x[c]) * r_t;
+      const float wv = u * r_t;
+      const float r = (__ldg(y + wide_row(idx, NB) - 1) - th) * r_y;
+      w.g[idx] = w.beta[c] * (r * r_y) - wv;
+      w.tmp[idx] = wv;
+    }
+    __syncthreads();
+    const int c = threadIdx.x;
+    if (c < NB) {
+      const float mu = w.x[c];
+      const float m = mu * r_mu;
+      float acc = w.tmp[NB + c];
+      for (int d = 2; d < D; ++d) acc = acc + w.tmp[d * NB + c];
+      w.g[c] = -(m * r_mu) + acc;
+      if (w.need[c]) {
+        float sr = 0.0f, su = 0.0f;
+        for (int d = 1; d < D; ++d) {
+          const float th = w.x[d * NB + c];
+          const float u = (th - mu) * r_t;
+          const float r = (__ldg(y + d - 1) - th) * r_y;
+          sr = d > 1 ? sr + r * r : r * r;
+          su = d > 1 ? su + u * u : u * u;
+        }
+        const float ll = -0.5f * sr;
+        const float lp = -0.5f * (m * m) - 0.5f * su;
+        w.logp[c] = w.beta[c] * ll + lp;
+      }
+    }
+    __syncthreads();
+  }
+};
+
 }  // namespace ptmc

@@ -1,13 +1,23 @@
-"""Chain diagnostics (host numpy): the integrated autocorrelation time of
-one chain (the sampler's single-chain ``neff`` stop), split R-hat,
-cross-chain ESS and the bench's posterior-moment gate."""
+"""Chain diagnostics: the integrated autocorrelation time of one chain (the
+sampler's single-chain ``neff`` stop), split R-hat, cross-chain ESS and the
+bench's posterior-moment gate.
+
+``split_rhat``, ``multichain_ess`` and ``moment_gate`` take numpy arrays or
+torch tensors and compute the heavy part in f64 on the tensor's device (a
+numpy array on the CPU), chunked over chains: at 50-D and 200-D a run's
+retained cold chains are about 10**9 values, which the host's FFTs take
+minutes over.
+"""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 #: Cap on the complex FFT intermediate per multichain_ess chunk (bytes).
 _ESS_FFT_CHUNK_BYTES = 128e6
+#: The same cap on a CUDA device.
+_ESS_FFT_CHUNK_BYTES_CUDA = 2e9
 
 
 def _next_pow_two(n):
@@ -56,21 +66,27 @@ def effective_samples(chain, niter=None):
     return n / max(1.0, max_autocorr_time(chain))
 
 
+def _as_tensor(chains):
+    """``chains`` as a torch tensor (numpy arrays on the CPU, unchanged)."""
+    return chains if isinstance(chains, torch.Tensor) else torch.as_tensor(np.asarray(chains))
+
+
 def split_rhat(chains):
     """Split-chain potential scale reduction factor (Gelman-Rubin R-hat).
 
-    chains: [nchains, nsteps, ndim]. Each chain is split in half, then the
-    between/within variance ratio is computed per parameter.
+    chains: [nchains, nsteps, ndim], numpy or torch. Each chain is split in
+    half, then the between/within variance ratio is computed per parameter.
+    Returns a numpy array [ndim].
     """
-    chains = np.asarray(chains, dtype=np.float64)
+    chains = _as_tensor(chains)
     m, n, d = chains.shape
     half = n // 2
     if half < 2:
         return np.full(d, np.nan)
-    split = np.concatenate([chains[:, :half], chains[:, half : 2 * half]], axis=0)
-    sn = split.shape[1]
-    means = split.mean(axis=1)
-    variances = split.var(axis=1, ddof=1)
+    parts = (chains[:, :half], chains[:, half : 2 * half])
+    sn = half
+    means = torch.cat([p.double().mean(dim=1) for p in parts]).cpu().numpy()
+    variances = torch.cat([p.double().var(dim=1, correction=1) for p in parts]).cpu().numpy()
     w = variances.mean(axis=0)
     b = sn * means.var(axis=0, ddof=1)
     var_plus = (sn - 1) / sn * w + b / sn
@@ -81,35 +97,19 @@ def split_rhat(chains):
 def multichain_ess(chains):
     """Cross-chain effective sample size per parameter (Stan-style).
 
-    chains: [nchains, nsteps, ndim]. Per-chain autocovariances averaged and
-    corrected by the between-chain variance, with Geyer initial-monotone
-    truncation, so chains stuck in different modes are penalised. Returns
-    an array [ndim].
+    chains: [nchains, nsteps, ndim], numpy or torch. Per-chain
+    autocovariances averaged and corrected by the between-chain variance,
+    with Geyer initial-monotone truncation, so chains stuck in different
+    modes are penalised. Returns a numpy array [ndim].
     """
-    chains = np.asarray(chains)
+    chains = _as_tensor(chains)
     m, n, d = chains.shape
     if n < 2:
         return np.full(d, float(m * n))
-    chain_means = chains.mean(axis=1, dtype=np.float64)
-    chain_vars = chains.var(axis=1, ddof=1, dtype=np.float64)
+    chain_means, chain_vars, acov_sum = _acov(chains)
     w = chain_vars.mean(axis=0)
     b = n * chain_means.var(axis=0, ddof=1) if m > 1 else np.zeros(d)
     var_plus = w * (n - 1) / n + b / n
-    # Batched rFFT, chunked over chains so the complex intermediate stays
-    # near _ESS_FFT_CHUNK_BYTES.
-    nfft = 2 * _next_pow_two(n)
-    chunk_m = max(1, int(_ESS_FFT_CHUNK_BYTES // (nfft * max(d, 1) * 16)))
-    acov_sum = np.zeros((n, d))
-    scale = chain_vars * (n - 1) / n
-    for i0 in range(0, m, chunk_m):
-        blk = slice(i0, min(m, i0 + chunk_m))
-        xc = chains[blk].astype(np.float64) - chain_means[blk, None, :]
-        f = np.fft.rfft(xc, n=nfft, axis=1)
-        acf = np.fft.irfft(f * np.conj(f), n=nfft, axis=1)[:, :n, :]
-        acf0 = acf[:, :1, :]
-        ok0 = acf0 > 0
-        fnorm = np.where(ok0, acf / np.where(ok0, acf0, 1.0), 1.0)
-        acov_sum += (fnorm * scale[blk, None, :]).sum(axis=0)
     acov = acov_sum / m
     with np.errstate(divide="ignore", invalid="ignore"):
         rho = 1.0 - (w - acov) / var_plus
@@ -123,19 +123,51 @@ def multichain_ess(chains):
     return np.where(np.isfinite(var_plus) & (var_plus > 0), ess, float(m * n))
 
 
+def _acov(chains):
+    """Per-chain means and variances [m, d], and the sum over chains of the
+    normalised autocovariances scaled by each chain's variance [n, d], in
+    f64 on the tensor's device; numpy results. A batched rFFT, chunked over
+    chains so the complex intermediate stays near the device's cap."""
+    m, n, d = chains.shape
+    cap = _ESS_FFT_CHUNK_BYTES_CUDA if chains.is_cuda else _ESS_FFT_CHUNK_BYTES
+    nfft = 2 * _next_pow_two(n)
+    chunk_m = max(1, int(cap // (nfft * max(d, 1) * 16)))
+    blocks = [slice(i0, min(m, i0 + chunk_m)) for i0 in range(0, m, chunk_m)]
+    chain_means = torch.cat([chains[b].double().mean(dim=1) for b in blocks])
+    chain_vars = torch.cat([chains[b].double().var(dim=1, correction=1) for b in blocks])
+    acov_sum = torch.zeros((n, d), dtype=torch.float64, device=chains.device)
+    scale = chain_vars * (n - 1) / n
+    for blk in blocks:
+        xc = chains[blk].double() - chain_means[blk, None, :]
+        f = torch.fft.rfft(xc, n=nfft, dim=1)
+        acf = torch.fft.irfft(f * torch.conj(f), n=nfft, dim=1)[:, :n, :]
+        acf0 = acf[:, :1, :]
+        ok0 = acf0 > 0
+        fnorm = torch.where(ok0, acf / torch.where(ok0, acf0, 1.0), 1.0)
+        acov_sum += (fnorm * scale[blk, None, :]).sum(dim=0)
+    return chain_means.cpu().numpy(), chain_vars.cpu().numpy(), acov_sum.cpu().numpy()
+
+
+def _pooled_mean_sd(chains):
+    """Per-dimension mean and standard deviation (ddof 0) of all samples."""
+    blocks = torch.split(chains.reshape(-1, chains.shape[-1]), 1 << 22)
+    mean = sum(b.double().sum(dim=0) for b in blocks) / (chains.numel() // chains.shape[-1])
+    var = sum(((b.double() - mean) ** 2).sum(dim=0) for b in blocks) / (
+        chains.numel() // chains.shape[-1])
+    return mean.cpu().numpy(), var.sqrt().cpu().numpy()
+
+
 def moment_gate(chains, target_mean):
     """The bench's posterior-moment check (bench.py:294-304).
 
-    ``chains [nchains, nsteps, ndim]`` of cold-chain samples. Passes when
-    every dimension's pooled mean is within 8 standard errors (from the
-    pooled ESS) plus 2% of a standard deviation of ``target_mean``.
-    Returns ``(ok, max_z, ess)``.
+    ``chains [nchains, nsteps, ndim]`` of cold-chain samples, numpy or
+    torch. Passes when every dimension's pooled mean is within 8 standard
+    errors (from the pooled ESS) plus 2% of a standard deviation of
+    ``target_mean``. Returns ``(ok, max_z, ess)``.
     """
-    chains = np.asarray(chains)
+    chains = _as_tensor(chains)
     ess = multichain_ess(chains)
-    flat = chains.reshape(-1, chains.shape[-1])
-    mean = flat.mean(axis=0, dtype=np.float64)
-    sd = flat.std(axis=0, dtype=np.float64)
+    mean, sd = _pooled_mean_sd(chains)
     se = sd / np.sqrt(np.maximum(ess, 1.0))
     err = np.abs(mean - np.asarray(target_mean))
     z = err / np.maximum(se, 1e-9)

@@ -1,3 +1,13 @@
-from .examples import CurvedLikelihood
+from .examples import (
+    CorrelatedGaussian,
+    CurvedLikelihood,
+    HierarchicalGaussian,
+    IntervalTransformedGaussian,
+)
 
-__all__ = ["CurvedLikelihood"]
+__all__ = [
+    "CorrelatedGaussian",
+    "CurvedLikelihood",
+    "HierarchicalGaussian",
+    "IntervalTransformedGaussian",
+]

@@ -14,9 +14,15 @@ the same kernel with its prologue and epilogue, so a ChEES iteration pays
 one launch for all of it.
 
 * On a CUDA tensor each wrapper launches the hand-written kernel in
-  ``csrc/chees_trajectory.cu`` (one thread per chain, the block's chains
-  grouped by length) or raises: a model without a device functor, a wrong
-  shape, type or layout, or a failed launch all raise.
+  ``csrc/chees_trajectory.cu`` or raises: a model without a device functor
+  for it, a wrong shape, type or layout, or a failed launch all raise. The
+  curved model (D = 2) runs one thread a chain with its vectors in
+  registers; the wide models (``correlated_gaussian``,
+  ``interval_gaussian``, ``hierarchical_gaussian``, any D up to
+  ``common.WIDE_MAX_D``) run the wide layout, groups of ``wide_group(D)``
+  chains with their vectors in shared memory, and take the model's
+  constants (``model.cuda_params``). Both order each block's 256 chains by
+  length.
 * On a CPU tensor it runs its plain version, the same function written as a
   loop of masked PyTorch steps in the kernel's operation order. The tests
   hold it to the JAX package, and ``chip_smoke.py`` holds the kernel to it
@@ -39,6 +45,12 @@ from . import common
 BLOCK = 256
 WARP = 32
 SORT_BINS = 256
+
+
+def wide_group(ndim):
+    """Chains a group of the wide layout runs together at dimension ``ndim``
+    (``wide_group`` in csrc/chees_trajectory.cu)."""
+    return 64 if ndim <= 64 else (32 if ndim <= 128 else 16)
 
 
 def _trajectories_plain(q0, p0, beta, eps, nsteps, chol, model):
@@ -81,14 +93,15 @@ def chees_trajectories(q0, p0, beta, eps, nsteps, chol, model):
       eps:    ``[T, C]`` f32 step sizes.
       nsteps: ``[T, C]`` int32 trajectory lengths, >= 1.
       chol:   ``[D, D]`` f32 Cholesky factor of the mass-matrix inverse.
-      model:  gives ``value_grad`` (plain version) and ``cuda_functor``.
+      model:  gives ``value_grad`` (plain version), ``cuda_functor`` and,
+              for a wide functor, ``cuda_params``.
     Returns:
       ``(q1 [T, D, C], p1 [T, D, C], logp1 [T, C])``; a NaN ``logp1`` is -inf.
     """
     if common.check_device("chees_trajectories", q0):
         return chees_trajectories_plain(q0, p0, beta, eps, nsteps, chol, model)
     t, d, c = q0.shape
-    functor = common.cuda_functor("ChEES trajectory", model, d)
+    functor = common.cuda_functor("chees", model, d, "chees_trajectories")
     f32 = torch.float32
     common.check_args("chees_trajectories", q0.device, {
         "q0": (q0, (t, d, c), f32), "p0": (p0, (t, d, c), f32),
@@ -100,12 +113,16 @@ def chees_trajectories(q0, p0, beta, eps, nsteps, chol, model):
     q1 = torch.empty_like(q0)
     p1 = torch.empty_like(p0)
     logp1 = torch.empty((t, c), dtype=f32, device=q0.device)
+    ptrs, dims = (q0, p0, beta, eps, nsteps, chol), (t, c)
+    if functor != "curved":  # a wide entry: the model's constants and D
+        ptrs += (common.cuda_params("chees_trajectories", model, functor, q0.device),)
+        dims = (d, t, c)
+    ptrs += (q1, p1, logp1)
     fn = common.entry(
         "chees_trajectory", f"chees_trajectory_{functor}",
-        [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(dims) + [ctypes.c_void_p],
     )
-    ptrs = (q0, p0, beta, eps, nsteps, chol, q1, p1, logp1)
-    common.launch("chees_trajectory", fn, q0.device, *(a.data_ptr() for a in ptrs), t, c)
+    common.launch("chees_trajectory", fn, q0.device, *(a.data_ptr() for a in ptrs), *dims)
     chees_trajectories.launches += 1
     return q1, p1, logp1
 
@@ -148,7 +165,8 @@ def chees_step(x, r0, u, beta, eps, tlen, eps0, max_steps, chol, chol_inv, model
       max_steps: the cap on a trajectory's steps, a Python int.
       chol, chol_inv: ``[D, D]`` f32 Cholesky factor of the mass-matrix
                 inverse and its inverse.
-      model:    gives ``value_grad`` (plain version) and ``cuda_functor``.
+      model:    gives ``value_grad`` (plain version), ``cuda_functor`` and,
+                for a wide functor, ``cuda_params``.
     Returns:
       ``(x1, q0, z1, r1, qxy, alpha)``: ``x1 = chol^T z1`` the proposal,
       ``q0 = chol_inv^T x`` the whitened start, ``(z1, r1)`` the end point
@@ -159,7 +177,7 @@ def chees_step(x, r0, u, beta, eps, tlen, eps0, max_steps, chol, chol_inv, model
         return chees_step_plain(x, r0, u, beta, eps, tlen, eps0, max_steps, chol, chol_inv,
                                 model)
     t, d, c = x.shape
-    functor = common.cuda_functor("ChEES step", model, d)
+    functor = common.cuda_functor("chees", model, d, "chees_step")
     f32 = torch.float32
     common.check_args("chees_step", x.device, {
         "x": (x, (t, d, c), f32), "r0": (r0, (t, d, c), f32), "u": (u, (t, c), f32),
@@ -172,18 +190,22 @@ def chees_step(x, r0, u, beta, eps, tlen, eps0, max_steps, chol, chol_inv, model
         raise ValueError(f"chees_step: max_steps {max_steps} is not in [1, 2**31)")
     points = torch.empty((4, t, d, c), dtype=f32, device=x.device)
     scalars = torch.empty((2, t, c), dtype=f32, device=x.device)
-    fn = common.entry(
-        "chees_trajectory", f"chees_step_{functor}",
-        [ctypes.c_void_p] * 8 + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 6
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    )
     x1, q0, z1, r1 = points.unbind(0)
     qxy, alpha = scalars.unbind(0)
     ins = (x, r0, u, beta, eps, tlen, chol, chol_inv)
     outs = (x1, q0, z1, r1, qxy, alpha)
+    dims = (t, c)
+    if functor != "curved":  # a wide entry: the model's constants and D
+        ins += (common.cuda_params("chees_step", model, functor, x.device),)
+        dims = (d, t, c)
+    fn = common.entry(
+        "chees_trajectory", f"chees_step_{functor}",
+        [ctypes.c_void_p] * len(ins) + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 6
+        + [ctypes.c_int] * len(dims) + [ctypes.c_void_p],
+    )
     common.launch(
         "chees_step", fn, x.device, *(a.data_ptr() for a in ins), float(eps0), int(max_steps),
-        *(a.data_ptr() for a in outs), t, c,
+        *(a.data_ptr() for a in outs), *dims,
     )
     chees_step.launches += 1
     return x1, q0, z1, r1, qxy, alpha
@@ -192,9 +214,11 @@ def chees_step(x, r0, u, beta, eps, tlen, eps0, max_steps, chol, chol_inv, model
 chees_step.launches = 0
 
 
-def lane_efficiency(nsteps, grouped=True):
+def lane_efficiency(nsteps, grouped=True, lanes=WARP):
     """Share of the lane-steps a batch issues that do work: ``sum(nsteps) /
-    (32 * sum over warps of the warp's largest nsteps)``.
+    (lanes * sum over units of the unit's largest nsteps)``, a unit being
+    ``lanes`` consecutive threads (a warp of the curved kernel, or a group
+    of the wide layout, ``lanes=wide_group(D)``, which steps together).
 
     ``nsteps [T, C]`` in the kernel's lane order: chain ``n = t*C + c`` in
     block ``n // 256``, lanes past ``T*C`` at length 0. ``grouped`` orders
@@ -204,9 +228,9 @@ def lane_efficiency(nsteps, grouped=True):
     """
     n = nsteps.reshape(-1).to(torch.int64).cpu()
     pad = (-n.numel()) % BLOCK
-    lanes = torch.cat([n, n.new_zeros(pad)]).view(-1, BLOCK)
+    units = torch.cat([n, n.new_zeros(pad)]).view(-1, BLOCK)
     if grouped:
-        order = torch.argsort(lanes.clamp(0, SORT_BINS - 1), dim=1, stable=True)
-        lanes = torch.gather(lanes, 1, order)
-    issued = WARP * lanes.view(-1, WARP).max(dim=1).values.sum()
+        order = torch.argsort(units.clamp(0, SORT_BINS - 1), dim=1, stable=True)
+        units = torch.gather(units, 1, order)
+    issued = lanes * units.reshape(-1, lanes).max(dim=1).values.sum()
     return float(n.sum()) / float(issued)

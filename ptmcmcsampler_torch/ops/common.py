@@ -14,9 +14,21 @@ import torch
 
 from . import build
 
-# Device functors compiled into every kernel (csrc/models.cuh), by the name a
-# model gives in ``cuda_functor``, with the dimension each is compiled for.
-FUNCTOR_NDIM = {"curved": 2}
+# Most dimensions of the wide ChEES layout (csrc/models.cuh kWideMaxD).
+WIDE_MAX_D = 256
+
+# The device functors of csrc/models.cuh, by the name a model gives in
+# ``cuda_functor``: for each kernel that has an entry for the functor, the
+# dimensions ``(least, most)`` it takes. The curved functor is compiled for
+# D = 2 into the register kernels of all three; the wide functors run in the
+# ChEES kernel's wide layout at any D up to WIDE_MAX_D, and have no NUTS or
+# HMC entry yet (ROADMAP B4).
+FUNCTORS = {
+    "curved": {"chees": (2, 2), "hmc": (2, 2), "nuts": (2, 2)},
+    "correlated_gaussian": {"chees": (1, WIDE_MAX_D)},
+    "interval_gaussian": {"chees": (1, WIDE_MAX_D)},
+    "hierarchical_gaussian": {"chees": (2, WIDE_MAX_D)},
+}
 
 # Philox4x32-10 (Salmon et al., SC'11): round multipliers and key bumps.
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -55,19 +67,24 @@ def philox4x32(ctr, key):
 
 
 def matvec(m, v):
-    """``m @ v`` for ``m [D, D]``, ``v [T, D, C]``, summed over k in order."""
-    out = m[None, :, 0, None] * v[:, 0:1]
+    """``m @ v`` for ``m [D, D]``, ``v [..., D, C]``, summed over k in order."""
+    out = m[:, 0, None] * v[..., 0:1, :]
     for k in range(1, m.shape[1]):
-        out = out + m[None, :, k, None] * v[:, k:k + 1]
+        out = out + m[:, k, None] * v[..., k:k + 1, :]
+    return out
+
+
+def rsum(a):
+    """``sum_d a[..., d, :]`` over the ``D`` axis (-2), in order."""
+    out = a[..., 0, :]
+    for k in range(1, a.shape[-2]):
+        out = out + a[..., k, :]
     return out
 
 
 def rdot(a, b):
     """``sum_d a[..., d, :] * b[..., d, :]`` over the ``D`` axis (-2), in order."""
-    out = a[..., 0, :] * b[..., 0, :]
-    for k in range(1, a.shape[-2]):
-        out = out + a[..., k, :] * b[..., k, :]
-    return out
+    return rsum(a * b)
 
 
 def log_hamiltonian(logp, p):
@@ -86,19 +103,47 @@ def whitened(model, chol, beta_b):
     return fgw
 
 
-def cuda_functor(kernel, model, ndim):
-    """The model's device functor name, or raise naming the model."""
+def kernel_refusal(functor, kernel, ndim):
+    """Why ``kernel`` ("chees", "hmc" or "nuts") cannot run the device
+    functor ``functor`` at dimension ``ndim``, or None if it can."""
+    if functor not in FUNCTORS:
+        return "no CUDA device functor in csrc/models.cuh"
+    dims = FUNCTORS[functor].get(kernel)
+    if dims is None:
+        return (f"the {kernel.upper()} kernel has no entry for functor {functor!r} yet (the "
+                "NUTS and HMC kernels beyond D = 2: ROADMAP B4)")
+    if dims[0] == dims[1] != ndim:
+        return f"functor {functor!r} is compiled for D={dims[0]}, got {ndim}"
+    if not dims[0] <= ndim <= dims[1]:
+        return (f"the {kernel.upper()} kernel takes functor {functor!r} at "
+                f"{dims[0]} <= D <= {dims[1]}, got {ndim}")
+    return None
+
+
+def cuda_functor(kernel, model, ndim, label):
+    """The model's device functor name for ``kernel``, or raise naming the
+    model: NotImplementedError for a model or functor without an entry,
+    ValueError for a dimension the entry does not take."""
     functor = getattr(model, "cuda_functor", None)
-    if functor not in FUNCTOR_NDIM:
-        raise NotImplementedError(
-            f"model {type(model).__name__} has no CUDA device functor for the "
-            f"{kernel} kernel (csrc/models.cuh)"
-        )
-    if ndim != FUNCTOR_NDIM[functor]:
-        raise ValueError(
-            f"functor {functor!r} is compiled for D={FUNCTOR_NDIM[functor]}, got {ndim}"
-        )
+    why = kernel_refusal(functor, kernel, ndim)
+    if why is not None:
+        kind = ValueError if FUNCTORS.get(functor, {}).get(kernel) else NotImplementedError
+        raise kind(f"{label}: model {type(model).__name__}: {why}")
     return functor
+
+
+def cuda_params(label, model, functor, device):
+    """A wide functor's constants on ``device`` (``model.cuda_params``),
+    checked: f32, contiguous, of the length the model gives
+    (``model.cuda_params_len``). Raise if missing."""
+    get = getattr(model, "cuda_params", None)
+    prm = get(device) if callable(get) else None
+    if not isinstance(prm, torch.Tensor):
+        raise ValueError(f"{label}: model {type(model).__name__} gives no constants array "
+                         f"for functor {functor!r} (cuda_params)")
+    check_args(label, device, {"model constants": (prm, (model.cuda_params_len(),),
+                                                   torch.float32)})
+    return prm
 
 
 def check_args(fn_name, device, expect):

@@ -103,7 +103,7 @@ def hmc_trajectories(q0, p0, beta, nsteps, chol, eps, model):
     if common.check_device("hmc_trajectories", q0):
         return hmc_trajectories_plain(q0, p0, beta, nsteps, chol, eps, model)
     t, d, c = q0.shape
-    functor = common.cuda_functor("HMC trajectory", model, d)
+    functor = common.cuda_functor("hmc", model, d, "hmc_trajectories")
     f32 = torch.float32
     common.check_args("hmc_trajectories", q0.device, {
         "q0": (q0, (t, d, c), f32), "p0": (p0, (t, d, c), f32),
@@ -207,7 +207,7 @@ def hmc_step(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model):
         raise ValueError("hmc_step: on the card the draws are a Philox key (int64 [2]), "
                          "not arrays")
     t, d, c = x.shape
-    functor = common.cuda_functor("HMC step", model, d)
+    functor = common.cuda_functor("hmc", model, d, "hmc_step")
     f32 = torch.float32
     common.check_args("hmc_step", x.device, {
         "x": (x, (t, d, c), f32), "beta": (beta, (t,), f32),
@@ -243,7 +243,7 @@ def hmc_kernel_draws(key, t, d, c, nmin, nmax, model):
     ``hmc_draws`` and to count the steps a batch takes."""
     if common.check_device("hmc_kernel_draws", key):
         raise ValueError("hmc_kernel_draws: the kernel runs on the card, not the CPU")
-    functor = common.cuda_functor("HMC draws", model, d)
+    functor = common.cuda_functor("hmc", model, d, "hmc_kernel_draws")
     common.check_args("hmc_kernel_draws", key.device, {"key": (key, (2,), torch.int64)})
     _check_batch("hmc_kernel_draws", t, c)
     _check_lengths("hmc_kernel_draws", nmin, nmax)

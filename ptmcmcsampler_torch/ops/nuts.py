@@ -192,7 +192,7 @@ def nuts_trees(q0, r0, beta, eps, expo, dirs, accu, draws, chol, model, r_eps=No
             resu = nuts_uniforms(draws, depth, q0.shape[0], q0.shape[2])
         return nuts_trees_plain(q0, r0, beta, eps, expo, dirs, accu, resu, chol, model, r_eps)
     t, d, c = q0.shape
-    functor = common.cuda_functor("NUTS tree", model, d)
+    functor = common.cuda_functor("nuts", model, d, "nuts_trees")
     f32 = torch.float32
     expect = {
         "q0": (q0, (t, d, c), f32), "r0": (r0, (t, d, c), f32),

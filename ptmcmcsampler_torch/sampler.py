@@ -15,7 +15,10 @@ reach ``build_step``, which wants a batched model, by one of two routes:
   ``lnprior`` and ``value_grad`` and names a ``cuda_functor``, and no
   ``*args``/``*kwargs`` are passed. The object goes to ``build_step`` whole,
   and on the card its gradient jumps launch the CUDA kernels compiled with
-  that functor (``models.CurvedLikelihood`` is one).
+  that functor (the four models of ``models`` are such objects). A jump
+  whose kernel has no entry for the functor (NUTS and HMC beyond D = 2,
+  ROADMAP B4) is refused on the card when ``sample()`` starts
+  (:func:`card_refusal`); on the CPU every jump runs.
 * **plain**: anything else. Callables that ``torch.func.vmap`` can batch
   run batched on the device; others (numpy) run on the host, one call a
   point, in float64. The gradient jumps run the kernels' plain versions,
@@ -46,15 +49,34 @@ import numpy as np
 import torch
 
 from . import diagnostics, utils
-from .config import SamplerConfig, build_default_jumps
+from .config import KIND_CHEES, KIND_HMC, KIND_NUTS, SamplerConfig, build_default_jumps
 from .io.chainfile import ChainWriter
 from .io.checkpoint import load_checkpoint, save_checkpoint
 from .kernel import build_step
 from .ladder import ladder_betas, temperature_ladder
+from .ops import common
 from .state import init_state
 
 _FUNCTOR_METHODS = ("lnlikefn", "lnpriorfn", "lnlikefn_grad", "lnpriorfn_grad")
 _BATCHED_METHODS = ("lnlike", "lnprior", "value_grad")
+
+
+def card_refusal(device_type, functor, jumps, ndim):
+    """Why the kernel route cannot run the jumps ``jumps`` (``JumpSpec``s)
+    of a model with device functor ``functor`` at ``ndim`` on a device of
+    type ``device_type``, or None if it can. On the card each jump of a
+    kernel kind (ChEES, HMC, NUTS) launches its kernel or raises, so a kind
+    whose kernel has no entry for the functor at that D is refused before
+    any iteration runs. MALA is plain PyTorch; the CPU runs every kernel's
+    plain version."""
+    if device_type != "cuda":
+        return None
+    for jump in jumps:
+        if jump.kind in (KIND_CHEES, KIND_HMC, KIND_NUTS):
+            why = common.kernel_refusal(functor, jump.kind, ndim)
+            if why is not None:
+                return f"{jump.name}: {why}"
+    return None
 
 
 def _points(x):
@@ -463,6 +485,13 @@ class PTSampler:
             adapt_ladder=bool(adaptLadder),
         )
         self.config = config
+        if self.route == "kernel":
+            why = card_refusal(self.device.type, self._model.cuda_functor, config.jumps,
+                               self.ndim)
+            if why is not None:
+                raise NotImplementedError(
+                    f"on the card, model {type(self._model).__name__}: {why}. Set that jump's "
+                    'weight to 0, or pass device="cpu" to run every jump there')
         if MALAweight and self._have_grads and self.verbose:
             # The reference warns "MALA jumps are not working properly yet"
             # (:230-231) because its qxy misses the Gaussian normalization;

@@ -16,7 +16,9 @@ import torch
 
 from ptmcmcsampler_torch import SamplerConfig, build_default_jumps, build_step, init_state
 from ptmcmcsampler_torch.config import KIND_CHEES, KIND_HMC, KIND_NUTS
-from ptmcmcsampler_torch.models import CurvedLikelihood
+from ptmcmcsampler_torch.models import (
+    CorrelatedGaussian, CurvedLikelihood, HierarchicalGaussian, IntervalTransformedGaussian,
+)
 from ptmcmcsampler_torch.ops import build, common
 from ptmcmcsampler_torch.ops.chees import (
     chees_step, chees_step_plain, chees_trajectories, chees_trajectories_plain,
@@ -553,8 +555,150 @@ def test_sampler_without_gradients_on_the_card_launches_nothing(cuda, tmp_path):
 @pytest.mark.cuda
 def test_sampler_raises_when_the_functor_kernel_cannot_launch(cuda, tmp_path):
     """A model that takes the kernel route with a functor the kernels do not
-    have raises at its first gradient iteration: no plain fallback."""
+    have raises when sample() starts: no plain fallback."""
     s = _sampler("nosuch", str(tmp_path))
     assert s.route == "kernel"
     with pytest.raises(NotImplementedError, match="NoSuchFunctor"):
         s.sample([-0.1, -0.5], 120, **_SAMPLE)
+
+
+# ---- The wide entries (bench.py's 40-, 50- and 200-D models) ----
+
+WIDE_MODELS = {
+    "interval": lambda: IntervalTransformedGaussian(ndim=40),
+    "hierarchical": lambda: HierarchicalGaussian(),
+    "correlated": lambda: CorrelatedGaussian(ndim=200, seed=1),
+}
+
+
+def _wide_step_inputs(dev, model, t=2, c=300, max_steps=16, seed=0):
+    """The fused step's arguments for a wide model: positions around the
+    posterior (a few outside the correlated model's box), a random
+    well-conditioned chol, rung 0 at its first call."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    d = model.ndim
+    if isinstance(model, CorrelatedGaussian):
+        centre = torch.tensor(model.mu, dtype=torch.float32, device=dev)
+    elif isinstance(model, IntervalTransformedGaussian):
+        centre = torch.full((d,), -2.5, device=dev)
+    else:
+        centre = torch.tensor(model.posterior_moments()[0], dtype=torch.float32, device=dev)
+    x = centre[None, :, None] + 0.3 * torch.randn((t, d, c), generator=gen, device=dev)
+    if isinstance(model, CorrelatedGaussian):
+        x[:, 0, ::17] = -0.5  # outside the box [0, 10]
+    a = torch.randn((d, d), generator=gen, device=dev) / d
+    chol = torch.linalg.cholesky(0.3 * torch.eye(d, device=dev) + a @ a.T).contiguous()
+    chol_inv = torch.linalg.inv(chol).contiguous()
+    r0 = torch.randn((t, d, c), generator=gen, device=dev)
+    u = torch.rand((t, c), generator=gen, device=dev) * (1.0 - 1e-3) + 1e-3
+    betas = torch.linspace(1.0, 0.25, t, device=dev)
+    eps = torch.full((t, c), 0.02, device=dev)
+    eps[0] = 0.0
+    tlen = torch.where(eps > 0, eps, 0.02) * max_steps
+    return x.contiguous(), r0, u, betas, eps, tlen, 0.02, max_steps, chol, chol_inv
+
+
+def _same(a, b):
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WIDE_MODELS))
+@pytest.mark.parametrize("c", [300, 256])
+def test_wide_entries_match_plain_bitwise(cuda, name, c):
+    """Both wide entries equal their plain versions bit for bit, on a whole
+    number of 256-chain blocks and on a ragged batch."""
+    model = WIDE_MODELS[name]()
+    args = _wide_step_inputs(cuda, model, c=c)
+    before = chees_step.launches
+    out = chees_step(*args, model)
+    assert chees_step.launches == before + 1
+    ref = chees_step_plain(*args, model)
+    for name_, a, b in zip(("x1", "q0", "z1", "r1", "qxy", "alpha"), out, ref):
+        assert _same(a, b), name_
+    x, r0, u, betas, eps, tlen, eps0, max_steps, chol, _ = args
+    eps_tc = torch.where(eps > 0, eps, eps0)
+    nsteps = torch.clamp(torch.ceil(u * torch.maximum(tlen, eps_tc) / eps_tc), 1,
+                         max_steps).to(torch.int32)
+    traj = (out[1], r0, betas, eps_tc.contiguous(), nsteps, chol)
+    before = chees_trajectories.launches
+    got = chees_trajectories(*traj, model)
+    assert chees_trajectories.launches == before + 1
+    want = chees_trajectories_plain(*traj, model)
+    for a, b in zip(got, want):
+        assert _same(a, b)
+    assert torch.equal(got[0], out[2]) and torch.equal(got[1], out[3])
+
+
+@pytest.mark.cuda
+def test_wide_wrappers_raise(cuda):
+    """A wrong D, a missing or wrong constants array, and the NUTS and HMC
+    wrappers (no wide entry yet, ROADMAP B4) raise; nothing falls back."""
+    model = HierarchicalGaussian()
+    args = list(_wide_step_inputs(cuda, model))
+
+    class NoConstants(HierarchicalGaussian):
+        def cuda_params(self, device):
+            return None
+
+    class ShortConstants(HierarchicalGaussian):
+        def cuda_params(self, device):
+            return super().cuda_params(device)[:-1]
+
+    with pytest.raises(ValueError, match="no constants"):
+        chees_step(*args, NoConstants())
+    with pytest.raises(ValueError, match="model constants"):
+        chees_step(*args, ShortConstants())
+    one = [a[:, :1].contiguous() if torch.is_tensor(a) and a.dim() == 3 else a for a in args]
+    one[8] = one[9] = torch.ones((1, 1), device=cuda)
+    with pytest.raises(ValueError, match="2 <= D <= 256"):
+        chees_step(*one, model)
+    wide = IntervalTransformedGaussian(ndim=257)
+    wargs = list(_wide_step_inputs(cuda, wide, c=8))
+    with pytest.raises(ValueError, match="got 257"):
+        chees_step(*wargs, wide)
+    q0, betas, chol = args[0], args[3], args[8]
+    with pytest.raises(NotImplementedError, match="B4"):
+        hmc_trajectories(q0, args[1], betas, torch.ones_like(args[4], dtype=torch.int32), chol,
+                         0.1, model)
+    with pytest.raises(NotImplementedError, match="B4"):
+        hmc_step(args[0], betas, torch.zeros(2, dtype=torch.int64, device=cuda), chol, args[9],
+                 0.08, HMC_NMIN, HMC_NMAX, model)
+
+
+def _wide_sampler(outdir, nchains=64):
+    from ptmcmcsampler_torch import PTSampler
+
+    m = HierarchicalGaussian()
+    return PTSampler(m.ndim, m.lnlikefn, m.lnpriorfn, np.eye(m.ndim), logl_grad=m.lnlikefn_grad,
+                     logp_grad=m.lnpriorfn_grad, ntemps=2, nchains=nchains, seed=3,
+                     outDir=outdir, verbose=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", [dict(NUTSweight=20), dict(HMCweight=20)])
+def test_sampler_refuses_wide_nuts_and_hmc_on_the_card(cuda, tmp_path, weights):
+    """NUTS or HMC on a wide model on the card is refused before any
+    iteration runs, naming ROADMAP B4 and the CPU."""
+    s = _wide_sampler(str(tmp_path))
+    assert s.route == "kernel"
+    kw = {**_SAMPLE, "NUTSweight": 0, "HMCweight": 0, **weights}
+    with pytest.raises(NotImplementedError, match=r'B4') as e:
+        s.sample(np.zeros(s.ndim), 120, **kw)
+    assert 'device="cpu"' in str(e.value)
+    assert s.state is None
+
+
+@pytest.mark.cuda
+def test_sampler_wide_chees_on_the_card(cuda, tmp_path):
+    """SCAM/AM/DE/ChEES and MALA on a wide model run on the card: one
+    chees_step launch a ChEES iteration; MALA launches nothing."""
+    s = _wide_sampler(str(tmp_path))
+    _zero_launches()
+    kw = dict(_SAMPLE, NUTSweight=0, HMCweight=0, MALAweight=10)
+    s.sample(np.zeros(s.ndim), 120, **kw)
+    assert torch.isfinite(s.state.x).all()
+    assert chees_step.launches == _iterations(s.config, s.state, KIND_CHEES) > 0
+    assert chees_trajectories.launches == hmc_step.launches == nuts_trees.launches == 0
