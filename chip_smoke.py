@@ -57,6 +57,16 @@ Phases, in order; any failure exits non-zero:
      200-D chains inside the box, so their values are compared too) every
      output within SHORT_TOL with equal -inf masks. The trajectory entry,
      from the fused step's own q0 and lengths, must end where the step does.
+   * The wide NUTS and HMC entries on the same three functors, the kernels
+     at 8 x 16384 chains, the plain versions on the first and the last 512
+     chains a rung (WIDE_PLAIN_COLUMNS_NUTS): no lane may differ in any bit.
+     NUTS at depth 4 and 10 with about 2% of lanes at eps <= 0 (the
+     in-kernel step-size search); the fused HMC step at eps 0.08, 5.0 and
+     1e-4, on a ragged batch and with nmax = nmin + 1, against
+     ``hmc_step_plain`` fed the kernel's own draws, whose lengths must equal
+     ``hmc_draws``' and momenta lie within DRAW_ULP_TOL ulp; the trajectory
+     entry against its plain version, and the step's end points against the
+     trajectory entry's from those draws.
 3. Main path 1 at full width: the bench's headline configuration (8 x 16384
    chains, SCAM/AM/DE/ChEES at 10/10/10/20, tskip=5, cov_update=1000,
    de_size=2000, hmc_stepsize=0.08, 3000 burn-in + 12000 timed iterations
@@ -115,13 +125,27 @@ Phases, in order; any failure exits non-zero:
    on hierarchical, 20 on the others: a profile line each) for the device
    ms of one, and the wide kernel's timings on the final state. One JSON
    line a workload, with any cut of its timed iterations.
-8. ``PTSampler`` with ``HierarchicalGaussian``'s bound methods on the card:
-   8 x 1024 chains, SCAM/AM/DE/ChEES, 2000 iterations, files in a
-   temporary directory; ``chees_step`` once per ChEES iteration, the chain
-   files' rows, the gate on the rows past iteration 1000. Then
-   ``NUTSweight=20`` must be refused when ``sample()`` starts (no wide NUTS
-   kernel yet: ROADMAP B4), naming ``device="cpu"``. One JSON line.
-9. Kernels line: each kernel's launches on its path, error against the
+8. Path 2's cycle (bench.py's ``grad_mode=nuts``: SCAM/AM/DE/NUTS/HMC at
+   10 each, nuts_max_depth=10, hmc_stepsize=0.08, hmc_nmaxsteps=50) on the
+   same three wide workloads at 8 x 16384 chains, bench.py's x0, block cap
+   and ESS stride, WIDE_NUTS_ITERS iterations (cut from bench.py's 3000 +
+   12000 to fit the limit; the cuts are in each JSON line). The NUTS kernel
+   and ``hmc_step`` must launch once per NUTS and HMC iteration, the HMC
+   trajectory entry never; the gate must pass at 40-D and 50-D, gaussian200
+   must end finite, its split R-hat logged. Then the trees of one more NUTS
+   call at the final state (sizes, depth-cap share, the group lane
+   efficiency: leaves run over the group's size times its largest tree),
+   a profile of NUTS iterations alone, and the wide NUTS and HMC kernels'
+   timings. One JSON line a workload, with the adapted step sizes and the
+   acceptance of each jump.
+9. ``PTSampler`` with ``HierarchicalGaussian``'s bound methods on the card:
+   8 x 1024 chains, SCAM/AM/DE/ChEES/NUTS/HMC, 2000 iterations, files in a
+   temporary directory; ``chees_step``, ``nuts_trees`` and ``hmc_step``
+   each once per iteration of their kind, the chain files' rows, the gate
+   on the rows past iteration 1000. Then a 300-D ``CorrelatedGaussian``
+   (beyond the wide layout's 256) must be refused when ``sample()`` starts,
+   naming ``device="cpu"``. One JSON line.
+10. Kernels line: each kernel's launches on its path, error against the
    plain version, device time (CUDA events, stream held, inputs from its
    path's final state), the time of a wrapper call, the plain version's time
    and the bound. The ChEES entry adds the fused step's times and bound,
@@ -150,8 +174,17 @@ Phases, in order; any failure exits non-zero:
    launches by path, lane efficiency in the layout's groups, capped timings
    (every chain at the largest length: the batch, one group alone), ptxas
    registers, spills and shared memory, and the layout (chains a group and
-   a block, blocks an SM, waves).
-10. Last line: ``{"ok": true, "device": {...}}``.
+   a block, blocks an SM, waves). The NUTS and HMC entries' ``wide`` lists
+   have one item a wide functor with the same keys: the wide NUTS kernel's
+   time on path 2's final state, its wrapper call, the plain version's on
+   the first 1024 chains a rung, the bound (this call's leaves and
+   doublings: an evaluation, the leapfrog, the kinetic energy and one U-turn
+   check a leaf), the whitening products as ``library_ms``, tree sizes,
+   group lane efficiency, capped timings (every tree at the depth cap, the
+   batch and one group), the scratch layout and bytes, ptxas and layout;
+   the wide HMC entries' trajectory and fused-step times, plain times,
+   bounds, draws, the steps taken, ptxas and layout.
+11. Last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -266,12 +299,31 @@ WIDE_MODEL_OPS = {
     "interval_gaussian": lambda d: 25 * d,
     "hierarchical_gaussian": lambda d: 10 * d,
 }
+# Path 2's cycle (bench.py's grad_mode=nuts) on the same three workloads:
+# name -> (burn-in, timed) iterations. bench.py runs 3000 and 12000; a
+# smaller number is a cut to fit the script's limit, listed in the
+# workload's JSON line (tools/torch_wide_workload.py --path nuts runs any
+# counts). On an H100 path 2 ran about 309, 115 and 28 iterations/s at 40-,
+# 50- and 200-D after 3000, 1500 and 500 burn-in iterations (PERF.md §5), so
+# bench.py's counts take about 50 s at 40-D and would take about 130 and
+# 460 s at 50-D and 200-D.
+WIDE_NUTS_ITERS = {"gaussian": (3000, 12000), "hierarchical": (1500, 4500),
+                   "gaussian200": (500, 500)}
+# The wide NUTS and HMC checks run the plain version on this many chains a
+# rung (the first and the last half of them), the kernels on all of them.
+WIDE_PLAIN_COLUMNS_NUTS = 1024
+# The wide NUTS check's step-size base for the correlated model (its starts
+# are clamped to within 0.05 of its box's faces), and the capped timing's
+# step size for the wide models: 1023 leaves of it stay inside the box from
+# bench.py's start.
+WIDE_TREE_EPS_BOX = 1e-3
+WIDE_CAPPED_EPS = 1e-6
 # The wide sampler phase: HierarchicalGaussian's bound methods through
-# PTSampler on the card, 8 x 1024 chains, SCAM/AM/DE/ChEES.
+# PTSampler on the card, 8 x 1024 chains, SCAM/AM/DE/ChEES/NUTS/HMC.
 WIDE_SAMPLER_C, WIDE_SAMPLER_ITERS = 1024, 2000
 WIDE_SAMPLER_KW = dict(burn=500, Tskip=5, isave=500, covUpdate=500, thin=10, SCAMweight=10,
-                       AMweight=10, DEweight=10, CHEESweight=20, NUTSweight=0, HMCweight=0,
-                       MALAweight=0, HMCstepsize=HMC_EPS)
+                       AMweight=10, DEweight=10, CHEESweight=20, NUTSweight=10, HMCweight=10,
+                       MALAweight=0, HMCstepsize=HMC_EPS, HMCsteps=HMC_NMAX)
 
 
 def log(msg):
@@ -1534,10 +1586,11 @@ def phase_sampler(model, card, path1_iters_per_sec, wrappers):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def wide_counts(name, d):
+def wide_counts(name, d, iters=None):
     """``(block, burn, timed, cuts, stride)`` of a wide workload: bench.py's
     block cap (history ``[block, T, D, C]`` near 1.5 GB, bench.py:158-161),
-    WIDE_ITERS rounded to the block as bench.py rounds its counts, the cuts
+    ``iters`` (WIDE_ITERS by default) rounded to the block as bench.py
+    rounds its counts, the cuts
     against bench.py's counts, and bench.py's ESS stride (cold chains kept
     near 4 GB, bench.py:243)."""
     block = max(50, min(BLOCK, int(1.5e9 // (T * C * d * 4))))
@@ -1545,7 +1598,7 @@ def wide_counts(name, d):
     def rounded(n):
         return max(block, n // block * block)
 
-    burn, timed = (rounded(n) for n in WIDE_ITERS[name])
+    burn, timed = (rounded(n) for n in (iters or WIDE_ITERS)[name])
     cuts = {what: {"bench": rounded(bench), "run": run}
             for what, bench, run in (("burn_iters", BURN_ITERS, burn),
                                      ("timed_iters", TIMED_ITERS, timed))
@@ -1671,10 +1724,7 @@ def wide_kernel_entry(name, model, state, cfg, launches, max_err, chees_ptxas):
         raise SystemExit(f"{name}: the fused ChEES step's trajectories differ from the "
                          "trajectory entry's")
     del out, z1, r1
-    g = torch.randn_like(q0)
-    library_ms = cuda_ms(lambda: (torch.matmul(chol.T, q0), torch.matmul(chol, g)), reps,
-                         hold_stream=True)
-    del g
+    library_ms = whitening_library_ms(chol, d, reps)
     steps = int(nsteps.sum())
     max_nsteps = int(nsteps.max())
     nprm = model.cuda_params(dev).numel()
@@ -1695,17 +1745,7 @@ def wide_kernel_entry(name, model, state, cfg, launches, max_err, chees_ptxas):
         capped[f"capped_{label}_ms"] = ms
         capped[f"capped_{label}_us_per_step"] = 1e3 * ms / max_nsteps
     ptxas = {k: v for k, v in chees_ptxas.items() if WIDE_CLASSES[functor] in k}
-    dyn_smem = 4 * d * (5 * nb + 2 * 16)
-    props = torch.cuda.get_device_properties(dev)
-    layout = {"group_chains": nb, "chains_per_block": 256, "threads_per_block": 256,
-              "dynamic_smem_bytes": dyn_smem}
-    if ptxas:
-        worst = max(ptxas.values(), key=lambda v: v["registers"])
-        regs_warp = -(-worst["registers"] * 32 // 256) * 256
-        by_smem = (228 * 1024) // (dyn_smem + worst["static_smem_bytes"] + 1024)
-        per_sm = min(8, by_smem, 65536 // (regs_warp * 8))
-        blocks = -(-T * C // 256)
-        layout.update(blocks_per_sm=per_sm, waves=-(-blocks // (per_sm * props.multi_processor_count)))
+    layout = wide_layout(d, ptxas, dev, chains_per_block=256)
     extra = {
         "workload": name, "ndim": d, "functor": functor,
         "launches_by_path": {name: launches},
@@ -1741,26 +1781,28 @@ def wide_kernel_entry(name, model, state, cfg, launches, max_err, chees_ptxas):
 
 def phase_wide_sampler(card, wrappers):
     """``PTSampler`` with ``HierarchicalGaussian``'s bound methods on the
-    card (the kernel route): 8 x 1024 chains, SCAM/AM/DE/ChEES,
+    card (the kernel route): 8 x 1024 chains, SCAM/AM/DE/ChEES/NUTS/HMC,
     WIDE_SAMPLER_ITERS iterations, files in a temporary directory.
-    ``chees_step`` must launch once per ChEES iteration and nothing else;
-    the chain files must have their rows; the moment gate must pass on the
-    rows past iteration 1000. Then NUTSweight=20 must be refused when
-    ``sample()`` starts, naming ROADMAP B4 and ``device="cpu"``, before
-    any iteration or launch. Returns ``(result, chees_step launches)``."""
+    ``chees_step``, ``nuts_trees`` and ``hmc_step`` must each launch once per
+    iteration of their kind and the trajectory entries never; the chain
+    files must have their rows; the moment gate must pass on the rows past
+    iteration 1000. Then a 300-D ``CorrelatedGaussian`` (beyond the wide
+    layout's 256) must be refused when ``sample()`` starts, naming
+    ``device="cpu"``, before any iteration or launch. Returns ``(result,
+    launches by wrapper)``."""
     from ptmcmcsampler_torch import PTSampler
-    from ptmcmcsampler_torch.config import KIND_CHEES
+    from ptmcmcsampler_torch.config import KIND_CHEES, KIND_HMC, KIND_NUTS
     from ptmcmcsampler_torch.diagnostics import moment_gate
-    from ptmcmcsampler_torch.models import HierarchicalGaussian
+    from ptmcmcsampler_torch.models import CorrelatedGaussian, HierarchicalGaussian
 
     dev = torch.device(DEVICE)
     model = HierarchicalGaussian()
     d = model.ndim
     root = tempfile.mkdtemp(prefix="chip_smoke_wide_sampler_")
 
-    def make(outdir):
-        return PTSampler(d, model.lnlikefn, model.lnpriorfn, np.eye(d),
-                         logl_grad=model.lnlikefn_grad, logp_grad=model.lnpriorfn_grad,
+    def make(m, outdir):
+        return PTSampler(m.ndim, m.lnlikefn, m.lnpriorfn, np.eye(m.ndim),
+                         logl_grad=m.lnlikefn_grad, logp_grad=m.lnpriorfn_grad,
                          ntemps=T, nchains=WIDE_SAMPLER_C, outDir=outdir, seed=7)
 
     try:
@@ -1770,49 +1812,55 @@ def phase_wide_sampler(card, wrappers):
         torch.cuda.reset_peak_memory_stats(dev)
         outdir = os.path.join(root, "chains")
         with contextlib.redirect_stdout(sys.stderr):
-            s = make(outdir)
+            s = make(model, outdir)
             t0 = time.time()
             s.sample(np.zeros(d), WIDE_SAMPLER_ITERS, **WIDE_SAMPLER_KW)
             torch.cuda.synchronize()
             wall = time.time() - t0
         launches = {name: w.launches for name, w in wrappers.items()}
-        chees_iters = iterations(s, KIND_CHEES)
+        iters = {kind: iterations(s, kind) for kind in (KIND_CHEES, KIND_NUTS, KIND_HMC)}
         thin = WIDE_SAMPLER_KW["thin"]
         rows = 1 + WIDE_SAMPLER_ITERS // thin
         text = np.loadtxt(os.path.join(outdir, "chain_1.0.txt"), ndmin=2)
         sidecar = os.path.getsize(os.path.join(outdir, "chain_all_1.0.bin"))
         target, _ = model.posterior_moments()
         ok, max_z, ess = moment_gate(s.chains[:, 1000 // thin + 1:], target)
-        log(f"wide sampler: route {s.route}, {chees_iters} ChEES iterations, launches "
-            f"{launches}, {WIDE_SAMPLER_ITERS} iterations in {wall:.1f}s, gate ok {ok} max z "
-            f"{max_z:.3f}")
+        log(f"wide sampler: route {s.route}, iterations {iters}, launches {launches}, "
+            f"{WIDE_SAMPLER_ITERS} iterations in {wall:.1f}s, gate ok {ok} max z {max_z:.3f}")
         checks = {
             "route": (s.route, "kernel"),
-            "chees_step launches": (launches["chees_step"], chees_iters),
-            "other launches": (sum(launches.values()) - launches["chees_step"], 0),
+            "chees_step launches": (launches["chees_step"], iters[KIND_CHEES]),
+            "nuts_trees launches": (launches["nuts_trees"], iters[KIND_NUTS]),
+            "hmc_step launches": (launches["hmc_step"], iters[KIND_HMC]),
+            "trajectory entries' launches": (launches["chees_trajectories"]
+                                             + launches["hmc_trajectories"], 0),
             "chain text rows x columns": (text.shape, (rows, d + 4)),
             "chain_all_1.0.bin bytes": (sidecar, rows * WIDE_SAMPLER_C * d * 4),
             "finite state": (bool(torch.isfinite(s.state.x).all()), True),
             "moment gate": (ok, True),
+            "ChEES, NUTS and HMC iterations > 0": (min(iters.values()) > 0, True),
         }
-        checks["ChEES iterations > 0"] = (chees_iters > 0, True)
         for what, (got, want) in checks.items():
             if got != want:
                 raise SystemExit(f"wide sampler: {what} is {got}, expected {want}")
+        acc = dict(zip(s.config.jump_names(), (
+            s.state.counters.jump_accepted[:, 0].sum(-1).double()
+            / s.state.counters.jump_proposed[:, 0].sum(-1).clamp(min=1).double()).tolist()))
         del s
 
         for w in wrappers.values():
             w.launches = 0
+        big = CorrelatedGaussian(ndim=300)
         try:
             with contextlib.redirect_stdout(sys.stderr):
-                s = make(os.path.join(root, "refused"))
-                s.sample(np.zeros(d), 100, **dict(WIDE_SAMPLER_KW, NUTSweight=20))
+                s = make(big, os.path.join(root, "refused"))
+                s.sample(np.clip(big.mu, 0.1, 9.9), 100, **WIDE_SAMPLER_KW)
         except NotImplementedError as e:
             refusal = str(e)
         else:
-            raise SystemExit("wide sampler: NUTSweight=20 on the card was not refused")
-        log(f"wide sampler: NUTSweight=20 refused: {refusal}")
-        if ("B4" not in refusal or 'device="cpu"' not in refusal or s.state is not None
+            raise SystemExit("wide sampler: the 300-D model on the card was not refused")
+        log(f"wide sampler: 300-D CorrelatedGaussian refused: {refusal}")
+        if ("got 300" not in refusal or 'device="cpu"' not in refusal or s.state is not None
                 or any(w.launches for w in wrappers.values())):
             raise SystemExit(f"wide sampler: the refusal is not the expected one: {refusal}")
         name, power = [v.strip() for v in card.split(",", 1)]
@@ -1820,14 +1868,441 @@ def phase_wide_sampler(card, wrappers):
             "phase": "wide_sampler", "model": "HierarchicalGaussian", "ndim": d,
             "chains": [T, WIDE_SAMPLER_C], "iters": WIDE_SAMPLER_ITERS,
             "iters_per_sec": WIDE_SAMPLER_ITERS / wall, "wall_sec": wall,
-            "chees_iterations": chees_iters, "launches": launches, "moments_ok": ok,
-            "moments_max_z": max_z, "ess_min_dim": float(ess.min()), "rows": int(text.shape[0]),
-            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-            "nuts_refused": refusal, "card": name, "power_limit": power,
+            "iterations_by_kind": iters, "launches": launches, "cold_acceptance": acc,
+            "moments_ok": ok, "moments_max_z": max_z, "ess_min_dim": float(ess.min()),
+            "rows": int(text.shape[0]), "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "refused_300d": refusal, "card": name, "power_limit": power,
         }
-        return result, launches["chees_step"]
+        return result, launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---- Path 2 (NUTS and HMC) on the wide workloads ----
+
+def wide_tree_inputs(gen, dev, model, c, depth):
+    """The wide NUTS kernel's arguments but the model, around ``wide_inputs``'
+    positions and factor: NUTS draws as proposals/nuts.py draws them, rung t
+    at step size base * 1.3**t, about 2% of lanes at eps <= 0 (they search
+    their step size first). The base is WIDE_EPS, but WIDE_TREE_EPS_BOX for
+    the correlated model, whose clamped starts lie near its box's faces: at
+    WIDE_EPS nearly every first leaf leaves the box and ends the tree."""
+    from ptmcmcsampler_torch.ops import common
+    from ptmcmcsampler_torch.proposals.nuts import draw_nuts
+
+    x, _, _, betas, *_, chol, chol_inv = wide_inputs(gen, dev, model, c, 1)
+    r0, expo, dirs, accu, key, r_eps = draw_nuts(gen, T, model.ndim, c, depth, dev)
+    base = WIDE_EPS if hasattr(model, "posterior_moments") else WIDE_TREE_EPS_BOX
+    eps = (base * 1.3 ** torch.arange(T, device=dev, dtype=torch.float32))[:, None]
+    eps = eps.expand(T, c).contiguous()
+    eps[:, ::97] = 0.0
+    eps[:, 13::89] = -1.0
+    q0 = common.matvec(chol_inv.T, x).contiguous()
+    return (q0, r0, betas, eps, expo, dirs, accu, key, chol), r_eps
+
+
+def wide_columns(c, dev):
+    """The columns (chains a rung) on which the wide NUTS and HMC checks run
+    the plain version: the first and the last WIDE_PLAIN_COLUMNS_NUTS / 2,
+    so both ends of the grid and the last group are checked. A chain's
+    arithmetic is its own, so the kernel's outputs there must equal the plain
+    version's."""
+    n = WIDE_PLAIN_COLUMNS_NUTS
+    if n >= c:
+        return None
+    return torch.cat([torch.arange(n // 2, device=dev), torch.arange(c - n // 2, c, device=dev)])
+
+
+def phase_wide_nuts_hmc_vs_plain(name, model):
+    """The wide NUTS and HMC entries of ``model``'s functor against their
+    plain versions, the kernels at T x C chains (and ragged batches), the
+    plain versions on ``wide_columns``: no lane may differ in any bit.
+    NUTS at depth 4 and 10 (the reservoir's uniforms from the key against
+    ``nuts_uniforms``, the in-kernel step-size search against
+    ``find_reasonable_epsilon``); the fused HMC step at eps 0.08 and 5.0, at
+    1e-4 (where the correlated model's trajectories stay inside its box), on
+    a ragged batch and with nmax = nmin + 1, against ``hmc_step_plain`` fed
+    the kernel's own draws (``hmc_kernel_draws``, whose lengths must equal
+    ``hmc_draws``' and momenta lie within DRAW_ULP_TOL ulp), the trajectory
+    entry against its plain version on those draws, and the step's end
+    points against the trajectory entry's, bit for bit. Returns the largest
+    error of each kernel (0.0 when every lane equals)."""
+    from ptmcmcsampler_torch.ops import common
+    from ptmcmcsampler_torch.ops.hmc import (
+        hmc_draws, hmc_kernel_draws, hmc_step, hmc_step_plain, hmc_trajectories,
+        hmc_trajectories_plain,
+    )
+    from ptmcmcsampler_torch.ops.nuts import nuts_trees, nuts_trees_plain, nuts_uniforms
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5151)
+    d = model.ndim
+    err = {"nuts": 0.0, "hmc": 0.0}
+
+    def differ(label, out, ref):  # the error of outputs equal in every bit: 0
+        n = lanes_differ(out, ref)
+        if n:
+            raise SystemExit(f"{label}: {n} lanes differ from the plain version")
+        return 0.0
+
+    for depth in (4, NUTS_DEPTH):
+        args, r_eps = wide_tree_inputs(gen, dev, model, C, depth)
+        t0 = time.time()
+        out = nuts_trees(*args, model, r_eps=r_eps)
+        torch.cuda.synchronize()
+        kernel_s = time.time() - t0
+        cols = wide_columns(C, dev)
+        sub = take_columns(args, C, cols)
+        sub_reps = take_columns([r_eps], C, cols)[0]
+        key = args[7]
+        resu = nuts_uniforms(key, depth, T, C)
+        resu = resu if cols is None else resu.index_select(-1, cols).contiguous()
+        t0 = time.time()
+        ref = nuts_trees_plain(*sub[:7], resu, sub[8], model, sub_reps)
+        torch.cuda.synchronize()
+        plain_s = time.time() - t0
+        got = take_columns(out, C, cols)
+        searched = args[3] <= 0
+        label = (f"wide NUTS {name} (D={d}) depth {depth}, kernel {T} x {C}, plain {T} x "
+                 f"{ref[0].shape[2]}")
+        log(f"{label}: {lanes_differ(got, ref)} lanes differ in any output; trees "
+            f"{tree_stats(out[4], out[5])}; search in {int(searched.sum())} lanes, found eps in "
+            f"[{float(out[6][searched].min()):.4g}, {float(out[6][searched].max()):.4g}]; -inf "
+            f"logp0 share {float(torch.isneginf(out[1]).float().mean()):.4f}; kernel "
+            f"{kernel_s:.2f}s, plain {plain_s:.1f}s")
+        if not bool((out[6] > 0).all()) or not torch.isfinite(out[0]).all():
+            raise SystemExit(f"{label}: a step size <= 0 or a non-finite proposal")
+        err["nuts"] = max(err["nuts"], differ(label, got, ref))
+        del out, ref, got, args, r_eps, sub, resu
+
+    x, _, _, betas, *_, chol, chol_inv = wide_inputs(gen, dev, model, C, 1)
+    for label, eps, c, nmin, nmax in (("eps=0.08", HMC_EPS, C, HMC_NMIN, HMC_NMAX),
+                                      ("eps=5.0", 5.0, C, HMC_NMIN, HMC_NMAX),
+                                      ("eps=1e-4", 1e-4, C, HMC_NMIN, HMC_NMAX),
+                                      (f"ragged {T} x {C - 100}", HMC_EPS, C - 100, HMC_NMIN,
+                                       HMC_NMAX),
+                                      ("nmax = nmin + 1", HMC_EPS, C, HMC_NMIN, HMC_NMIN + 1)):
+        xc = x[..., :c].contiguous()
+        key = torch.randint(0, 2**32, (2,), generator=gen, device=dev, dtype=torch.int64)
+        args = (xc, betas, key, chol, chol_inv, eps, nmin, nmax, model)
+        x1, qxy = hmc_step(*args)
+        p0, nsteps = hmc_kernel_draws(key, T, d, c, nmin, nmax, model)
+        p0t, nstepst = hmc_draws(key, T, d, c, nmin, nmax)
+        max_ulp = int(ulps(p0, p0t).max())
+        if not torch.equal(nsteps, nstepst) or max_ulp > DRAW_ULP_TOL:
+            raise SystemExit(f"wide HMC {name} {label}: the kernel's draws differ from "
+                             f"hmc_draws (p0 within {max_ulp} ulp)")
+        q0 = common.matvec(chol_inv.T, xc)
+        q1, qxyk = hmc_trajectories(q0, p0, betas, nsteps, chol, eps, model)
+        if lanes_differ((common.matvec(chol.T, q1), qxyk), (x1, qxy)):
+            raise SystemExit(f"wide HMC {name} {label}: the step's end points differ from the "
+                             "trajectory entry's on the kernel's own draws")
+        cols = wide_columns(c, dev)
+        sub = take_columns((xc, p0, nsteps, q0), c, cols)
+        ref = hmc_step_plain(sub[0], betas, (sub[1], sub[2]), chol, chol_inv, eps, nmin, nmax,
+                             model)
+        tref = hmc_trajectories_plain(sub[3], sub[1], betas, sub[2], chol, eps, model)
+        got = take_columns((x1, qxy), c, cols)
+        tgot = take_columns((q1, qxyk), c, cols)
+        full = f"wide HMC {name} (D={d}) {label}, kernel {T} x {c}, plain {T} x {ref[1].shape[1]}"
+        log(f"{full}: {lanes_differ(got, ref)} (step) and {lanes_differ(tgot, tref)} "
+            f"(trajectory) lanes differ in any output; draws p0 within {max_ulp} ulp, nsteps "
+            f"equal; -inf qxy share {float(torch.isneginf(qxy).float().mean()):.4f}")
+        err["hmc"] = max(err["hmc"], differ(full, got, ref), differ(full, tgot, tref))
+        del x1, qxy, p0, nsteps, p0t, nstepst, q0, q1, qxyk, ref, tref, got, tgot, sub
+    return err
+
+
+def wide_nuts_config(d, burn):
+    """Path 2's cycle (bench.py's grad_mode=nuts, bench.py:163-199) on a wide
+    workload."""
+    from ptmcmcsampler_torch import SamplerConfig, build_default_jumps
+
+    return SamplerConfig(
+        ndim=d, ntemps=T, nchains=C, groups=(tuple(range(d)),),
+        jumps=build_default_jumps(
+            SCAMweight=10, AMweight=10, DEweight=10, NUTSweight=10, HMCweight=10,
+            burn=burn // 2, have_grads=True,
+        ),
+        tskip=5, cov_update=1000, burn=burn // 2, thin=1, de_size=2000, hmc_stepsize=HMC_EPS,
+        hmc_nminsteps=HMC_NMIN, hmc_nmaxsteps=HMC_NMAX, nuts_max_depth=NUTS_DEPTH,
+    )
+
+
+def group_lane_efficiency(nalpha, nb):
+    """Leaves the chains ran over the leaf slots their groups issued: a group
+    of ``nb`` consecutive chains (the kernel's block) steps as long as its
+    largest tree, so it issues ``nb`` times that tree's leaves."""
+    n = nalpha.reshape(-1)
+    pad = (-n.numel()) % nb
+    groups = torch.cat([n, n.new_zeros(pad)]).view(-1, nb)
+    return float(n.sum()) / float(nb * groups.max(dim=1).values.sum())
+
+
+def phase_wide_nuts_path(name, card, err, ptxas):
+    """Path 2's cycle on the wide workload ``name`` at T x C chains through
+    ``build_step``/``run_block`` (the NUTS kernel once per NUTS iteration,
+    ``hmc_step`` once per HMC iteration, the HMC trajectory entry never), the
+    gate at 40-D and 50-D, gaussian200 finite with its split R-hat; the trees
+    of one more call at the final state; NUTS iterations alone under the
+    profiler; then the NUTS and HMC kernels' items. Prints the workload's
+    JSON line; returns ``(nuts_item, hmc_item)``."""
+    from ptmcmcsampler_torch.config import KIND_HMC, KIND_NUTS
+    from ptmcmcsampler_torch.ops.chees import wide_group
+    from ptmcmcsampler_torch.ops.hmc import hmc_step, hmc_trajectories
+    from ptmcmcsampler_torch.ops.nuts import nuts_trees
+    from ptmcmcsampler_torch.proposals.nuts import draw_nuts
+
+    model, x0 = wide_workload(name)
+    d = model.ndim
+    block, burn, timed, cuts, stride = wide_counts(name, d, WIDE_NUTS_ITERS)
+    cfg = wide_nuts_config(d, burn)
+    state, (step, run_block), result, ok = phase_main_path(
+        model, card, f"nuts/{name}", cfg, {KIND_NUTS: nuts_trees, KIND_HMC: hmc_step},
+        absent=(hmc_trajectories,), x0=x0, burn=burn, timed=timed, block=block, stride=stride)
+    del run_block
+    dev = state.x.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(96)
+    q0 = (state.adapt.chol_inv.T @ state.x).contiguous()
+    r0, expo, dirs, accu, key, r_eps = draw_nuts(gen, T, d, C, NUTS_DEPTH, dev)
+    tree_args = (q0, r0, state.betas, state.stepsize.epsilon.contiguous(), expo, dirs, accu, key,
+                 state.adapt.chol, model)
+    trees = nuts_trees(*tree_args, r_eps=r_eps)
+    nalpha, alive = trees[4], trees[5]
+    efficiency = group_lane_efficiency(nalpha, wide_group(d))
+    del trees
+    state, prof = phase_profile(state, advance_kind(step, cfg, KIND_NUTS), f"nuts/{name}",
+                                iters=5 if d > 64 else 20, iterations=f"{KIND_NUTS} only")
+    result.update(
+        workload=name, block=block, burn_iters=burn, timed_iters=timed, gate_stride=stride,
+        cuts=cuts, nuts_eps=state.stepsize.epsilon.mean(1).tolist(),
+        nuts_device_ms_per_iter=prof["device_ms_per_iter"],
+        nuts_busy_share=prof["device_busy_share"], nuts_ops_per_iter=prof["device_ops_per_iter"],
+        group_lane_efficiency=efficiency, **tree_stats(nalpha, alive),
+    )
+    launches = result["launches"]
+    nuts_item = wide_nuts_entry(name, model, state, tree_args, r_eps, launches[KIND_NUTS],
+                                err["nuts"], ptxas["nuts_tree"], efficiency)
+    hmc_item = wide_hmc_entry(name, model, state, launches[KIND_HMC], err["hmc"],
+                              ptxas["hmc_trajectory"])
+    result["nuts_kernel_ms"] = nuts_item["ms"]
+    result["hmc_kernel_ms"] = hmc_item["fused_ms"]
+    del state, step, q0, r0, expo, dirs, accu, r_eps, tree_args
+    torch.cuda.empty_cache()
+    print_result(result, ok)
+    return nuts_item, hmc_item
+
+
+def wide_layout(d, ptxas, dev, chains_per_block=None):
+    """A wide kernel's layout: groups of wide_group(d) chains in blocks of
+    256 threads, ``chains_per_block`` chains a block (the ChEES kernel's
+    256; by default one group, as the NUTS and HMC kernels run), and from
+    the ptxas report the blocks an SM and the waves at T x C chains."""
+    nb = 64 if d <= 64 else (32 if d <= 128 else 16)
+    per_block = chains_per_block or nb
+    dyn_smem = 4 * d * (5 * nb + 2 * 16)
+    layout = {"group_chains": nb, "chains_per_block": per_block, "threads_per_block": 256,
+              "dynamic_smem_bytes": dyn_smem}
+    if ptxas:
+        worst = max(ptxas.values(), key=lambda v: v["registers"])
+        regs_warp = -(-worst["registers"] * 32 // 256) * 256
+        by_smem = (228 * 1024) // (dyn_smem + worst["static_smem_bytes"] + 1024)
+        per_sm = min(8, by_smem, 65536 // (regs_warp * 8))
+        blocks = -(-T * C // per_block)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        layout.update(blocks_per_sm=per_sm, waves=-(-blocks // (per_sm * sms)))
+    return layout
+
+
+def whitening_library_ms(chol, d, reps):
+    """One leapfrog step's two whitening products as ``torch.matmul`` (TF32
+    off, PyTorch's default) over the batch: the wide kernels' yardstick."""
+    q = torch.randn((T, d, C), device=chol.device)
+    g = torch.randn_like(q)
+    return cuda_ms(lambda: (torch.matmul(chol.T, q), torch.matmul(chol, g)), reps,
+                   hold_stream=True)
+
+
+def wide_nuts_entry(name, model, state, tree_args, r_eps, launches, max_err, ptxas, efficiency):
+    """The wide NUTS kernel timed on the path's final state (its adapted step
+    sizes), the plain version on the first WIDE_PLAIN_COLUMNS_NUTS chains a
+    rung, one leapfrog step's whitening products as ``torch.matmul``; the
+    bound counts this call's leaves (each an evaluation, the leapfrog, the
+    kinetic energy, on average one U-turn check and a Philox uniform) and
+    doublings; then the capped timings: every tree at the depth cap, over
+    the batch and over one group alone."""
+    from ptmcmcsampler_torch.ops.chees import wide_group
+    from ptmcmcsampler_torch.ops.nuts import (
+        nuts_trees, nuts_trees_plain, nuts_uniforms, wide_scratch_floats,
+    )
+    from ptmcmcsampler_torch.proposals.nuts import draw_nuts
+
+    d, functor = model.ndim, model.cuda_functor
+    nb = wide_group(d)
+    dev = state.x.device
+    chol = state.adapt.chol
+    reps = 5 if d <= 64 else 2
+    kernel_ms = cuda_ms(lambda: nuts_trees(*tree_args, r_eps=r_eps), reps, hold_stream=True)
+    wrapper_ms = cuda_ms(lambda: nuts_trees(*tree_args, r_eps=r_eps), reps)
+    pc = min(C, WIDE_PLAIN_COLUMNS_NUTS)
+    sub = [a[..., :pc].contiguous() if torch.is_tensor(a) and a.dim() > 1 and a.shape[-1] == C
+           else a for a in tree_args]
+    resu = nuts_uniforms(tree_args[7], NUTS_DEPTH, T, C)[..., :pc].contiguous()
+    plain_ms = once_ms(lambda: nuts_trees_plain(*sub[:7], resu, chol, model,
+                                                r_eps[..., :pc].contiguous()))
+    del sub, resu
+    out = nuts_trees(*tree_args, r_eps=r_eps)
+    nalpha, alive = out[4], out[5]
+    leaves = float(nalpha.sum())
+    levels = float(torch.ceil(torch.log2(nalpha + 1.0)).sum())
+    del out
+    library_ms = whitening_library_ms(chol, d, reps)
+    nprm = model.cuda_params(dev).numel()
+    per_eval = 2 * product_ops(chol) + WIDE_MODEL_OPS[functor](d)
+    # A leaf: an evaluation, the leapfrog (6 D), the kinetic energy (2 D), on
+    # average one U-turn check (z - z_ck, times v, two dots: 6 D), the
+    # slice, reservoir and acceptance tests (about 20) and a Philox uniform
+    # (80 integer operations). A doubling: the whole tree's U-turn (5 D) and
+    # the accept (10). A chain: its first evaluation and kinetic energy.
+    ops = ((per_eval + 14 * d + 100) * leaves + (5 * d + 10) * levels
+           + (per_eval + 2 * d) * T * C)
+    # Per chain: q0, r0, q_prop (3 D floats), eps, expo, the six outputs; a
+    # doubling run, its dirs and accu; beta, chol, the constants and the key.
+    bytes_moved = (4 * ((3 * d + 8) * T * C + 2 * levels) + 4 * (T + d * d + nprm) + 16)
+    bound_ms, bound_by = bound(bytes_moved, ops)
+    capped = {}
+    leaves_cap = (1 << NUTS_DEPTH) - 1
+    # From the bench's start x0, well inside the correlated model's box (the
+    # path's chains sit at its faces, where a leaf leaves it), with a step
+    # size small enough that no tree turns or leaves the box.
+    x0 = torch.tensor(wide_workload(name)[1], dtype=torch.float32, device=dev)
+    q_start = (state.adapt.chol_inv.T @ x0)[None, :, None]
+    for label, t, c in (("batch", T, C), ("group", 1, nb)):
+        r0c, expoc, dirsc, accuc, keyc, repsc = draw_nuts(
+            torch.Generator(device=dev).manual_seed(95), t, d, c, NUTS_DEPTH, dev)
+        a = (q_start.expand(t, d, c).contiguous(), r0c, state.betas[:t].contiguous(),
+             torch.full((t, c), WIDE_CAPPED_EPS, device=dev), expoc, dirsc, accuc, keyc, chol,
+             model)
+        cut = float(nuts_trees(*a, r_eps=repsc)[5].mean())
+        if cut < CAPPED_ALIVE_MIN:
+            raise SystemExit(f"{name}: capped NUTS timing: only {cut:.4f} of trees reached "
+                             "the cap")
+        ms = cuda_ms(lambda: nuts_trees(*a, r_eps=repsc), 1 if label == "batch" else 3,
+                     hold_stream=True)
+        capped[f"capped_{label}_ms"] = ms
+        capped[f"capped_{label}_us_per_leaf"] = 1e3 * ms / leaves_cap
+        capped[f"capped_{label}_alive_share"] = cut
+    ptx = {k: v for k, v in ptxas.items() if WIDE_CLASSES[functor] in k} if ptxas else {}
+    scratch = wide_scratch_floats(d, NUTS_DEPTH)
+    extra = {
+        "workload": name, "ndim": d, "functor": functor, "launches_by_path": {name: launches},
+        "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "plain_chains": [T, pc],
+        "library_what": "one leapfrog step's two whitening products, torch.matmul "
+                        "[D, D] x [T, D, C] twice",
+        **tree_stats(nalpha, alive), "group_lane_efficiency": efficiency,
+        "leaves": leaves, "doublings": levels,
+        "us_per_leaf_critical": 1e3 * kernel_ms / float(nalpha.max()), **capped,
+        "step_bound_us": 1e6 * (per_eval + 14 * d + 100) * T * C / F32_OPS_PER_S,
+        "whitening_ops_per_product": product_ops(chol),
+        "scratch_layout": "per chain, chain-minor [plane][D][T*C]: 2 frontiers x (z, r, gw), "
+                          f"{NUTS_DEPTH} checkpoint rows x (z, r), the subtree's proposal",
+        "scratch_bytes": 4 * scratch * T * C,
+        "ptxas": ptx or "not measured (built before)", **wide_layout(d, ptx, dev),
+    }
+    log(f"wide NUTS {name}: kernel {kernel_ms:.3f} ms (bound {bound_ms:.4f}, {bound_by}), "
+        f"plain {plain_ms:.1f} ms at {T} x {pc}, two matmuls {library_ms:.4f} ms; {extra}")
+    return {"name": f"nuts_tree_{functor}", "route": "cuda",
+            "source": "ptmcmcsampler_torch/csrc/nuts_tree.cu",
+            "replaces": "ptmcmcsampler_tpu/ops/nuts_pallas.py:74", "launches": launches,
+            "max_abs_err": max_err, "ms": kernel_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, **extra}
+
+
+def wide_hmc_entry(name, model, state, launches, max_err, ptxas):
+    """Both wide HMC entries timed on the path's final state: the fused step
+    under a fresh key, the trajectory entry on that step's own draws; the
+    plain versions on the first WIDE_PLAIN_COLUMNS_NUTS chains a rung; the
+    draws alone; the steps those draws take (the break test ends most
+    trajectories after one) and the bounds of both entries."""
+    from ptmcmcsampler_torch.ops import common
+    from ptmcmcsampler_torch.ops.hmc import (
+        hmc_kernel_draws, hmc_step, hmc_step_plain, hmc_trajectories, hmc_trajectories_plain,
+    )
+
+    d, functor = model.ndim, model.cuda_functor
+    dev = state.x.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(98)
+    chol, chol_inv = state.adapt.chol, state.adapt.chol_inv
+    key = torch.randint(0, 2**32, (2,), generator=gen, device=dev, dtype=torch.int64)
+    fused = (state.x, state.betas, key, chol, chol_inv, HMC_EPS, HMC_NMIN, HMC_NMAX, model)
+    p0, nsteps = hmc_kernel_draws(key, T, d, C, HMC_NMIN, HMC_NMAX, model)
+    q0 = common.matvec(chol_inv.T, state.x)
+    args = (q0, p0, state.betas, nsteps, chol, HMC_EPS, model)
+    reps = 20 if d <= 64 else 5
+    kernel_ms = cuda_ms(lambda: hmc_trajectories(*args), reps, hold_stream=True)
+    wrapper_ms = cuda_ms(lambda: hmc_trajectories(*args), reps)
+    fused_ms = cuda_ms(lambda: hmc_step(*fused), reps, hold_stream=True)
+    fused_wrapper_ms = cuda_ms(lambda: hmc_step(*fused), reps)
+    draws_ms = cuda_ms(lambda: hmc_kernel_draws(key, T, d, C, HMC_NMIN, HMC_NMAX, model), reps,
+                       hold_stream=True)
+    pc = min(C, WIDE_PLAIN_COLUMNS_NUTS)
+    cut = [a[..., :pc].contiguous() if torch.is_tensor(a) and a.dim() > 1 and a.shape[-1] == C
+           else a for a in args]
+    plain_ms = once_ms(lambda: hmc_trajectories_plain(*cut))
+    fused_plain_ms = once_ms(lambda: hmc_step_plain(
+        state.x[..., :pc].contiguous(), state.betas, (cut[1], cut[3]), chol, chol_inv, HMC_EPS,
+        HMC_NMIN, HMC_NMAX, model))
+    del cut
+    x1, qxy = hmc_step(*fused)
+    q1, _ = hmc_trajectories(*args)
+    one_step, _ = hmc_trajectories(q0, p0, state.betas, torch.ones_like(nsteps), chol, HMC_EPS,
+                                   model)
+    if not torch.equal(common.matvec(chol.T, q1), x1):
+        raise SystemExit(f"{name}: the fused HMC step's end points differ from the trajectory "
+                         "entry's")
+    stopped = (q1 == one_step).all(dim=1)
+    steps = int(torch.where(stopped, 1, nsteps).sum())
+    library_ms = whitening_library_ms(chol, d, reps)
+    nprm = model.cuda_params(dev).numel()
+    per_eval = 2 * product_ops(chol) + WIDE_MODEL_OPS[functor](d)
+    # A step: an evaluation, the leapfrog (6 D) and the joint's kinetic
+    # energy (2 D); a chain: its first evaluation and kinetic energy.
+    ops = (per_eval + 8 * d) * steps + (per_eval + 2 * d) * T * C
+    bytes_moved = 4 * (3 * d + 2) * T * C + 4 * (T + d * d + nprm)
+    bound_ms, bound_by = bound(bytes_moved, ops)
+    # The fused step adds q0 = chol_inv^T x and its draws: Philox calls (80
+    # integer operations each) and Box-Muller (about 25 a pair).
+    pairs = (d + 1) // 2
+    chain_ops = product_ops(chol_inv) + 80 * ((2 * pairs + 4) // 4) + 25 * pairs
+    fused_bytes = 4 * (2 * d + 1) * T * C + 4 * (T + 2 * d * d + nprm) + 16
+    fused_bound_ms, fused_bound_by = bound(fused_bytes, ops + chain_ops * T * C)
+    ptx = {k: v for k, v in ptxas.items() if WIDE_CLASSES[functor] in k} if ptxas else {}
+    extra = {
+        "workload": name, "ndim": d, "functor": functor, "launches_by_path": {name: launches},
+        "launches_by_entry": {"hmc_step": launches, "hmc_trajectories": 0},
+        "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "plain_chains": [T, pc],
+        "fused_ms": fused_ms, "fused_wrapper_ms": fused_wrapper_ms,
+        "fused_plain_ms": fused_plain_ms, "fused_bound_ms": fused_bound_ms,
+        "fused_bound_by": fused_bound_by, "draws_kernel_ms": draws_ms,
+        "library_what": "one leapfrog step's two whitening products, torch.matmul "
+                        "[D, D] x [T, D, C] twice",
+        "mean_nsteps_drawn": float(nsteps.float().mean()), "mean_nsteps_taken": steps / (T * C),
+        "stopped_after_one_step": float(stopped.float().mean()),
+        "step_bound_us": 1e6 * (per_eval + 8 * d) * T * C / F32_OPS_PER_S,
+        "whitening_ops_per_product": product_ops(chol),
+        "ptxas": ptx or "not measured (built before)", **wide_layout(d, ptx, dev),
+    }
+    log(f"wide HMC {name}: trajectory entry {kernel_ms:.4f} ms (bound {bound_ms:.4f}, "
+        f"{bound_by}), fused step {fused_ms:.4f} ms (bound {fused_bound_ms:.4f}), plain "
+        f"{plain_ms:.1f} / {fused_plain_ms:.1f} ms at {T} x {pc}; {extra}")
+    return {"name": f"hmc_trajectory_{functor}", "route": "cuda",
+            "source": "ptmcmcsampler_torch/csrc/hmc_trajectory.cu",
+            "replaces": "ptmcmcsampler_tpu/ops/hmc_pallas.py:54", "launches": launches,
+            "max_abs_err": max_err, "ms": kernel_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, **extra}
 
 
 def main():
@@ -1851,9 +2326,11 @@ def main():
     logs = build.build()
     for name, text in logs.items():
         log(f"built {name} in {time.time() - t0:.1f}s:\n{text.strip()}")
-    hmc_ptxas = ptxas_info(logs.get("hmc_trajectory", "")) or "not measured (built before)"
-
+    hmc_all = ptxas_info(logs.get("hmc_trajectory", ""))
+    hmc_ptxas = {k: v for k, v in hmc_all.items() if "Wide" not in k}
+    hmc_ptxas = hmc_ptxas or "not measured (built before)"
     chees_ptxas = ptxas_info(logs.get("chees_trajectory", ""))
+    wide2_ptxas = {"nuts_tree": ptxas_info(logs.get("nuts_tree", "")), "hmc_trajectory": hmc_all}
 
     model = CurvedLikelihood()
     err = {
@@ -1863,6 +2340,8 @@ def main():
     }
     wide_err = {name: phase_wide_vs_plain(name, wide_workload(name)[0])
                 for name in WIDE_ITERS}
+    wide2_err = {name: phase_wide_nuts_hmc_vs_plain(name, wide_workload(name)[0])
+                 for name in WIDE_NUTS_ITERS}
 
     cfg = headline_config()
     state, (step, run_block), result, ok = phase_main_path(
@@ -1901,12 +2380,18 @@ def main():
     kernels[0]["launches_by_path"] = {"chees": kernels[0]["launches"], **sampler_launches}
 
     wide = [phase_wide_path(name, card, wide_err[name], chees_ptxas) for name in WIDE_ITERS]
+    wide_nuts, wide_hmc = zip(*(phase_wide_nuts_path(name, card, wide2_err[name], wide2_ptxas)
+                                for name in WIDE_NUTS_ITERS))
     result, wide_sampler_launches = phase_wide_sampler(card, wrappers)
     print(json.dumps(result), flush=True)
-    for item in wide:
-        if item["workload"] == "hierarchical":
-            item["launches_by_path"]["sampler"] = wide_sampler_launches
+    for items, wrapper in ((wide, "chees_step"), (wide_nuts, "nuts_trees"),
+                           (wide_hmc, "hmc_step")):
+        for item in items:
+            if item["workload"] == "hierarchical":
+                item["launches_by_path"]["sampler"] = wide_sampler_launches[wrapper]
     kernels[0]["wide"] = wide
+    kernels[1]["wide"] = list(wide_nuts)
+    kernels[2]["wide"] = list(wide_hmc)
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -361,11 +361,7 @@ __global__ void __launch_bounds__(kThreads, 2) chees_wide_kernel(const WideParam
   }
 
   const ptmc::Wide w{D, NB, P.prm, xb, g, gw, tile, s_beta, s_need, s_logp};
-  auto evaluate = [&]() {  // xb = chol^T q, the model, gw = chol g
-    ptmc::wide_matvec<false>(P.chol, q, xb, D, NB, tile);
-    Model::eval(w);
-    ptmc::wide_matvec<true>(P.chol, g, gw, D, NB, tile);
-  };
+  auto evaluate = [&]() { ptmc::wide_evaluate<Model>(P.chol, q, gw, w); };
   // Element idx = d*NB + c of the group's vectors lies at offset(idx) of the
   // [T, D, C] arrays, or nowhere (-1) for a lane past T*C.
   auto offset = [&](int idx) -> long long {
@@ -402,11 +398,7 @@ __global__ void __launch_bounds__(kThreads, 2) chees_wide_kernel(const WideParam
         const long long o = offset(idx);
         if (o >= 0) P.q0[o] = q[idx];
       }
-      if (tid < NB) {  // k0 = r0.r0 / 2, in order
-        float acc = p[tid] * p[tid];
-        for (int d = 1; d < D; ++d) acc = acc + p[d * NB + tid] * p[d * NB + tid];
-        k0 = 0.5f * acc;
-      }
+      if (tid < NB) k0 = 0.5f * ptmc::wide_rdot(p, p, tid, D, NB);  // r0.r0 / 2, in order
     }
     evaluate();
     const float logp0 = tid < NB ? s_logp[tid] : 0.0f;
@@ -442,9 +434,7 @@ __global__ void __launch_bounds__(kThreads, 2) chees_wide_kernel(const WideParam
       const long long n = s_n[tid];
       const float logp1 = isnan(s_logp[tid]) ? -INFINITY : s_logp[tid];
       if constexpr (kStep) {
-        float acc = p[tid] * p[tid];
-        for (int d = 1; d < D; ++d) acc = acc + p[d * NB + tid] * p[d * NB + tid];
-        const float k1 = 0.5f * acc;
+        const float k1 = 0.5f * ptmc::wide_rdot(p, p, tid, D, NB);
         float de = (logp1 - k1) - (logp0 - k0);
         de = isnan(de) ? -INFINITY : de;
         const float r = k0 - k1;

@@ -1,7 +1,8 @@
 // HMC trajectory kernel and fused HMC step for Hopper (sm_90a).
 //
 // Replaces ptmcmcsampler_tpu/ops/hmc_pallas.py::_trajectory_kernel. One kernel
-// template, two entries, and a third, test-only entry for the draws.
+// template, two entries, and a third, test-only entry for the draws; for the
+// wide models a second template with the same three entries (below).
 //
 // hmc_trajectory_curved, the direct counterpart of _trajectory_kernel: for
 // every chain of the [T, C] batch a whitened leapfrog trajectory with the
@@ -72,6 +73,32 @@
 //   * the trajectory loop stays per chain, to its own nsteps or break; a
 //     chain with joint0 = -inf (a start outside the prior box) runs its
 //     whole nsteps, and its warp waits on it.
+//
+// The wide entries, hmc_trajectory_<functor>, hmc_step_<functor> and
+// hmc_draws_<functor> for the functors correlated_gaussian, interval_gaussian
+// and hierarchical_gaussian (models.cuh), run the same computations at any D
+// up to kWideMaxD = 256 (a runtime argument): bench.py's gaussian (40-D),
+// hierarchical (50-D) and gaussian200 workloads. A chain's vectors do not fit
+// in registers there and a step is matrix work (the two whitening products,
+// and the correlated model's S (x - mu)), so the f32 issue rate binds, as in
+// the wide ChEES kernel (chees_trajectory.cu), whose layout this is: a
+// group of NB = wide_group(D) chains (64, 32 or 16) keeps q, p, the whitened
+// gradient, x = chol^T q and the model's gradient in shared memory as
+// [d][NB], each product over D a small matrix product over the group
+// (models.cuh wide_matvec, chol and chol_inv streamed in 16-row tiles, every
+// output summed over k in order). One group a block: the break test ends
+// nearly every trajectory after one step and lengths are drawn inside the
+// kernel, so there is nothing to sort, and the block scheduler balances the
+// groups a start outside the box makes long. The step entry draws the
+// momenta straight into shared memory, one thread a (Philox call, chain),
+// the call for call the curved kernel's layout at any D (draw_call: a sine
+// past D is dropped). The group steps while any of its chains is alive; a
+// chain past its length or its break keeps its state, and the model's value
+// is computed only for the chains a step moves. The kinetic energies are
+// ordered sums over D, one thread a chain (models.cuh wide_rdot). The step
+// entry's x1 = chol^T q1 is the last evaluation's x: q is unchanged since.
+// __launch_bounds__(256, 2): two blocks an SM (89.6 KB of shared memory a
+// block at 200-D).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC (see ptmcmcsampler_torch/ops/build.py). No fast
@@ -239,6 +266,193 @@ int launch(const Params& P, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The wide layout (functors correlated_gaussian, interval_gaussian,
+// hierarchical_gaussian at a runtime D <= kWideMaxD): bench.py's 40-, 50- and
+// 200-D workloads. See the note at the top of the file.
+
+constexpr int kWideMaxNB = 64;
+
+// Philox call j of chain n (the draws' layout above, at a runtime D): the
+// momenta 4j .. 4j + 3 that are < D, written to p[d * stride], and the length
+// if the call holds word 2 ceil(D/2). Call j of draw_chain<D>, operation for
+// operation.
+__device__ __forceinline__ void draw_call(uint2 key, uint32_t n, int j, int D, int nmin,
+                                          uint32_t span, float* p, long long stride,
+                                          int* nsteps) {
+  const uint4 r = ptmc::philox4x32_10(make_uint4((uint32_t)j, n, kStreamHmc, 0u), key);
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int d = 4 * j + 2 * h;
+    if (d < D) {
+      const float u1 = (float)((w[2 * h] >> 8) + 1u) * 5.9604644775390625e-08f;  // 2**-24
+      const float u2 = ptmc::uniform24(w[2 * h + 1]);
+      const float rr = sqrtf(-2.0f * logf(u1));
+      const float th = kTwoPi * u2;
+      p[d * stride] = rr * cosf(th);
+      if (d + 1 < D) p[(d + 1) * stride] = rr * sinf(th);
+    }
+  }
+  const int lw = 2 * ((D + 1) / 2);
+  if ((lw >> 2) == j) *nsteps = nmin + (int)__umulhi(w[lw & 3], span);
+}
+
+// Philox calls a chain's draws take at dimension D.
+__host__ __device__ __forceinline__ int draw_calls(int D) { return (2 * ((D + 1) / 2) + 4) / 4; }
+
+struct WideParams {
+  const float* q;         // trajectory entry: q0; step entry: x
+  const float* p0;        // trajectory entry
+  const int* nsteps;      // trajectory entry
+  const long long* key;   // step entry
+  const float* beta;
+  const float* chol;
+  const float* chol_inv;  // step entry
+  const float* prm;       // the model's constants (model.cuda_params)
+  float eps;
+  int nmin;
+  int nmax;
+  float* out;  // trajectory entry: q1; step entry: x1 = chol^T q1
+  float* qxy;
+  int D;
+  int T;
+  int C;
+};
+
+template <class Model, bool kStep>
+__global__ void __launch_bounds__(kThreads, 2) hmc_wide_kernel(const WideParams P) {
+  extern __shared__ __align__(16) float s_vec[];
+  __shared__ long long s_base[kWideMaxNB];  // chain n's element (t, 0, c), -1 past T*C
+  __shared__ float s_beta[kWideMaxNB];
+  __shared__ float s_logp[kWideMaxNB];
+  __shared__ int s_ns[kWideMaxNB];
+  __shared__ int s_take[kWideMaxNB];  // lanes the step moves; the model's need
+
+  const int D = P.D;
+  const int NB = ptmc::wide_group(D);
+  const int nv = D * NB;
+  float* z = s_vec;    // whitened position
+  float* p = z + nv;   // momentum
+  float* gw = p + nv;  // whitened gradient; the model's scratch
+  float* xb = gw + nv;
+  float* g = xb + nv;
+  float* tile = g + nv;  // [2][kWideKT][D]
+  const long long N = (long long)P.T * P.C;
+  const long long n0 = (long long)blockIdx.x * NB;
+  const int tid = threadIdx.x;
+  const long long n = n0 + tid;
+  const bool valid = tid < NB && n < N;
+
+  if (tid < NB) {
+    s_base[tid] = valid ? (n / P.C) * D * (long long)P.C + n % P.C : -1;
+    s_beta[tid] = valid ? __ldg(P.beta + n / P.C) : 0.0f;
+    s_take[tid] = valid;
+    s_ns[tid] = 0;
+    if constexpr (!kStep) {
+      if (valid) s_ns[tid] = P.nsteps[n];
+    }
+  }
+  __syncthreads();
+  auto offset = [&](int idx) -> long long {  // element idx = d*NB + c in [T, D, C]
+    const int d = ptmc::wide_row(idx, NB);
+    const long long base = s_base[idx - d * NB];
+    return base < 0 ? -1 : base + (long long)d * P.C;
+  };
+  for (int idx = tid; idx < nv; idx += kThreads) {
+    const long long o = offset(idx);
+    (kStep ? xb : z)[idx] = o < 0 ? 0.0f : P.q[o];
+    p[idx] = (kStep || o < 0) ? 0.0f : P.p0[o];
+  }
+  __syncthreads();
+  if constexpr (kStep) {
+    ptmc::wide_matvec<false>(P.chol_inv, xb, z, D, NB, tile);  // q0 = chol_inv^T x
+    const uint2 key = make_uint2((uint32_t)__ldg(P.key), (uint32_t)__ldg(P.key + 1));
+    const uint32_t span = (uint32_t)(P.nmax - P.nmin);
+    for (int item = tid; item < draw_calls(D) * NB; item += kThreads) {
+      const int c = item & (NB - 1);
+      if (n0 + c < N)
+        draw_call(key, (uint32_t)(n0 + c), item / NB, D, P.nmin, span, p + c, NB, s_ns + c);
+    }
+    __syncthreads();
+  }
+
+  const ptmc::Wide w{D, NB, P.prm, xb, g, gw, tile, s_beta, s_take, s_logp};
+  ptmc::wide_evaluate<Model>(P.chol, z, gw, w);
+  const float e = P.eps;
+  const float he = 0.5f * e;
+  float logp0 = 0.0f, joint0 = 0.0f, logp = 0.0f, joint = 0.0f;
+  bool alive = valid;
+  if (valid) {
+    logp0 = logp = s_logp[tid];
+    joint0 = joint = ptmc::wide_log_hamiltonian(logp0, p, tid, D, NB);
+  }
+  // Step i runs for the lanes still alive with i < nsteps; the group while
+  // any lane does.
+  for (int i = 0;; ++i) {
+    const bool take = alive && i < s_ns[tid];  // alive only for tid < NB
+    if (tid < NB) s_take[tid] = take;
+    if (!__syncthreads_or(take)) break;
+    for (int idx = tid; idx < nv; idx += kThreads) {
+      const int c = idx & (NB - 1);
+      if (s_take[c]) {
+        const float ph = p[idx] + he * gw[idx];
+        p[idx] = ph;
+        z[idx] = z[idx] + e * ph;
+      }
+    }
+    __syncthreads();
+    ptmc::wide_evaluate<Model>(P.chol, z, gw, w);
+    for (int idx = tid; idx < nv; idx += kThreads) {
+      if (s_take[idx & (NB - 1)]) p[idx] = p[idx] + he * gw[idx];
+    }
+    __syncthreads();
+    if (take) {
+      logp = s_logp[tid];
+      joint = ptmc::wide_log_hamiltonian(logp, p, tid, D, NB);
+      if ((joint - 1000.0f) < joint0) alive = false;  // the break test: keep this point
+    }
+  }
+
+  if (valid) {
+    const float r = (joint - joint0) - (logp - logp0);
+    P.qxy[n] = isnan(r) ? -INFINITY : r;
+  }
+  // z is unchanged since the last evaluation, so xb = chol^T q1 already.
+  for (int idx = tid; idx < nv; idx += kThreads) {
+    const long long o = offset(idx);
+    if (o >= 0) P.out[o] = kStep ? xb[idx] : z[idx];
+  }
+}
+
+// One chain a thread: the draws of hmc_wide_kernel<Model, true>, written to
+// p0 [T, D, C] and nsteps [T, C].
+__global__ void __launch_bounds__(kThreads)
+hmc_draws_wide_kernel(const long long* __restrict__ key_in, int nmin, int nmax,
+                      float* __restrict__ p0, int* __restrict__ nsteps, int D, int T, int C) {
+  const long long n = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (n >= (long long)T * C) return;
+  const uint2 key = make_uint2((uint32_t)__ldg(key_in), (uint32_t)__ldg(key_in + 1));
+  float* p = p0 + (n / C) * D * (long long)C + n % C;
+  for (int j = 0; j < draw_calls(D); ++j)
+    draw_call(key, (uint32_t)n, j, D, nmin, (uint32_t)(nmax - nmin), p, C, nsteps + n);
+}
+
+template <class Model, bool kStep>
+int launch_wide(const WideParams& P, void* stream) {
+  if (P.D < 1 || P.D > ptmc::kWideMaxD) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)P.T * P.C;
+  if (n <= 0) return (int)cudaSuccess;
+  const int nb = ptmc::wide_group(P.D);
+  const size_t smem = sizeof(float) * P.D * (5 * nb + 2 * ptmc::kWideKT);
+  auto kernel = hmc_wide_kernel<Model, kStep>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)((n + nb - 1) / nb), kThreads, smem, (cudaStream_t)stream>>>(P);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // All arrays are device pointers: q0, p0, q1 [T, D, C]; beta [T]; nsteps
@@ -297,3 +511,64 @@ extern "C" int hmc_draws_curved(const long long* key, int nmin, int nmax, float*
       key, nmin, nmax, p0, nsteps, C);
   return (int)cudaGetLastError();
 }
+
+// The wide entries, for the functors correlated_gaussian, interval_gaussian
+// and hierarchical_gaussian: the arguments of the curved ones, plus prm (the
+// model's constants, model.cuda_params) and D (1 <= D <= 256). The step and
+// trajectory entries launch blocks of 256 threads, one group of NB =
+// wide_group(D) chains a block, with (5 * NB + 32) * D * 4 bytes of dynamic
+// shared memory; the draws entry one chain a thread.
+#define PTMC_HMC_WIDE_ENTRIES(NAME, MODEL)                                                    \
+  extern "C" int hmc_trajectory_##NAME(const float* q0, const float* p0, const float* beta,   \
+                                       const int* nsteps, const float* chol, const float* prm, \
+                                       float eps, float* q1, float* qxy, int D, int T, int C,  \
+                                       void* stream) {                                         \
+    WideParams params{};                                                                       \
+    params.q = q0;                                                                             \
+    params.p0 = p0;                                                                            \
+    params.nsteps = nsteps;                                                                    \
+    params.beta = beta;                                                                        \
+    params.chol = chol;                                                                        \
+    params.prm = prm;                                                                          \
+    params.eps = eps;                                                                          \
+    params.out = q1;                                                                           \
+    params.qxy = qxy;                                                                          \
+    params.D = D;                                                                              \
+    params.T = T;                                                                              \
+    params.C = C;                                                                              \
+    return launch_wide<MODEL, false>(params, stream);                                          \
+  }                                                                                            \
+  extern "C" int hmc_step_##NAME(const float* x, const float* beta, const long long* key,      \
+                                 const float* chol, const float* chol_inv, const float* prm,   \
+                                 float eps, int nmin, int nmax, float* x1, float* qxy, int D,  \
+                                 int T, int C, void* stream) {                                 \
+    WideParams params{};                                                                       \
+    params.q = x;                                                                              \
+    params.key = key;                                                                          \
+    params.beta = beta;                                                                        \
+    params.chol = chol;                                                                        \
+    params.chol_inv = chol_inv;                                                                \
+    params.prm = prm;                                                                          \
+    params.eps = eps;                                                                          \
+    params.nmin = nmin;                                                                        \
+    params.nmax = nmax;                                                                        \
+    params.out = x1;                                                                           \
+    params.qxy = qxy;                                                                          \
+    params.D = D;                                                                              \
+    params.T = T;                                                                              \
+    params.C = C;                                                                              \
+    return launch_wide<MODEL, true>(params, stream);                                           \
+  }                                                                                            \
+  extern "C" int hmc_draws_##NAME(const long long* key, int nmin, int nmax, float* p0,         \
+                                  int* nsteps, int D, int T, int C, void* stream) {            \
+    if (D < 1 || D > ptmc::kWideMaxD) return (int)cudaErrorInvalidValue;                       \
+    const long long n = (long long)T * C;                                                      \
+    if (n <= 0) return (int)cudaSuccess;                                                       \
+    hmc_draws_wide_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,            \
+                            (cudaStream_t)stream>>>(key, nmin, nmax, p0, nsteps, D, T, C);     \
+    return (int)cudaGetLastError();                                                            \
+  }
+
+PTMC_HMC_WIDE_ENTRIES(correlated_gaussian, ptmc::WideCorrelatedGaussian)
+PTMC_HMC_WIDE_ENTRIES(interval_gaussian, ptmc::WideIntervalGaussian)
+PTMC_HMC_WIDE_ENTRIES(hierarchical_gaussian, ptmc::WideHierarchicalGaussian)

@@ -231,6 +231,23 @@ __device__ __forceinline__ void wide_matvec(const float* __restrict__ A, const f
   __syncthreads();
 }
 
+// sum_d a[d][c] * b[d][c] for chain c of a group's [d][NB] vectors, in order,
+// one rounding per product and per sum (ops/common.py rdot). One thread a
+// chain: the wide HMC and NUTS kernels' kinetic energies and U-turn checks.
+__device__ __forceinline__ float wide_rdot(const float* a, const float* b, int c, int D,
+                                           int NB) {
+  float acc = a[c] * b[c];
+  for (int d = 1; d < D; ++d) acc = acc + a[d * NB + c] * b[d * NB + c];
+  return acc;
+}
+
+// logp - p.p/2 for chain c, NaN mapped to -inf (common.log_hamiltonian).
+__device__ __forceinline__ float wide_log_hamiltonian(float logp, const float* p, int c, int D,
+                                                      int NB) {
+  const float h = logp - 0.5f * wide_rdot(p, p, c, D, NB);
+  return isnan(h) ? -INFINITY : h;
+}
+
 // What a wide functor's eval reads and writes. x, g and tmp are [D][NB] in
 // shared memory; beta, need and logp are [NB].
 struct Wide {
@@ -361,5 +378,18 @@ struct WideHierarchicalGaussian {
     __syncthreads();
   }
 };
+
+// The tempered value and whitened gradient of a group at whitened positions
+// z: w.x = chol^T z, the model at w.x (gradient in w.g, w.tmp as scratch),
+// gw = chol w.g. gw must be w.tmp: the model's scratch is free again once
+// its gradient is whitened. Every thread of the block calls it with z
+// complete; it returns after a barrier. The wide HMC and NUTS kernels' step.
+template <class Model>
+__device__ __forceinline__ void wide_evaluate(const float* __restrict__ chol, const float* z,
+                                              float* gw, const Wide& w) {
+  wide_matvec<false>(chol, z, const_cast<float*>(w.x), w.D, w.NB, w.tile);
+  Model::eval(w);
+  wide_matvec<true>(chol, w.g, gw, w.D, w.NB, w.tile);
+}
 
 }  // namespace ptmc

@@ -14,20 +14,20 @@ import torch
 
 from . import build
 
-# Most dimensions of the wide ChEES layout (csrc/models.cuh kWideMaxD).
+# Most dimensions of the wide layout (csrc/models.cuh kWideMaxD).
 WIDE_MAX_D = 256
 
 # The device functors of csrc/models.cuh, by the name a model gives in
 # ``cuda_functor``: for each kernel that has an entry for the functor, the
 # dimensions ``(least, most)`` it takes. The curved functor is compiled for
 # D = 2 into the register kernels of all three; the wide functors run in the
-# ChEES kernel's wide layout at any D up to WIDE_MAX_D, and have no NUTS or
-# HMC entry yet (ROADMAP B4).
+# wide layout of all three at any D up to WIDE_MAX_D.
+_WIDE = {"chees": (1, WIDE_MAX_D), "hmc": (1, WIDE_MAX_D), "nuts": (1, WIDE_MAX_D)}
 FUNCTORS = {
     "curved": {"chees": (2, 2), "hmc": (2, 2), "nuts": (2, 2)},
-    "correlated_gaussian": {"chees": (1, WIDE_MAX_D)},
-    "interval_gaussian": {"chees": (1, WIDE_MAX_D)},
-    "hierarchical_gaussian": {"chees": (2, WIDE_MAX_D)},
+    "correlated_gaussian": dict(_WIDE),
+    "interval_gaussian": dict(_WIDE),
+    "hierarchical_gaussian": {kernel: (2, WIDE_MAX_D) for kernel in _WIDE},
 }
 
 # Philox4x32-10 (Salmon et al., SC'11): round multipliers and key bumps.
@@ -110,8 +110,7 @@ def kernel_refusal(functor, kernel, ndim):
         return "no CUDA device functor in csrc/models.cuh"
     dims = FUNCTORS[functor].get(kernel)
     if dims is None:
-        return (f"the {kernel.upper()} kernel has no entry for functor {functor!r} yet (the "
-                "NUTS and HMC kernels beyond D = 2: ROADMAP B4)")
+        return f"the {kernel.upper()} kernel has no entry for functor {functor!r}"
     if dims[0] == dims[1] != ndim:
         return f"functor {functor!r} is compiled for D={dims[0]}, got {ndim}"
     if not dims[0] <= ndim <= dims[1]:

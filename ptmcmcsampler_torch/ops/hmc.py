@@ -27,7 +27,11 @@ it, and no momentum or length array exists on the path.
 * On a CUDA tensor each wrapper launches the hand-written kernel in
   ``csrc/hmc_trajectory.cu`` or raises: a model without a device functor, a
   wrong shape, type or layout, array draws for the fused step, or a failed
-  launch all raise.
+  launch all raise. The curved model (D = 2) runs one chain a thread; the
+  wide models (``correlated_gaussian``, ``interval_gaussian``,
+  ``hierarchical_gaussian``, any D up to ``common.WIDE_MAX_D``) run the wide
+  layout, a group of ``wide_group(D)`` chains a block with their vectors in
+  shared memory, and take the model's constants (``model.cuda_params``).
 * On a CPU tensor it runs its plain version: the same function as masked
   PyTorch steps in the kernel's operation order, the fused step's whitening
   and back-mapping as ordered sums (``common.matvec``). The tests hold the
@@ -95,7 +99,8 @@ def hmc_trajectories(q0, p0, beta, nsteps, chol, eps, model):
       nsteps: ``[T, C]`` int32 trajectory lengths.
       chol:   ``[D, D]`` f32 Cholesky factor of the mass-matrix inverse.
       eps:    the step size, a Python float (``hmc_stepsize``).
-      model:  gives ``value_grad`` (plain version) and ``cuda_functor``.
+      model:  gives ``value_grad`` (plain version), ``cuda_functor`` and,
+              for a wide functor, ``cuda_params``.
     Returns:
       ``(q1 [T, D, C], qxy [T, C])`` with ``qxy = (joint1 - joint0) -
       (logp1 - logp0)``, NaN mapped to -inf.
@@ -113,15 +118,18 @@ def hmc_trajectories(q0, p0, beta, nsteps, chol, eps, model):
     _check_batch("hmc_trajectories", t, c)
     q1 = torch.empty_like(q0)
     qxy = torch.empty((t, c), dtype=f32, device=q0.device)
+    ins, dims = (q0, p0, beta, nsteps, chol), (t, c)
+    if functor != "curved":  # a wide entry: the model's constants and D
+        ins += (common.cuda_params("hmc_trajectories", model, functor, q0.device),)
+        dims = (d, t, c)
     fn = common.entry(
         "hmc_trajectory", f"hmc_trajectory_{functor}",
-        [ctypes.c_void_p] * 5 + [ctypes.c_float] + [ctypes.c_void_p] * 2
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * len(ins) + [ctypes.c_float] + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * len(dims) + [ctypes.c_void_p],
     )
     common.launch(
-        "hmc_trajectory", fn, q0.device,
-        q0.data_ptr(), p0.data_ptr(), beta.data_ptr(), nsteps.data_ptr(), chol.data_ptr(),
-        float(eps), q1.data_ptr(), qxy.data_ptr(), t, c,
+        "hmc_trajectory", fn, q0.device, *(a.data_ptr() for a in ins), float(eps),
+        q1.data_ptr(), qxy.data_ptr(), *dims,
     )
     hmc_trajectories.launches += 1
     return q1, qxy
@@ -195,7 +203,8 @@ def hmc_step(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model):
                 inverse and its inverse.
       eps:      the step size, a Python float (``hmc_stepsize``).
       nmin, nmax: the lengths' range ``[nmin, nmax)``, Python ints.
-      model:    gives ``value_grad`` (plain version) and ``cuda_functor``.
+      model:    gives ``value_grad`` (plain version), ``cuda_functor`` and,
+                for a wide functor, ``cuda_params``.
     Returns:
       ``(x1 [T, D, C], qxy [T, C])``: the end point mapped back, ``chol^T
       q1``, and ``qxy = (joint1 - joint0) - (logp1 - logp0)``, NaN mapped
@@ -219,15 +228,18 @@ def hmc_step(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model):
     out = torch.empty(t * (d + 1) * c, dtype=f32, device=x.device)
     x1 = out[:t * d * c].view(t, d, c)
     qxy = out[t * d * c:].view(t, c)
+    ins, dims = (x, beta, draws, chol, chol_inv), (t, c)
+    if functor != "curved":  # a wide entry: the model's constants and D
+        ins += (common.cuda_params("hmc_step", model, functor, x.device),)
+        dims = (d, t, c)
     fn = common.entry(
         "hmc_trajectory", f"hmc_step_{functor}",
-        [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * len(ins) + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * len(dims) + [ctypes.c_void_p],
     )
     common.launch(
-        "hmc_step", fn, x.device,
-        x.data_ptr(), beta.data_ptr(), draws.data_ptr(), chol.data_ptr(), chol_inv.data_ptr(),
-        float(eps), int(nmin), int(nmax), x1.data_ptr(), qxy.data_ptr(), t, c,
+        "hmc_step", fn, x.device, *(a.data_ptr() for a in ins), float(eps), int(nmin),
+        int(nmax), x1.data_ptr(), qxy.data_ptr(), *dims,
     )
     hmc_step.launches += 1
     return x1, qxy
@@ -249,11 +261,12 @@ def hmc_kernel_draws(key, t, d, c, nmin, nmax, model):
     _check_lengths("hmc_kernel_draws", nmin, nmax)
     p0 = torch.empty((t, d, c), dtype=torch.float32, device=key.device)
     nsteps = torch.empty((t, c), dtype=torch.int32, device=key.device)
+    dims = (t, c) if functor == "curved" else (d, t, c)
     fn = common.entry(
         "hmc_trajectory", f"hmc_draws_{functor}",
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        + [ctypes.c_int] * len(dims) + [ctypes.c_void_p],
     )
     common.launch("hmc_draws", fn, key.device, key.data_ptr(), int(nmin), int(nmax),
-                  p0.data_ptr(), nsteps.data_ptr(), t, c)
+                  p0.data_ptr(), nsteps.data_ptr(), *dims)
     return p0, nsteps

@@ -14,8 +14,15 @@ algorithm is written out in ``csrc/nuts_tree.cu``.
 * Lanes with ``eps <= 0`` search their step size first
   (``find_reasonable_epsilon``) when the caller passes the search's momenta
   ``r_eps``.
-* On a CUDA tensor the wrapper launches the hand-written kernel (one thread
-  per chain, each running its own tree) with the key, or raises.
+* On a CUDA tensor the wrapper launches the hand-written kernel with the
+  key, or raises. The curved model (D = 2) runs one thread a chain, each
+  building its own tree; the wide models (``correlated_gaussian``,
+  ``interval_gaussian``, ``hierarchical_gaussian``, any D up to
+  ``common.WIDE_MAX_D``) run the wide layout, a group of ``wide_group(D)``
+  chains a block stepping through the plain version's masked schedule
+  together, with the model's constants (``model.cuda_params``) and a global
+  scratch for the frontiers, checkpoints and subtree proposals, allocated
+  here from PyTorch's caching allocator at every call.
 * On a CPU tensor it runs ``nuts_trees_plain``: the same function as masked
   PyTorch steps over levels and leaves, with the kernel's operation order,
   fed the uniforms as an array (given, or materialised from the key). The
@@ -37,6 +44,15 @@ from . import common
 from .common import philox4x32
 
 _UNIFORMS_CHUNK = 1 << 24  # elements of int64 work per step of nuts_uniforms
+
+
+def wide_scratch_floats(ndim, depth):
+    """Floats of global scratch a chain of the wide kernel takes at dimension
+    ``ndim`` and depth cap ``depth`` (csrc/nuts_tree.cu
+    wide_scratch_per_chain): the two frontiers' position, momentum and
+    gradient, ``depth`` checkpoint rows of position and momentum, and the
+    subtree's proposal."""
+    return (7 + 2 * depth) * ndim
 
 
 def nuts_uniforms(key, depth, t, c):
@@ -173,7 +189,8 @@ def nuts_trees(q0, r0, beta, eps, expo, dirs, accu, draws, chol, model, r_eps=No
               ``[2**depth - 1, T, C]`` array (level j reads rows
               ``[2**j - 1, 2**(j+1) - 1)``).
       chol:   ``[D, D]`` f32 Cholesky factor of the mass-matrix inverse.
-      model:  gives ``value_grad`` (plain version) and ``cuda_functor``.
+      model:  gives ``value_grad`` (plain version), ``cuda_functor`` and,
+              for a wide functor, ``cuda_params``.
       r_eps:  ``[T, D, C]`` f32 standard-normal momenta of the step-size
               search, or None. Given, a lane with ``eps <= 0`` first runs
               ``find_reasonable_epsilon`` and builds its tree with the step
@@ -207,14 +224,19 @@ def nuts_trees(q0, r0, beta, eps, expo, dirs, accu, draws, chol, model, r_eps=No
         raise ValueError("nuts_trees: more than 2**31 - 1 chains")
     q_prop = torch.empty_like(q0)
     outs = torch.empty((6, t, c), dtype=f32, device=q0.device).unbind(0)
+    ins, dims = (q0, r0, beta, eps, r_eps, expo, dirs, accu, draws, chol), (t, c, depth)
+    if functor != "curved":  # a wide entry: the model's constants, the scratch, D
+        prm = common.cuda_params("nuts_trees", model, functor, q0.device)
+        scratch = torch.empty(wide_scratch_floats(d, depth) * t * c, dtype=f32, device=q0.device)
+        ins += (prm, scratch)
+        dims = (d, t, c, depth)
     fn = common.entry(
         "nuts_tree", f"nuts_tree_{functor}",
-        [ctypes.c_void_p] * 17 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * (len(ins) + 7) + [ctypes.c_int] * len(dims) + [ctypes.c_void_p],
     )
-    args = (q0, r0, beta, eps, r_eps, expo, dirs, accu, draws, chol, q_prop, *outs)
     common.launch(
-        "nuts_tree", fn, q0.device, *(None if a is None else a.data_ptr() for a in args),
-        t, c, depth,
+        "nuts_tree", fn, q0.device,
+        *(None if a is None else a.data_ptr() for a in (*ins, q_prop, *outs)), *dims,
     )
     nuts_trees.launches += 1
     return (q_prop, *outs)

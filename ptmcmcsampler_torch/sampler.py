@@ -16,8 +16,8 @@ reach ``build_step``, which wants a batched model, by one of two routes:
   ``*args``/``*kwargs`` are passed. The object goes to ``build_step`` whole,
   and on the card its gradient jumps launch the CUDA kernels compiled with
   that functor (the four models of ``models`` are such objects). A jump
-  whose kernel has no entry for the functor (NUTS and HMC beyond D = 2,
-  ROADMAP B4) is refused on the card when ``sample()`` starts
+  whose kernel does not take the functor at the model's dimension (a wide
+  functor beyond D = 256) is refused on the card when ``sample()`` starts
   (:func:`card_refusal`); on the CPU every jump runs.
 * **plain**: anything else. Callables that ``torch.func.vmap`` can batch
   run batched on the device; others (numpy) run on the host, one call a

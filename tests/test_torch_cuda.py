@@ -634,8 +634,8 @@ def test_wide_entries_match_plain_bitwise(cuda, name, c):
 
 @pytest.mark.cuda
 def test_wide_wrappers_raise(cuda):
-    """A wrong D, a missing or wrong constants array, and the NUTS and HMC
-    wrappers (no wide entry yet, ROADMAP B4) raise; nothing falls back."""
+    """A wrong D and a missing or wrong constants array raise; the NUTS and
+    HMC wrappers launch their wide kernel once a call on a wide model."""
     model = HierarchicalGaussian()
     args = list(_wide_step_inputs(cuda, model))
 
@@ -659,13 +659,97 @@ def test_wide_wrappers_raise(cuda):
     wargs = list(_wide_step_inputs(cuda, wide, c=8))
     with pytest.raises(ValueError, match="got 257"):
         chees_step(*wargs, wide)
+    with pytest.raises(ValueError, match="got 257"):
+        hmc_step(wargs[0], wargs[3], torch.zeros(2, dtype=torch.int64, device=cuda), wargs[8],
+                 wargs[9], 0.08, HMC_NMIN, HMC_NMAX, wide)
+    with pytest.raises(ValueError, match="no constants"):
+        hmc_step(args[0], args[3], torch.zeros(2, dtype=torch.int64, device=cuda), args[8],
+                 args[9], 0.08, HMC_NMIN, HMC_NMAX, NoConstants())
     q0, betas, chol = args[0], args[3], args[8]
-    with pytest.raises(NotImplementedError, match="B4"):
-        hmc_trajectories(q0, args[1], betas, torch.ones_like(args[4], dtype=torch.int32), chol,
-                         0.1, model)
-    with pytest.raises(NotImplementedError, match="B4"):
-        hmc_step(args[0], betas, torch.zeros(2, dtype=torch.int64, device=cuda), chol, args[9],
-                 0.08, HMC_NMIN, HMC_NMAX, model)
+    before = hmc_trajectories.launches, hmc_step.launches, nuts_trees.launches
+    q1, qxy = hmc_trajectories(q0, args[1], betas, torch.ones_like(args[4], dtype=torch.int32),
+                               chol, 0.1, model)
+    x1, qxy1 = hmc_step(args[0], betas, torch.zeros(2, dtype=torch.int64, device=cuda), chol,
+                        args[9], 0.08, HMC_NMIN, HMC_NMAX, model)
+    t, d, c = q0.shape
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    from ptmcmcsampler_torch.proposals.nuts import draw_nuts
+    r0, expo, dirs, accu, key, r_eps = draw_nuts(gen, t, d, c, 3, cuda)
+    out = nuts_trees(q0, r0, betas, torch.full((t, c), 0.05, device=cuda), expo, dirs, accu,
+                     key, chol, model, r_eps=r_eps)
+    torch.cuda.synchronize()
+    assert (hmc_trajectories.launches, hmc_step.launches, nuts_trees.launches) == tuple(
+        b + 1 for b in before)
+    assert torch.isfinite(q1).all() and torch.isfinite(x1).all() and torch.isfinite(out[0]).all()
+
+
+def _wide_tree_inputs(dev, model, c, depth, seed=0):
+    """nuts_trees' arguments but the model for a wide model: the fused
+    step's positions whitened, NUTS draws, step sizes near 0.05 with some
+    lanes at eps <= 0 (they search first)."""
+    x, _, _, betas, _, _, _, _, chol, chol_inv = _wide_step_inputs(dev, model, c=c, seed=seed)
+    from ptmcmcsampler_torch.proposals.nuts import draw_nuts
+
+    t, d, _ = x.shape
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    r0, expo, dirs, accu, key, r_eps = draw_nuts(gen, t, d, c, depth, dev)
+    eps = 0.05 * (1.0 + 0.5 * torch.rand((t, c), generator=gen, device=dev))
+    eps[:, ::13] = 0.0
+    eps[:, 5::29] = -1.0
+    q0 = common.matvec(chol_inv.T, x).contiguous()
+    return q0, r0, betas, eps, expo, dirs, accu, key, chol, r_eps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WIDE_MODELS))
+@pytest.mark.parametrize("c", [300, 256])
+def test_wide_nuts_matches_plain_bitwise(cuda, name, c):
+    """The wide NUTS kernel (reservoir uniforms from the key, the step-size
+    search in the kernel) equals its plain version fed the key's uniforms,
+    bit for bit, on whole groups and on a ragged batch."""
+    model = WIDE_MODELS[name]()
+    depth = 4
+    q0, r0, betas, eps, expo, dirs, accu, key, chol, r_eps = _wide_tree_inputs(
+        cuda, model, c, depth)
+    before = nuts_trees.launches
+    out = nuts_trees(q0, r0, betas, eps, expo, dirs, accu, key, chol, model, r_eps=r_eps)
+    assert nuts_trees.launches == before + 1
+    ref = nuts_trees_plain(q0, r0, betas, eps, expo, dirs, accu,
+                           nuts_uniforms(key, depth, *eps.shape), chol, model, r_eps)
+    for what, a, b in zip(("q_prop", "logp0", "logp_prop", "alpha", "nalpha", "alive", "eps"),
+                          out, ref):
+        assert _same(a, b), what
+    assert (out[6] > 0).all() and out[4].max() > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WIDE_MODELS))
+@pytest.mark.parametrize("c", [300, 256])
+def test_wide_hmc_step_matches_plain_bitwise(cuda, name, c):
+    """The wide fused HMC step equals its plain version fed the kernel's own
+    draws, bit for bit; its draws equal hmc_draws' lengths and momenta
+    within 4 ulp; the trajectory entry equals its plain version and the
+    step's end points."""
+    model = WIDE_MODELS[name]()
+    x, _, _, betas, _, _, _, _, chol, chol_inv = _wide_step_inputs(cuda, model, c=c)
+    t, d, _ = x.shape
+    key = torch.tensor([0x1234567, 0x89ABCDE], dtype=torch.int64, device=cuda)
+    for eps in (0.08, 5.0):
+        args = (x, betas, key, chol, chol_inv, eps, HMC_NMIN, HMC_NMAX, model)
+        before = hmc_step.launches
+        x1, qxy = hmc_step(*args)
+        assert hmc_step.launches == before + 1
+        p0, nsteps = hmc_kernel_draws(key, t, d, c, HMC_NMIN, HMC_NMAX, model)
+        p0t, nstepst = hmc_draws(key, t, d, c, HMC_NMIN, HMC_NMAX)
+        assert torch.equal(nsteps, nstepst) and int(_ulps(p0, p0t).max()) <= 4
+        x1p, qxyp = hmc_step_plain(*args[:2], (p0, nsteps), *args[3:])
+        assert _same(x1, x1p) and _same(qxy, qxyp)
+        q0 = common.matvec(chol_inv.T, x)
+        traj = (q0, p0, betas, nsteps, chol, eps, model)
+        q1, qxyk = hmc_trajectories(*traj)
+        q1p, qxykp = hmc_trajectories_plain(*traj)
+        assert _same(q1, q1p) and _same(qxyk, qxykp)
+        assert _same(common.matvec(chol.T, q1), x1) and _same(qxyk, qxy)
 
 
 def _wide_sampler(outdir, nchains=64):
@@ -680,15 +764,31 @@ def _wide_sampler(outdir, nchains=64):
 @pytest.mark.cuda
 @pytest.mark.parametrize("weights", [dict(NUTSweight=20), dict(HMCweight=20)])
 def test_sampler_refuses_wide_nuts_and_hmc_on_the_card(cuda, tmp_path, weights):
-    """NUTS or HMC on a wide model on the card is refused before any
-    iteration runs, naming ROADMAP B4 and the CPU."""
+    """NUTS or HMC on a wide model on the card launches its wide kernel once
+    per iteration of its kind; a 300-D model (beyond the wide layout's 256)
+    is refused before any iteration runs, naming the CPU."""
     s = _wide_sampler(str(tmp_path))
     assert s.route == "kernel"
-    kw = {**_SAMPLE, "NUTSweight": 0, "HMCweight": 0, **weights}
-    with pytest.raises(NotImplementedError, match=r'B4') as e:
-        s.sample(np.zeros(s.ndim), 120, **kw)
-    assert 'device="cpu"' in str(e.value)
-    assert s.state is None
+    kw = {**_SAMPLE, "CHEESweight": 0, "NUTSweight": 0, "HMCweight": 0, **weights}
+    _zero_launches()
+    s.sample(np.zeros(s.ndim), 120, **kw)
+    assert torch.isfinite(s.state.x).all()
+    for kind, w in _COUNTED.items():
+        iters = _iterations(s.config, s.state, kind) if kind in [
+            j.kind for j in s.config.jumps] else 0
+        assert w.launches == iters, kind
+    assert hmc_trajectories.launches == 0 and chees_trajectories.launches == 0
+    assert nuts_trees.launches + hmc_step.launches > 0
+
+    from ptmcmcsampler_torch import PTSampler
+
+    m = CorrelatedGaussian(ndim=300)
+    big = PTSampler(m.ndim, m.lnlikefn, m.lnpriorfn, np.eye(m.ndim), logl_grad=m.lnlikefn_grad,
+                    logp_grad=m.lnpriorfn_grad, ntemps=2, nchains=16, seed=3,
+                    outDir=str(tmp_path / "big"), verbose=False)
+    with pytest.raises(NotImplementedError, match="got 300") as e:
+        big.sample(np.full(m.ndim, 5.0), 120, **kw)
+    assert 'device="cpu"' in str(e.value) and big.state is None
 
 
 @pytest.mark.cuda

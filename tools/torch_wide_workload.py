@@ -6,14 +6,19 @@ cuts to fit its time limit.
 Usage, from the root of a checkout on a machine with a card and nvcc::
 
     python3 tools/torch_wide_workload.py gaussian200 --burn 3000 --timed 500
+    python3 tools/torch_wide_workload.py hierarchical --path nuts
 
-Builds the kernels, holds the workload's wide ChEES entries to their plain
-versions (``chip_smoke.phase_wide_vs_plain``), then runs path 1's cycle on
-the workload at 8 x 16384 chains with ``--burn`` burn-in and ``--timed``
-timed iterations (``chip_smoke.phase_wide_path``: the main-path JSON line
-with its burn-in seconds, a profile line and the wide kernel's timings).
-Prints the card's name and power limit, the seconds of each phase, and the
-kernel item as one JSON line.
+Builds the kernels, holds the workload's wide kernels to their plain
+versions, then runs one path's cycle on the workload at 8 x 16384 chains
+with ``--burn`` burn-in and ``--timed`` timed iterations (bench.py's 3000
+and 12000 by default). ``--path chees`` (the default) is path 1, the ChEES
+entries (``chip_smoke.phase_wide_vs_plain``, ``phase_wide_path``); ``--path
+nuts`` is path 2, bench.py's ``grad_mode=nuts`` cycle, the NUTS and HMC
+entries (``chip_smoke.phase_wide_nuts_hmc_vs_plain``,
+``phase_wide_nuts_path``). Each prints the main-path JSON line with its
+burn-in seconds, a profile line and the wide kernels' timings. Prints the
+card's name and power limit, the seconds of each phase, and each kernel
+item as one JSON line.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ def main():
     ap.add_argument("workload", choices=sorted(cs.WIDE_ITERS))
     ap.add_argument("--burn", type=int, default=cs.BURN_ITERS)
     ap.add_argument("--timed", type=int, default=cs.TIMED_ITERS)
+    ap.add_argument("--path", choices=("chees", "nuts"), default="chees")
     args = ap.parse_args()
     import torch
 
@@ -43,19 +49,32 @@ def main():
         return 1
     from ptmcmcsampler_torch.ops import build
 
-    cs.WIDE_ITERS = {args.workload: (args.burn, args.timed)}
+    iters = {args.workload: (args.burn, args.timed)}
     card = cs.card_line()
     print(card, flush=True)
     t0 = time.time()
-    ptxas = cs.ptxas_info(build.build().get("chees_trajectory", ""))
+    logs = build.build()
     print(f"build s {time.time() - t0:.1f}", flush=True)
+    model = cs.wide_workload(args.workload)[0]
     t0 = time.time()
-    err = cs.phase_wide_vs_plain(args.workload, cs.wide_workload(args.workload)[0])
+    if args.path == "chees":
+        cs.WIDE_ITERS = iters
+        err = cs.phase_wide_vs_plain(args.workload, model)
+    else:
+        cs.WIDE_NUTS_ITERS = iters
+        err = cs.phase_wide_nuts_hmc_vs_plain(args.workload, model)
     print(f"check s {time.time() - t0:.1f}", flush=True)
     t0 = time.time()
-    item = cs.phase_wide_path(args.workload, card, err, ptxas)
+    if args.path == "chees":
+        items = [cs.phase_wide_path(args.workload, card, err,
+                                    cs.ptxas_info(logs.get("chees_trajectory", "")))]
+    else:
+        ptxas = {name: cs.ptxas_info(logs.get(name, ""))
+                 for name in ("nuts_tree", "hmc_trajectory")}
+        items = cs.phase_wide_nuts_path(args.workload, card, err, ptxas)
     print(f"path s {time.time() - t0:.1f}", flush=True)
-    print(json.dumps(item), flush=True)
+    for item in items:
+        print(json.dumps(item), flush=True)
     return 0
 
 
