@@ -52,15 +52,21 @@ Phases, in order; any failure exits non-zero:
      hierarchical_gaussian, correlated_gaussian) against their plain
      versions at 8 x 16384 chains (8 x 1024 at 200-D), on synthetic inputs
      around each posterior (1 in 17 of the 200-D model's starts outside its
-     box): at ``max_steps`` 32 no lane may differ in any bit; at 256, on a
-     ragged batch and on short trajectories (4 steps of 1e-4, which keep the
-     200-D chains inside the box, so their values are compared too) every
-     output within SHORT_TOL with equal -inf masks. The trajectory entry,
-     from the fused step's own q0 and lengths, must end where the step does.
+     box): with a dense factor, at ``max_steps`` 32 no lane may differ in
+     any bit; at 256, on a ragged batch and on short trajectories (4 steps
+     of 1e-4, which keep the 200-D chains inside the box, so their values
+     are compared too) every output within SHORT_TOL with equal -inf masks;
+     with a diagonal factor (structure tag "diagonal": the kernels then
+     skip its zeros, and so do the plain versions) and a lower triangular
+     one (tag "dense"), at ``max_steps`` 32 on the full and a ragged batch
+     no lane may differ in any bit. The trajectory entry, from the fused step's own
+     q0 and lengths, must end where the step does.
    * The wide NUTS and HMC entries on the same three functors, the kernels
      at 8 x 16384 chains, the plain versions on the first and the last 512
-     chains a rung (WIDE_PLAIN_COLUMNS_NUTS): no lane may differ in any bit.
-     NUTS at depth 4 and 10 with about 2% of lanes at eps <= 0 (the
+     chains a rung (WIDE_PLAIN_COLUMNS_NUTS): no lane may differ in any bit,
+     with a dense, a diagonal and a lower triangular factor (the latter
+     two: NUTS at depth 4, HMC at eps 0.08 and ragged). NUTS at depth 4 and 10 with
+     about 2% of lanes at eps <= 0 (the
      in-kernel step-size search); the fused HMC step at eps 0.08, 5.0 and
      1e-4, on a ragged batch and with nmax = nmin + 1, against
      ``hmc_step_plain`` fed the kernel's own draws, whose lengths must equal
@@ -165,7 +171,11 @@ Phases, in order; any failure exits non-zero:
    and over one warp's chains, in microseconds a step. The ChEES entry's
    ``launches_by_path`` adds its launches in the sampler phase. Its
    ``wide`` list has one item a wide functor, with every key of a kernel
-   entry: the wide entries' times (trajectory entry, fused step, wrapper
+   entry: the path's factor structure tag (``factor_structure``; the
+   identity's "diagonal" on bench.py's paths), the capped microseconds a
+   step and their operation rate as a share of the ordered-f32 rate
+   (ORDERED_F32_OPS_PER_S), the wide entries'
+   times (trajectory entry, fused step, wrapper
    calls, the plain versions), their bounds (the two whitening products at
    the operations the nonzero entries of the path's factor need: D^2 for a
    triangular factor, D for the identity that bench.py's paths keep; the
@@ -175,7 +185,9 @@ Phases, in order; any failure exits non-zero:
    (every chain at the largest length: the batch, one group alone), ptxas
    registers, spills and shared memory, and the layout (chains a group and
    a block, blocks an SM, waves). The NUTS and HMC entries' ``wide`` lists
-   have one item a wide functor with the same keys: the wide NUTS kernel's
+   have one item a wide functor with the same keys (the NUTS items the
+   capped microseconds a leaf and their share of the ordered-f32 rate):
+   the wide NUTS kernel's
    time on path 2's final state, its wrapper call, the plain version's on
    the first 1024 chains a rung, the bound (this call's leaves and
    doublings: an evaluation, the leapfrog, the kinetic energy and one U-turn
@@ -183,7 +195,10 @@ Phases, in order; any failure exits non-zero:
    group lane efficiency, capped timings (every tree at the depth cap, the
    batch and one group), the scratch layout and bytes, ptxas and layout;
    the wide HMC entries' trajectory and fused-step times, plain times,
-   bounds, draws, the steps taken, ptxas and layout.
+   bounds, draws, the steps taken, ptxas and layout. Before it, a line of
+   what is counted from the code and not measured: the ``__syncthreads``
+   a wide ChEES leapfrog step and a wide evaluation take, by functor,
+   dimension and structure tag.
 11. Last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -223,6 +238,11 @@ DEVICE = "cuda:0"
 # ones), so the bound stays a lower bound.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# The bounds count at F32_OPS_PER_S, the rate of fused multiply-adds. The
+# kernels are built --fmad=false (each product and sum rounded on its own, as
+# the plain versions), so a multiply and an add are two instructions: their
+# ordered f32 arithmetic tops out at half of it.
+ORDERED_F32_OPS_PER_S = F32_OPS_PER_S / 2
 # Per leapfrog step of the curved model (csrc/models.cuh): about 70 float
 # operations plus 4 transcendental ones, counted as one each.
 OPS_PER_STEP = 74
@@ -558,11 +578,20 @@ def wide_workload(name):
     return model, model.mu.copy()
 
 
-def wide_inputs(gen, dev, model, c, max_steps, eps_base=WIDE_EPS, eps0=HMC_EPS):
+# The structure tag of each kind of factor wide_inputs makes.
+FACTOR_TAGS = {"dense": "dense", "lower": "dense", "diagonal": "diagonal"}
+
+
+def wide_inputs(gen, dev, model, c, max_steps, eps_base=WIDE_EPS, eps0=HMC_EPS,
+                factor="dense"):
     """The fused ChEES step's arguments (but the model) for a wide model at
     ``c`` chains a rung: a factor ``chol`` with ``chol^T chol`` near the
     posterior covariance (the correlated model's own; the others'
-    ``posterior_moments``), randomly mixed; positions around the posterior's centre (the
+    ``posterior_moments``) of the kind ``factor``: "dense" randomly mixed,
+    "lower" the lower factor with the same ``chol^T chol`` as the mixed one
+    (and its triangular inverse), "diagonal" the marginal scales, each of
+    the structure tag FACTOR_TAGS gives; positions around
+    the posterior's centre (the
     correlated model's clamped into its box, but 1 in 17 moved outside it);
     per-rung step sizes
     ``eps_base * 1.3**t``, rung 0 at its first call (``eps0`` used);
@@ -583,9 +612,23 @@ def wide_inputs(gen, dev, model, c, max_steps, eps_base=WIDE_EPS, eps0=HMC_EPS):
     # x = chol^T q with chol = (low R)^T, R = I + 0.1 a / sqrt(D): the
     # whitened Hessian is near -beta R^T R, well conditioned.
     a = torch.randn((d, d), generator=gen, device=dev).double()
-    mix = low @ (torch.eye(d, dtype=torch.float64, device=dev) + 0.1 * a / d**0.5)
+    eye = torch.eye(d, dtype=torch.float64, device=dev)
+    mix = low @ (eye + 0.1 * a / d**0.5)
     chol = mix.T.float().contiguous()
     chol_inv = torch.linalg.inv(mix.T).float().contiguous()
+    if factor == "lower":  # mix mix^T = U U^T, U upper: chol = U^T
+        up = torch.linalg.cholesky((mix @ mix.T).flip(0, 1)).flip(0, 1)
+        chol = up.T.contiguous()
+        chol_inv = torch.linalg.solve_triangular(chol, eye, upper=False).float().contiguous()
+        chol = chol.float()
+    elif factor == "diagonal":
+        scale = torch.sqrt(torch.diagonal(cov))
+        chol = torch.diag(scale).float().contiguous()
+        chol_inv = torch.diag(1.0 / scale).float().contiguous()
+    from ptmcmcsampler_torch.ops.common import factor_structure
+
+    if factor_structure(chol.cpu(), chol_inv.cpu()) != FACTOR_TAGS[factor]:
+        raise SystemExit(f"wide_inputs: the {factor} factor's tag is not {FACTOR_TAGS[factor]}")
     if not hasattr(model, "posterior_moments"):
         x = x.clamp(0.05, 9.95)  # inside the closed box [0, 10] ...
         x[:, 0, ::17] = -0.5  # ... but for these
@@ -598,6 +641,16 @@ def wide_inputs(gen, dev, model, c, max_steps, eps_base=WIDE_EPS, eps0=HMC_EPS):
     eps[0] = 0.0
     tlen = torch.where(eps > 0, eps, eps0) * max_steps
     return x.contiguous(), r0, u, betas, eps, tlen, eps0, max_steps, chol, chol_inv
+
+
+def diagonal_eps(model, factor, eps):
+    """The checks' step size for a factor of the kind ``factor``: the correlated
+    model whitened by its marginal scales alone (a diagonal factor) has a
+    whitened Hessian up to about 4e4, so a leapfrog step above 0.01 is
+    unstable there; it takes WIDE_TREE_EPS_BOX."""
+    if factor == "diagonal" and not hasattr(model, "posterior_moments"):
+        return min(eps, WIDE_TREE_EPS_BOX)
+    return eps
 
 
 def step_lengths(u, eps, tlen, eps0, max_steps):
@@ -629,15 +682,17 @@ def take_columns(values, c, cols):
 def phase_wide_vs_plain(name, model):
     """Both wide ChEES entries of ``model``'s functor against their plain
     versions, the kernels at the main path's T x C chains (and a ragged
-    batch of 100 chains a rung fewer): max_steps 32 (no lane may differ in
-    any bit), 256 and the ragged batch pointwise within SHORT_TOL with
-    equal -inf masks, the plain version on the columns of
-    ``plain_columns``. Then short trajectories (4 steps of 1e-4 and up),
+    batch of 100 chains a rung fewer): with a dense factor, max_steps 32 (no
+    lane may differ in any bit), 256 and the ragged batch pointwise within
+    SHORT_TOL with equal -inf masks, the plain version on the columns of
+    ``plain_columns``, then short trajectories (4 steps of 1e-4 and up),
     which keep most of the correlated model's chains inside its box, where
     the longer ones leave it (its marginal sds, about 4, rival the box's
-    width of 10) and their values are -inf. The trajectory entry starts from
-    the fused step's own q0 with the step's lengths. Returns the largest
-    error."""
+    width of 10) and their values are -inf; with a diagonal and a lower
+    triangular factor (tags "diagonal" and "dense"), max_steps 32 on the
+    full and the ragged batch, no lane differing in any bit. The
+    trajectory entry starts from the fused step's own q0 with the step's
+    lengths. Returns the largest error."""
     from ptmcmcsampler_torch.ops.chees import (
         chees_step, chees_step_plain, chees_trajectories, chees_trajectories_plain,
     )
@@ -647,20 +702,23 @@ def phase_wide_vs_plain(name, model):
     gen.manual_seed(4242)
     names = ("x1", "q0", "z1", "r1", "qxy", "alpha")
     max_err = 0.0
-    for label, c, max_steps, eps in (("", C, 32, WIDE_EPS), ("", C, 256, WIDE_EPS),
-                                     ("ragged ", C - 100, 32, WIDE_EPS),
-                                     ("short ", C, 4, 1e-4)):
-        args = wide_inputs(gen, dev, model, c, max_steps, eps, min(eps, HMC_EPS))
+    cases = [("dense", "", C, 32, WIDE_EPS), ("dense", "", C, 256, WIDE_EPS),
+             ("dense", "ragged ", C - 100, 32, WIDE_EPS), ("dense", "short ", C, 4, 1e-4)]
+    cases += [(f, lab, c, 32, diagonal_eps(model, f, WIDE_EPS)) for f in ("diagonal", "lower")
+              for lab, c in (("", C), ("ragged ", C - 100))]
+    for factor, label, c, max_steps, eps in cases:
+        args = wide_inputs(gen, dev, model, c, max_steps, eps, min(eps, HMC_EPS), factor)
+        structure = FACTOR_TAGS[factor]
         cols = plain_columns(name, c, max_steps, dev)
         plain_c = c if cols is None else cols.numel()
-        label = (f"wide {name} (D={model.ndim}) {label}max_steps={max_steps} {T} x {c}, plain "
-                 f"{T} x {plain_c}")
+        label = (f"wide {name} (D={model.ndim}) {factor} factor ({structure}), {label}max_steps="
+                 f"{max_steps} {T} x {c}, plain {T} x {plain_c}")
         t0 = time.time()
-        out = chees_step(*args, model)
-        ref = chees_step_plain(*take_columns(args, c, cols), model)
+        out = chees_step(*args, model, structure)
+        ref = chees_step_plain(*take_columns(args, c, cols), model, structure)
         _, r0, u, betas, eps, tlen, eps0, _, chol, _ = args
         eps_tc, nsteps = step_lengths(u, eps, tlen, eps0, max_steps)
-        traj = (out[1], r0, betas, eps_tc, nsteps, chol, model)
+        traj = (out[1], r0, betas, eps_tc, nsteps, chol, model, structure)
         tout = chees_trajectories(*traj)
         tref = chees_trajectories_plain(*take_columns(traj, c, cols))
         torch.cuda.synchronize()
@@ -1079,6 +1137,7 @@ def chees_kernel_entry(model, state, launches, max_err):
     gen = torch.Generator(device=dev)
     gen.manual_seed(99)
     chol, chol_inv = state.adapt.chol, state.adapt.chol_inv
+    structure = state.adapt.structure
     ss = state.stepsize
     eps = ss.chees_eps.contiguous()
     tlen = torch.maximum(ss.chees_tlen, eps)
@@ -1100,7 +1159,7 @@ def chees_kernel_entry(model, state, launches, max_err):
     # The fused step runs these nsteps: its end point is the trajectory
     # entry's from its own q0 (an ordered sum, where q0 above is a matmul).
     out = chees_step(*fused)
-    z1, r1, _ = chees_trajectories(out[1], p0, state.betas, eps, nsteps, chol, model)
+    z1, r1, _ = chees_trajectories(out[1], p0, state.betas, eps, nsteps, chol, model, structure)
     if not (torch.equal(out[2], z1) and torch.equal(out[3], r1)):
         raise SystemExit("the fused ChEES step's trajectories differ from the trajectory entry's")
     steps = int(nsteps.sum())
@@ -1673,6 +1732,49 @@ def product_ops(m):
     return 2 * int(torch.count_nonzero(m)) - m.shape[0]
 
 
+def matvec_barriers(d, structure):
+    """``__syncthreads`` a wide product takes (csrc/models.cuh wide_matvec):
+    one a tile and one after the sums, or the diagonal pass's one."""
+    return 1 if structure == "diagonal" else -(-d // 16) + 1
+
+
+def model_barriers(functor, d):
+    """A wide functor's eval: the correlated model's S product among three
+    passes, the interval model's one pass, the hierarchy's two."""
+    return {"correlated_gaussian": matvec_barriers(d, "dense") + 3, "interval_gaussian": 1,
+            "hierarchical_gaussian": 2}[functor]
+
+
+def evaluation_barriers(functor, d, structure):
+    """A wide evaluation's barriers (models.cuh wide_evaluate): the two
+    whitening products around the model."""
+    return 2 * matvec_barriers(d, structure) + model_barriers(functor, d)
+
+
+def chees_barriers(functor, d, structure):
+    """A wide ChEES leapfrog step's barriers (csrc/chees_trajectory.cu): the
+    one after the first half step, then with a diagonal factor the model
+    alone (its products folded into the half steps), else the evaluation."""
+    if structure == "diagonal":
+        return 1 + model_barriers(functor, d)
+    return 1 + evaluation_barriers(functor, d, structure)
+
+
+def barriers_counted_from_code():
+    """The line of barrier counts: counted from the code, not measured."""
+    counts = {}
+    for name in WIDE_ITERS:
+        model = wide_workload(name)[0]
+        functor, d = model.cuda_functor, model.ndim
+        counts[name] = {"functor": functor, "ndim": d, **{
+            st: {"chees_step": chees_barriers(functor, d, st),
+                 "evaluation": evaluation_barriers(functor, d, st)}
+            for st in ("diagonal", "dense")}}
+    return {"counted_from_code": {"what": "__syncthreads a wide ChEES leapfrog step and a "
+                                          "wide evaluation take, by structure tag",
+                                  "wide_barriers": counts}}
+
+
 def wide_kernel_entry(name, model, state, cfg, launches, max_err, chees_ptxas):
     """The wide entries of ``model``'s functor timed on inputs from the
     workload's final state, as ``chees_kernel_entry`` does for the curved
@@ -1694,6 +1796,7 @@ def wide_kernel_entry(name, model, state, cfg, launches, max_err, chees_ptxas):
     gen = torch.Generator(device=dev)
     gen.manual_seed(99)
     chol, chol_inv = state.adapt.chol, state.adapt.chol_inv
+    structure = state.adapt.structure
     ss = state.stepsize
     eps = ss.chees_eps.contiguous()
     tlen = torch.maximum(ss.chees_tlen, eps)
@@ -1702,9 +1805,9 @@ def wide_kernel_entry(name, model, state, cfg, launches, max_err, chees_ptxas):
     nsteps = torch.clamp(torch.ceil(u * tlen / eps), 1, max_steps).to(torch.int32)
     q0 = (chol_inv.T @ state.x).contiguous()
     p0 = torch.randn((T, d, C), generator=gen, device=dev)
-    args = (q0, p0, state.betas, eps, nsteps, chol, model)
+    args = (q0, p0, state.betas, eps, nsteps, chol, model, structure)
     fused = (state.x, p0, u, state.betas, eps, ss.chees_tlen.contiguous(), HMC_EPS, max_steps,
-             chol, chol_inv, model)
+             chol, chol_inv, model, structure)
     reps = 20 if d <= 64 else 5
     kernel_ms = cuda_ms(lambda: chees_trajectories(*args), reps, hold_stream=True)
     wrapper_ms = cuda_ms(lambda: chees_trajectories(*args), reps)
@@ -1719,7 +1822,7 @@ def wide_kernel_entry(name, model, state, cfg, launches, max_err, chees_ptxas):
     fused_plain_ms = once_ms(lambda: chees_step_plain(*sub))
     del sub
     out = chees_step(*fused)
-    z1, r1, _ = chees_trajectories(out[1], p0, state.betas, eps, nsteps, chol, model)
+    z1, r1, _ = chees_trajectories(out[1], p0, state.betas, eps, nsteps, chol, model, structure)
     if not (torch.equal(out[2], z1) and torch.equal(out[3], r1)):
         raise SystemExit(f"{name}: the fused ChEES step's trajectories differ from the "
                          "trajectory entry's")
@@ -1740,14 +1843,19 @@ def wide_kernel_entry(name, model, state, cfg, launches, max_err, chees_ptxas):
     for label, t, c, n in (("batch", T, C, 3), ("group", 1, nb, 10)):
         a = (q0[:t, :, :c].contiguous(), p0[:t, :, :c].contiguous(), state.betas[:t].contiguous(),
              eps[:t, :c].contiguous(),
-             torch.full((t, c), max_nsteps, dtype=torch.int32, device=dev), chol, model)
+             torch.full((t, c), max_nsteps, dtype=torch.int32, device=dev), chol, model,
+             structure)
         ms = cuda_ms(lambda: chees_trajectories(*a), n, hold_stream=True)
         capped[f"capped_{label}_ms"] = ms
         capped[f"capped_{label}_us_per_step"] = 1e3 * ms / max_nsteps
     ptxas = {k: v for k, v in chees_ptxas.items() if WIDE_CLASSES[functor] in k}
     layout = wide_layout(d, ptxas, dev, chains_per_block=256)
+    step_ops = (per_eval + 6 * d) * T * C  # a capped step over the batch
     extra = {
-        "workload": name, "ndim": d, "functor": functor,
+        "workload": name, "ndim": d, "functor": functor, "factor_structure": structure,
+        "capped_us_per_step": capped["capped_batch_us_per_step"],
+        "ordered_f32_share": step_ops / (1e-6 * capped["capped_batch_us_per_step"])
+        / ORDERED_F32_OPS_PER_S,
         "launches_by_path": {name: launches},
         "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "plain_chains": [T, pc],
         "fused_ms": fused_ms, "fused_wrapper_ms": fused_wrapper_ms,
@@ -1880,7 +1988,7 @@ def phase_wide_sampler(card, wrappers):
 
 # ---- Path 2 (NUTS and HMC) on the wide workloads ----
 
-def wide_tree_inputs(gen, dev, model, c, depth):
+def wide_tree_inputs(gen, dev, model, c, depth, factor="dense"):
     """The wide NUTS kernel's arguments but the model, around ``wide_inputs``'
     positions and factor: NUTS draws as proposals/nuts.py draws them, rung t
     at step size base * 1.3**t, about 2% of lanes at eps <= 0 (they search
@@ -1890,14 +1998,14 @@ def wide_tree_inputs(gen, dev, model, c, depth):
     from ptmcmcsampler_torch.ops import common
     from ptmcmcsampler_torch.proposals.nuts import draw_nuts
 
-    x, _, _, betas, *_, chol, chol_inv = wide_inputs(gen, dev, model, c, 1)
+    x, _, _, betas, *_, chol, chol_inv = wide_inputs(gen, dev, model, c, 1, factor=factor)
     r0, expo, dirs, accu, key, r_eps = draw_nuts(gen, T, model.ndim, c, depth, dev)
     base = WIDE_EPS if hasattr(model, "posterior_moments") else WIDE_TREE_EPS_BOX
     eps = (base * 1.3 ** torch.arange(T, device=dev, dtype=torch.float32))[:, None]
     eps = eps.expand(T, c).contiguous()
     eps[:, ::97] = 0.0
     eps[:, 13::89] = -1.0
-    q0 = common.matvec(chol_inv.T, x).contiguous()
+    q0 = common.matvec(chol_inv.T, x, FACTOR_TAGS[factor]).contiguous()
     return (q0, r0, betas, eps, expo, dirs, accu, key, chol), r_eps
 
 
@@ -1916,7 +2024,10 @@ def wide_columns(c, dev):
 def phase_wide_nuts_hmc_vs_plain(name, model):
     """The wide NUTS and HMC entries of ``model``'s functor against their
     plain versions, the kernels at T x C chains (and ragged batches), the
-    plain versions on ``wide_columns``: no lane may differ in any bit.
+    plain versions on ``wide_columns``: no lane may differ in any bit. With
+    a dense factor, the cases below; with a diagonal and a lower triangular
+    one (tags "diagonal" and "dense"), NUTS at depth 4 and the HMC cases
+    eps=0.08 and ragged.
     NUTS at depth 4 and 10 (the reservoir's uniforms from the key against
     ``nuts_uniforms``, the in-kernel step-size search against
     ``find_reasonable_epsilon``); the fused HMC step at eps 0.08 and 5.0, at
@@ -1946,10 +2057,12 @@ def phase_wide_nuts_hmc_vs_plain(name, model):
             raise SystemExit(f"{label}: {n} lanes differ from the plain version")
         return 0.0
 
-    for depth in (4, NUTS_DEPTH):
-        args, r_eps = wide_tree_inputs(gen, dev, model, C, depth)
+    nuts_cases = [("dense", 4), ("dense", NUTS_DEPTH), ("diagonal", 4), ("lower", 4)]
+    for factor, depth in nuts_cases:
+        args, r_eps = wide_tree_inputs(gen, dev, model, C, depth, factor)
+        structure = FACTOR_TAGS[factor]
         t0 = time.time()
-        out = nuts_trees(*args, model, r_eps=r_eps)
+        out = nuts_trees(*args, model, r_eps=r_eps, structure=structure)
         torch.cuda.synchronize()
         kernel_s = time.time() - t0
         cols = wide_columns(C, dev)
@@ -1959,13 +2072,14 @@ def phase_wide_nuts_hmc_vs_plain(name, model):
         resu = nuts_uniforms(key, depth, T, C)
         resu = resu if cols is None else resu.index_select(-1, cols).contiguous()
         t0 = time.time()
-        ref = nuts_trees_plain(*sub[:7], resu, sub[8], model, sub_reps)
+        ref = nuts_trees_plain(*sub[:7], resu, sub[8], model, sub_reps, structure)
         torch.cuda.synchronize()
         plain_s = time.time() - t0
         got = take_columns(out, C, cols)
         searched = args[3] <= 0
-        label = (f"wide NUTS {name} (D={d}) depth {depth}, kernel {T} x {C}, plain {T} x "
-                 f"{ref[0].shape[2]}")
+        label = (f"wide NUTS {name} (D={d}) {factor} factor ({structure}), depth {depth}, "
+                 f"kernel {T} x {C}, "
+                 f"plain {T} x {ref[0].shape[2]}")
         log(f"{label}: {lanes_differ(got, ref)} lanes differ in any output; trees "
             f"{tree_stats(out[4], out[5])}; search in {int(searched.sum())} lanes, found eps in "
             f"[{float(out[6][searched].min()):.4g}, {float(out[6][searched].max()):.4g}]; -inf "
@@ -1976,16 +2090,24 @@ def phase_wide_nuts_hmc_vs_plain(name, model):
         err["nuts"] = max(err["nuts"], differ(label, got, ref))
         del out, ref, got, args, r_eps, sub, resu
 
-    x, _, _, betas, *_, chol, chol_inv = wide_inputs(gen, dev, model, C, 1)
-    for label, eps, c, nmin, nmax in (("eps=0.08", HMC_EPS, C, HMC_NMIN, HMC_NMAX),
-                                      ("eps=5.0", 5.0, C, HMC_NMIN, HMC_NMAX),
-                                      ("eps=1e-4", 1e-4, C, HMC_NMIN, HMC_NMAX),
-                                      (f"ragged {T} x {C - 100}", HMC_EPS, C - 100, HMC_NMIN,
-                                       HMC_NMAX),
-                                      ("nmax = nmin + 1", HMC_EPS, C, HMC_NMIN, HMC_NMIN + 1)):
+    factors = {f: wide_inputs(gen, dev, model, C, 1, factor=f)
+               for f in ("dense", "diagonal", "lower")}
+    ragged = (f"ragged {T} x {C - 100}", HMC_EPS, C - 100, HMC_NMIN, HMC_NMAX)
+    hmc_cases = [("dense", case) for case in (
+        ("eps=0.08", HMC_EPS, C, HMC_NMIN, HMC_NMAX), ("eps=5.0", 5.0, C, HMC_NMIN, HMC_NMAX),
+        ("eps=1e-4", 1e-4, C, HMC_NMIN, HMC_NMAX), ragged,
+        ("nmax = nmin + 1", HMC_EPS, C, HMC_NMIN, HMC_NMIN + 1))]
+    for f in ("diagonal", "lower"):
+        e = diagonal_eps(model, f, HMC_EPS)
+        hmc_cases += [(f, (f"eps={e}", e, C, HMC_NMIN, HMC_NMAX)),
+                      (f, (ragged[0], e, C - 100, HMC_NMIN, HMC_NMAX))]
+    for factor, (label, eps, c, nmin, nmax) in hmc_cases:
+        x, _, _, betas, *_, chol, chol_inv = factors[factor]
+        structure = FACTOR_TAGS[factor]
+        label = f"{factor} factor ({structure}), {label}"
         xc = x[..., :c].contiguous()
         key = torch.randint(0, 2**32, (2,), generator=gen, device=dev, dtype=torch.int64)
-        args = (xc, betas, key, chol, chol_inv, eps, nmin, nmax, model)
+        args = (xc, betas, key, chol, chol_inv, eps, nmin, nmax, model, structure)
         x1, qxy = hmc_step(*args)
         p0, nsteps = hmc_kernel_draws(key, T, d, c, nmin, nmax, model)
         p0t, nstepst = hmc_draws(key, T, d, c, nmin, nmax)
@@ -1993,16 +2115,16 @@ def phase_wide_nuts_hmc_vs_plain(name, model):
         if not torch.equal(nsteps, nstepst) or max_ulp > DRAW_ULP_TOL:
             raise SystemExit(f"wide HMC {name} {label}: the kernel's draws differ from "
                              f"hmc_draws (p0 within {max_ulp} ulp)")
-        q0 = common.matvec(chol_inv.T, xc)
-        q1, qxyk = hmc_trajectories(q0, p0, betas, nsteps, chol, eps, model)
-        if lanes_differ((common.matvec(chol.T, q1), qxyk), (x1, qxy)):
+        q0 = common.matvec(chol_inv.T, xc, structure)
+        q1, qxyk = hmc_trajectories(q0, p0, betas, nsteps, chol, eps, model, structure)
+        if lanes_differ((common.matvec(chol.T, q1, structure), qxyk), (x1, qxy)):
             raise SystemExit(f"wide HMC {name} {label}: the step's end points differ from the "
                              "trajectory entry's on the kernel's own draws")
         cols = wide_columns(c, dev)
         sub = take_columns((xc, p0, nsteps, q0), c, cols)
         ref = hmc_step_plain(sub[0], betas, (sub[1], sub[2]), chol, chol_inv, eps, nmin, nmax,
-                             model)
-        tref = hmc_trajectories_plain(sub[3], sub[1], betas, sub[2], chol, eps, model)
+                             model, structure)
+        tref = hmc_trajectories_plain(sub[3], sub[1], betas, sub[2], chol, eps, model, structure)
         got = take_columns((x1, qxy), c, cols)
         tgot = take_columns((q1, qxyk), c, cols)
         full = f"wide HMC {name} (D={d}) {label}, kernel {T} x {c}, plain {T} x {ref[1].shape[1]}"
@@ -2011,6 +2133,7 @@ def phase_wide_nuts_hmc_vs_plain(name, model):
             f"equal; -inf qxy share {float(torch.isneginf(qxy).float().mean()):.4f}")
         err["hmc"] = max(err["hmc"], differ(full, got, ref), differ(full, tgot, tref))
         del x1, qxy, p0, nsteps, p0t, nstepst, q0, q1, qxyk, ref, tref, got, tgot, sub
+    del factors
     return err
 
 
@@ -2100,9 +2223,12 @@ def wide_layout(d, ptxas, dev, chains_per_block=None):
     256 threads, ``chains_per_block`` chains a block (the ChEES kernel's
     256; by default one group, as the NUTS and HMC kernels run), and from
     the ptxas report the blocks an SM and the waves at T x C chains."""
-    nb = 64 if d <= 64 else (32 if d <= 128 else 16)
+    from ptmcmcsampler_torch.ops.chees import wide_group
+    from ptmcmcsampler_torch.ops.common import wide_smem_bytes
+
+    nb = wide_group(d)
     per_block = chains_per_block or nb
-    dyn_smem = 4 * d * (5 * nb + 2 * 16)
+    dyn_smem = wide_smem_bytes(d, nb)
     layout = {"group_chains": nb, "chains_per_block": per_block, "threads_per_block": 256,
               "dynamic_smem_bytes": dyn_smem}
     if ptxas:
@@ -2142,18 +2268,19 @@ def wide_nuts_entry(name, model, state, tree_args, r_eps, launches, max_err, ptx
     d, functor = model.ndim, model.cuda_functor
     nb = wide_group(d)
     dev = state.x.device
-    chol = state.adapt.chol
+    chol, structure = state.adapt.chol, state.adapt.structure
     reps = 5 if d <= 64 else 2
-    kernel_ms = cuda_ms(lambda: nuts_trees(*tree_args, r_eps=r_eps), reps, hold_stream=True)
-    wrapper_ms = cuda_ms(lambda: nuts_trees(*tree_args, r_eps=r_eps), reps)
+    kernel_ms = cuda_ms(lambda: nuts_trees(*tree_args, r_eps=r_eps, structure=structure), reps,
+                        hold_stream=True)
+    wrapper_ms = cuda_ms(lambda: nuts_trees(*tree_args, r_eps=r_eps, structure=structure), reps)
     pc = min(C, WIDE_PLAIN_COLUMNS_NUTS)
     sub = [a[..., :pc].contiguous() if torch.is_tensor(a) and a.dim() > 1 and a.shape[-1] == C
            else a for a in tree_args]
     resu = nuts_uniforms(tree_args[7], NUTS_DEPTH, T, C)[..., :pc].contiguous()
     plain_ms = once_ms(lambda: nuts_trees_plain(*sub[:7], resu, chol, model,
-                                                r_eps[..., :pc].contiguous()))
+                                                r_eps[..., :pc].contiguous(), structure))
     del sub, resu
-    out = nuts_trees(*tree_args, r_eps=r_eps)
+    out = nuts_trees(*tree_args, r_eps=r_eps, structure=structure)
     nalpha, alive = out[4], out[5]
     leaves = float(nalpha.sum())
     levels = float(torch.ceil(torch.log2(nalpha + 1.0)).sum())
@@ -2185,19 +2312,24 @@ def wide_nuts_entry(name, model, state, tree_args, r_eps, launches, max_err, ptx
         a = (q_start.expand(t, d, c).contiguous(), r0c, state.betas[:t].contiguous(),
              torch.full((t, c), WIDE_CAPPED_EPS, device=dev), expoc, dirsc, accuc, keyc, chol,
              model)
-        cut = float(nuts_trees(*a, r_eps=repsc)[5].mean())
+        cut = float(nuts_trees(*a, r_eps=repsc, structure=structure)[5].mean())
         if cut < CAPPED_ALIVE_MIN:
             raise SystemExit(f"{name}: capped NUTS timing: only {cut:.4f} of trees reached "
                              "the cap")
-        ms = cuda_ms(lambda: nuts_trees(*a, r_eps=repsc), 1 if label == "batch" else 3,
-                     hold_stream=True)
+        ms = cuda_ms(lambda: nuts_trees(*a, r_eps=repsc, structure=structure),
+                     1 if label == "batch" else 3, hold_stream=True)
         capped[f"capped_{label}_ms"] = ms
         capped[f"capped_{label}_us_per_leaf"] = 1e3 * ms / leaves_cap
         capped[f"capped_{label}_alive_share"] = cut
     ptx = {k: v for k, v in ptxas.items() if WIDE_CLASSES[functor] in k} if ptxas else {}
     scratch = wide_scratch_floats(d, NUTS_DEPTH)
+    leaf_ops = (per_eval + 14 * d + 100) * T * C
     extra = {
-        "workload": name, "ndim": d, "functor": functor, "launches_by_path": {name: launches},
+        "workload": name, "ndim": d, "functor": functor, "factor_structure": structure,
+        "capped_us_per_leaf": capped["capped_batch_us_per_leaf"],
+        "ordered_f32_share": leaf_ops / (1e-6 * capped["capped_batch_us_per_leaf"])
+        / ORDERED_F32_OPS_PER_S,
+        "launches_by_path": {name: launches},
         "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "plain_chains": [T, pc],
         "library_what": "one leapfrog step's two whitening products, torch.matmul "
                         "[D, D] x [T, D, C] twice",
@@ -2236,11 +2368,13 @@ def wide_hmc_entry(name, model, state, launches, max_err, ptxas):
     gen = torch.Generator(device=dev)
     gen.manual_seed(98)
     chol, chol_inv = state.adapt.chol, state.adapt.chol_inv
+    structure = state.adapt.structure
     key = torch.randint(0, 2**32, (2,), generator=gen, device=dev, dtype=torch.int64)
-    fused = (state.x, state.betas, key, chol, chol_inv, HMC_EPS, HMC_NMIN, HMC_NMAX, model)
+    fused = (state.x, state.betas, key, chol, chol_inv, HMC_EPS, HMC_NMIN, HMC_NMAX, model,
+             structure)
     p0, nsteps = hmc_kernel_draws(key, T, d, C, HMC_NMIN, HMC_NMAX, model)
-    q0 = common.matvec(chol_inv.T, state.x)
-    args = (q0, p0, state.betas, nsteps, chol, HMC_EPS, model)
+    q0 = common.matvec(chol_inv.T, state.x, structure)
+    args = (q0, p0, state.betas, nsteps, chol, HMC_EPS, model, structure)
     reps = 20 if d <= 64 else 5
     kernel_ms = cuda_ms(lambda: hmc_trajectories(*args), reps, hold_stream=True)
     wrapper_ms = cuda_ms(lambda: hmc_trajectories(*args), reps)
@@ -2254,13 +2388,13 @@ def wide_hmc_entry(name, model, state, launches, max_err, ptxas):
     plain_ms = once_ms(lambda: hmc_trajectories_plain(*cut))
     fused_plain_ms = once_ms(lambda: hmc_step_plain(
         state.x[..., :pc].contiguous(), state.betas, (cut[1], cut[3]), chol, chol_inv, HMC_EPS,
-        HMC_NMIN, HMC_NMAX, model))
+        HMC_NMIN, HMC_NMAX, model, structure))
     del cut
     x1, qxy = hmc_step(*fused)
     q1, _ = hmc_trajectories(*args)
     one_step, _ = hmc_trajectories(q0, p0, state.betas, torch.ones_like(nsteps), chol, HMC_EPS,
-                                   model)
-    if not torch.equal(common.matvec(chol.T, q1), x1):
+                                   model, structure)
+    if not torch.equal(common.matvec(chol.T, q1, structure), x1):
         raise SystemExit(f"{name}: the fused HMC step's end points differ from the trajectory "
                          "entry's")
     stopped = (q1 == one_step).all(dim=1)
@@ -2281,7 +2415,8 @@ def wide_hmc_entry(name, model, state, launches, max_err, ptxas):
     fused_bound_ms, fused_bound_by = bound(fused_bytes, ops + chain_ops * T * C)
     ptx = {k: v for k, v in ptxas.items() if WIDE_CLASSES[functor] in k} if ptxas else {}
     extra = {
-        "workload": name, "ndim": d, "functor": functor, "launches_by_path": {name: launches},
+        "workload": name, "ndim": d, "functor": functor, "factor_structure": structure,
+        "launches_by_path": {name: launches},
         "launches_by_entry": {"hmc_step": launches, "hmc_trajectories": 0},
         "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "plain_chains": [T, pc],
         "fused_ms": fused_ms, "fused_wrapper_ms": fused_wrapper_ms,
@@ -2393,6 +2528,7 @@ def main():
     kernels[1]["wide"] = list(wide_nuts)
     kernels[2]["wide"] = list(wide_hmc)
 
+    print(json.dumps(barriers_counted_from_code()), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -64,10 +64,14 @@ def refresh_factors(config: SamplerConfig, adapt: AdaptState) -> AdaptState:
         ok = torch.all(torch.isfinite(chol))
         eye = torch.eye(config.ndim, dtype=chol.dtype, device=chol.device)
         chol_inv = torch.linalg.solve_triangular(chol, eye, upper=False)
+        # A Cholesky factor and its triangular solve: the pair's tag widens
+        # to "dense" without a read of the device, which every pair the
+        # where may keep satisfies.
         new = dataclasses.replace(
             new,
             chol=torch.where(ok, chol, adapt.chol),
             chol_inv=torch.where(ok, chol_inv, adapt.chol_inv),
+            structure="dense",
         )
     return new
 

@@ -73,13 +73,21 @@
 // as 256 / NB groups of NB consecutive ones in that order (NB = 64, 32 or
 // 16 as D <= 64, 128 or 256: two blocks fit an SM), a group's vectors in
 // shared memory as [d][NB]. Each
-// product over D is a small matrix product over the group: thread (is, cq)
-// keeps rows is, is + ni, ... (up to kWideJ) of 4 chains in registers and
-// sums over k in order, one rounding per product and per sum, so it rounds
-// as the plain version's ordered sum (models.cuh wide_matvec). chol, its
-// inverse and the correlated model's S stream through shared memory in
-// double-buffered tiles of 16 rows, each value shared by the group's
-// chains; the model's other constants are read through L1. A step of the group runs as long as its
+// product over D is a small matrix product over the group: thread (rb, cq)
+// keeps rows 4 rb .. 4 rb + 3 (those below D) of chains 4 cq .. 4 cq + 3 in
+// registers and sums over k in order, one rounding per product and per sum,
+// so it rounds as the plain version's ordered sum (models.cuh wide_matvec).
+// chol, its inverse and the correlated model's S stream through shared
+// memory in tiles of 16 rows copied by cp.async, three stages in flight,
+// each value shared by the group's chains; the model's other constants are
+// read through L1. The factor's structure, worked out on the host where
+// the factor is made (ops/common.py factor_structure), is a launch
+// argument: a dense factor streams its tiles; a diagonal one (bench.py's
+// paths keep the identity, mass_adapt off as in the reference) has none:
+// x = chol^T q is folded into the first half step's pass and chol g into
+// the second's, so a step is two elementwise passes, one barrier and the
+// model's own barriers.
+// A step of the group runs as long as its
 // longest chain; chains past their length keep their state. The model's
 // value (an ordered sum per chain, one thread a chain) is computed only
 // where it is used: at the first evaluation of the step entry and at each
@@ -301,6 +309,7 @@ struct WideParams {
   float* q0;
   float* qxy;
   float* alpha;
+  int structure;  // ptmc::WideStructure of chol and chol_inv
   int D;
   int T;
   int C;
@@ -334,7 +343,7 @@ __global__ void __launch_bounds__(kThreads, 2) chees_wide_kernel(const WideParam
   float* gw = p + nv;  // the whitened gradient; the model's scratch in eval
   float* xb = gw + nv;
   float* g = xb + nv;
-  float* tile = g + nv;  // [2][kWideKT][D]
+  float* tile = g + nv;  // [kWideStages][wide_stage_floats(D)]
   const long long N = (long long)P.T * P.C;
   const long long first = (long long)blockIdx.x * kThreads;
   const int tid = threadIdx.x;
@@ -361,7 +370,12 @@ __global__ void __launch_bounds__(kThreads, 2) chees_wide_kernel(const WideParam
   }
 
   const ptmc::Wide w{D, NB, P.prm, xb, g, gw, tile, s_beta, s_need, s_logp};
-  auto evaluate = [&]() { ptmc::wide_evaluate<Model>(P.chol, q, gw, w); };
+  const int st = P.structure;
+  const bool diag = st == ptmc::kDiagonal;
+  // chol(d, d), for a diagonal factor's products folded into the half steps.
+  auto cdiag = [&](int idx) {
+    return __ldg(P.chol + (long long)ptmc::wide_row(idx, NB) * (D + 1));
+  };
   // Element idx = d*NB + c of the group's vectors lies at offset(idx) of the
   // [T, D, C] arrays, or nowhere (-1) for a lane past T*C.
   auto offset = [&](int idx) -> long long {
@@ -393,35 +407,51 @@ __global__ void __launch_bounds__(kThreads, 2) chees_wide_kernel(const WideParam
     __syncthreads();
     float k0 = 0.0f;
     if constexpr (kStep) {
-      ptmc::wide_matvec<false>(P.chol_inv, xb, q, D, NB, tile);  // q0 = chol_inv^T x
+      ptmc::wide_matvec<false>(P.chol_inv, xb, q, D, NB, tile, st);  // q0 = chol_inv^T x
       for (int idx = tid; idx < nv; idx += kThreads) {
         const long long o = offset(idx);
         if (o >= 0) P.q0[o] = q[idx];
       }
       if (tid < NB) k0 = 0.5f * ptmc::wide_rdot(p, p, tid, D, NB);  // r0.r0 / 2, in order
     }
-    evaluate();
-    const float logp0 = tid < NB ? s_logp[tid] : 0.0f;
+    // Step i: the first half step and the drift (none at i = -1, the first
+    // evaluation), with a diagonal factor also x = chol^T q, each thread on
+    // its own elements; one barrier; the evaluation (with a diagonal factor
+    // the model alone, with its own barriers); then gw = chol g (diagonal)
+    // and the second half step on the same elements, which the next step's
+    // first pass reads on the same thread, so no barrier ends the step.
+    float logp0 = 0.0f;
     const int imax = s_imax;
-    for (int i = 0; i < imax; ++i) {
+    for (int i = -1; i < imax; ++i) {
       for (int idx = tid; idx < nv; idx += kThreads) {
         const int c = (idx & (NB - 1));
-        if (i < s_ns[c]) {
+        float qv = q[idx];
+        if (i >= 0 && i < s_ns[c]) {
           const float e = s_e[c];
           const float ph = p[idx] + (0.5f * e) * gw[idx];
           p[idx] = ph;
-          q[idx] = q[idx] + e * ph;
+          qv = qv + e * ph;
+          q[idx] = qv;
         }
+        if (diag) xb[idx] = cdiag(idx) * qv;
       }
-      if (tid < NB) s_need[tid] = i == s_ns[tid] - 1;
+      if (i >= 0 && tid < NB) s_need[tid] = i == s_ns[tid] - 1;
       __syncthreads();
-      evaluate();
+      if (!diag) ptmc::wide_matvec<false>(P.chol, q, xb, D, NB, tile, st);  // x = chol^T q
+      Model::eval(w);
+      if (!diag) ptmc::wide_matvec<true>(P.chol, g, gw, D, NB, tile, st);  // gw = chol g
+      if (i < 0 && tid < NB) logp0 = s_logp[tid];
       for (int idx = tid; idx < nv; idx += kThreads) {
         const int c = (idx & (NB - 1));
-        if (i < s_ns[c]) p[idx] = p[idx] + (0.5f * s_e[c]) * gw[idx];
+        float gv = gw[idx];
+        if (diag) {
+          gv = cdiag(idx) * g[idx];
+          gw[idx] = gv;
+        }
+        if (i >= 0 && i < s_ns[c]) p[idx] = p[idx] + (0.5f * s_e[c]) * gv;
       }
-      __syncthreads();
     }
+    __syncthreads();
 
     for (int idx = tid; idx < nv; idx += kThreads) {
       const long long o = offset(idx);
@@ -453,8 +483,9 @@ int launch_wide(const WideParams& params, void* stream) {
   if (params.D < 1 || params.D > ptmc::kWideMaxD) return (int)cudaErrorInvalidValue;
   const long long n = (long long)params.T * params.C;
   if (n <= 0) return (int)cudaSuccess;
-  const size_t smem =
-      sizeof(float) * params.D * (5 * wide_group(params.D) + 2 * ptmc::kWideKT);
+  if (params.structure < ptmc::kDense || params.structure > ptmc::kDiagonal)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = ptmc::wide_smem_bytes(params.D, wide_group(params.D));
   auto kernel = chees_wide_kernel<Model, kStep>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -521,14 +552,15 @@ extern "C" int chees_step_curved(const float* x, const float* r0, const float* u
 }
 
 // The wide entries: the arguments of the curved ones, plus prm (the model's
-// constants, model.cuda_params) and D (1 <= D <= 256). They launch 256
-// threads a block and (5 * NB + 32) * D * 4 bytes of dynamic shared memory (NB =
-// wide_group(D)).
+// constants, model.cuda_params), structure (ptmc::WideStructure of chol and
+// chol_inv: 0 dense, 1 diagonal) and D (1 <= D <= 256). They launch
+// 256 threads a block and ptmc::wide_smem_bytes(D, NB) of dynamic shared
+// memory (NB = wide_group(D)).
 #define PTMC_CHEES_WIDE_ENTRIES(NAME, MODEL)                                                  \
   extern "C" int chees_trajectory_##NAME(                                                     \
       const float* q0, const float* p0, const float* beta, const float* eps,                  \
       const int* nsteps, const float* chol, const float* prm, float* q1, float* p1,           \
-      float* logp1, int D, int T, int C, void* stream) {                                      \
+      float* logp1, int structure, int D, int T, int C, void* stream) {                       \
     WideParams params{};                                                                      \
     params.q = q0;                                                                            \
     params.p = p0;                                                                            \
@@ -540,6 +572,7 @@ extern "C" int chees_step_curved(const float* x, const float* r0, const float* u
     params.q1 = q1;                                                                           \
     params.p1 = p1;                                                                           \
     params.logp1 = logp1;                                                                     \
+    params.structure = structure;                                                             \
     params.D = D;                                                                             \
     params.T = T;                                                                             \
     params.C = C;                                                                             \
@@ -549,7 +582,7 @@ extern "C" int chees_step_curved(const float* x, const float* r0, const float* u
       const float* x, const float* r0, const float* u, const float* beta, const float* eps,   \
       const float* tlen, const float* chol, const float* chol_inv, const float* prm,          \
       float eps0, int max_steps, float* x1, float* q0, float* z1, float* r1, float* qxy,      \
-      float* alpha, int D, int T, int C, void* stream) {                                      \
+      float* alpha, int structure, int D, int T, int C, void* stream) {                       \
     WideParams params{};                                                                      \
     params.q = x;                                                                             \
     params.p = r0;                                                                            \
@@ -568,6 +601,7 @@ extern "C" int chees_step_curved(const float* x, const float* r0, const float* u
     params.q0 = q0;                                                                           \
     params.qxy = qxy;                                                                         \
     params.alpha = alpha;                                                                     \
+    params.structure = structure;                                                             \
     params.D = D;                                                                             \
     params.T = T;                                                                             \
     params.C = C;                                                                             \

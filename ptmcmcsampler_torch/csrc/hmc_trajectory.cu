@@ -85,8 +85,10 @@
 // group of NB = wide_group(D) chains (64, 32 or 16) keeps q, p, the whitened
 // gradient, x = chol^T q and the model's gradient in shared memory as
 // [d][NB], each product over D a small matrix product over the group
-// (models.cuh wide_matvec, chol and chol_inv streamed in 16-row tiles, every
-// output summed over k in order). One group a block: the break test ends
+// (models.cuh wide_matvec, chol and chol_inv streamed in 16-row tiles by
+// cp.async, every output summed over k in order over the terms the factor's
+// structure keeps; a diagonal factor's products are elementwise passes).
+// One group a block: the break test ends
 // nearly every trajectory after one step and lengths are drawn inside the
 // kernel, so there is nothing to sort, and the block scheduler balances the
 // groups a start outside the box makes long. The step entry draws the
@@ -97,7 +99,7 @@
 // is computed only for the chains a step moves. The kinetic energies are
 // ordered sums over D, one thread a chain (models.cuh wide_rdot). The step
 // entry's x1 = chol^T q1 is the last evaluation's x: q is unchanged since.
-// __launch_bounds__(256, 2): two blocks an SM (89.6 KB of shared memory a
+// __launch_bounds__(256, 2): two blocks an SM (104.8 KB of shared memory a
 // block at 200-D).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
@@ -315,6 +317,7 @@ struct WideParams {
   int nmax;
   float* out;  // trajectory entry: q1; step entry: x1 = chol^T q1
   float* qxy;
+  int structure;  // ptmc::WideStructure of chol and chol_inv
   int D;
   int T;
   int C;
@@ -337,7 +340,7 @@ __global__ void __launch_bounds__(kThreads, 2) hmc_wide_kernel(const WideParams 
   float* gw = p + nv;  // whitened gradient; the model's scratch
   float* xb = gw + nv;
   float* g = xb + nv;
-  float* tile = g + nv;  // [2][kWideKT][D]
+  float* tile = g + nv;  // [kWideStages][wide_stage_floats(D)]
   const long long N = (long long)P.T * P.C;
   const long long n0 = (long long)blockIdx.x * NB;
   const int tid = threadIdx.x;
@@ -366,7 +369,7 @@ __global__ void __launch_bounds__(kThreads, 2) hmc_wide_kernel(const WideParams 
   }
   __syncthreads();
   if constexpr (kStep) {
-    ptmc::wide_matvec<false>(P.chol_inv, xb, z, D, NB, tile);  // q0 = chol_inv^T x
+    ptmc::wide_matvec<false>(P.chol_inv, xb, z, D, NB, tile, P.structure);  // q0 = chol_inv^T x
     const uint2 key = make_uint2((uint32_t)__ldg(P.key), (uint32_t)__ldg(P.key + 1));
     const uint32_t span = (uint32_t)(P.nmax - P.nmin);
     for (int item = tid; item < draw_calls(D) * NB; item += kThreads) {
@@ -378,7 +381,7 @@ __global__ void __launch_bounds__(kThreads, 2) hmc_wide_kernel(const WideParams 
   }
 
   const ptmc::Wide w{D, NB, P.prm, xb, g, gw, tile, s_beta, s_take, s_logp};
-  ptmc::wide_evaluate<Model>(P.chol, z, gw, w);
+  ptmc::wide_evaluate<Model>(P.chol, z, gw, w, P.structure);
   const float e = P.eps;
   const float he = 0.5f * e;
   float logp0 = 0.0f, joint0 = 0.0f, logp = 0.0f, joint = 0.0f;
@@ -402,7 +405,7 @@ __global__ void __launch_bounds__(kThreads, 2) hmc_wide_kernel(const WideParams 
       }
     }
     __syncthreads();
-    ptmc::wide_evaluate<Model>(P.chol, z, gw, w);
+    ptmc::wide_evaluate<Model>(P.chol, z, gw, w, P.structure);
     for (int idx = tid; idx < nv; idx += kThreads) {
       if (s_take[idx & (NB - 1)]) p[idx] = p[idx] + he * gw[idx];
     }
@@ -440,11 +443,13 @@ hmc_draws_wide_kernel(const long long* __restrict__ key_in, int nmin, int nmax,
 
 template <class Model, bool kStep>
 int launch_wide(const WideParams& P, void* stream) {
-  if (P.D < 1 || P.D > ptmc::kWideMaxD) return (int)cudaErrorInvalidValue;
+  if (P.D < 1 || P.D > ptmc::kWideMaxD || P.structure < ptmc::kDense ||
+      P.structure > ptmc::kDiagonal)
+    return (int)cudaErrorInvalidValue;
   const long long n = (long long)P.T * P.C;
   if (n <= 0) return (int)cudaSuccess;
   const int nb = ptmc::wide_group(P.D);
-  const size_t smem = sizeof(float) * P.D * (5 * nb + 2 * ptmc::kWideKT);
+  const size_t smem = ptmc::wide_smem_bytes(P.D, nb);
   auto kernel = hmc_wide_kernel<Model, kStep>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -514,15 +519,17 @@ extern "C" int hmc_draws_curved(const long long* key, int nmin, int nmax, float*
 
 // The wide entries, for the functors correlated_gaussian, interval_gaussian
 // and hierarchical_gaussian: the arguments of the curved ones, plus prm (the
-// model's constants, model.cuda_params) and D (1 <= D <= 256). The step and
-// trajectory entries launch blocks of 256 threads, one group of NB =
-// wide_group(D) chains a block, with (5 * NB + 32) * D * 4 bytes of dynamic
-// shared memory; the draws entry one chain a thread.
+// model's constants, model.cuda_params), structure (ptmc::WideStructure of
+// chol and chol_inv: 0 dense, 1 diagonal; the step and trajectory
+// entries) and D (1 <= D <= 256). The step and trajectory entries launch
+// blocks of 256 threads, one group of NB = wide_group(D) chains a block,
+// with ptmc::wide_smem_bytes(D, NB) of dynamic shared memory; the draws
+// entry one chain a thread.
 #define PTMC_HMC_WIDE_ENTRIES(NAME, MODEL)                                                    \
   extern "C" int hmc_trajectory_##NAME(const float* q0, const float* p0, const float* beta,   \
                                        const int* nsteps, const float* chol, const float* prm, \
-                                       float eps, float* q1, float* qxy, int D, int T, int C,  \
-                                       void* stream) {                                         \
+                                       float eps, float* q1, float* qxy, int structure, int D, \
+                                       int T, int C, void* stream) {                           \
     WideParams params{};                                                                       \
     params.q = q0;                                                                             \
     params.p0 = p0;                                                                            \
@@ -533,6 +540,7 @@ extern "C" int hmc_draws_curved(const long long* key, int nmin, int nmax, float*
     params.eps = eps;                                                                          \
     params.out = q1;                                                                           \
     params.qxy = qxy;                                                                          \
+    params.structure = structure;                                                              \
     params.D = D;                                                                              \
     params.T = T;                                                                              \
     params.C = C;                                                                              \
@@ -540,8 +548,8 @@ extern "C" int hmc_draws_curved(const long long* key, int nmin, int nmax, float*
   }                                                                                            \
   extern "C" int hmc_step_##NAME(const float* x, const float* beta, const long long* key,      \
                                  const float* chol, const float* chol_inv, const float* prm,   \
-                                 float eps, int nmin, int nmax, float* x1, float* qxy, int D,  \
-                                 int T, int C, void* stream) {                                 \
+                                 float eps, int nmin, int nmax, float* x1, float* qxy,         \
+                                 int structure, int D, int T, int C, void* stream) {           \
     WideParams params{};                                                                       \
     params.q = x;                                                                              \
     params.key = key;                                                                          \
@@ -554,6 +562,7 @@ extern "C" int hmc_draws_curved(const long long* key, int nmin, int nmax, float*
     params.nmax = nmax;                                                                        \
     params.out = x1;                                                                           \
     params.qxy = qxy;                                                                          \
+    params.structure = structure;                                                              \
     params.D = D;                                                                              \
     params.T = T;                                                                              \
     params.C = C;                                                                              \

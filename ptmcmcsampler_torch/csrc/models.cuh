@@ -125,9 +125,17 @@ __device__ __forceinline__ void load_chol(const float* __restrict__ chol_in,
 // lies in shared memory as [d][NB], element (d, c) at d*NB + c.
 
 constexpr int kWideThreads = 256;
-constexpr int kWideJ = 4;       // rows a thread keeps per chain in wide_matvec
-constexpr int kWideMaxD = 256;  // kWideJ rows of 64 threads at NB = 16; one tile column a thread
-constexpr int kWideKT = 16;     // rows of A a tile of wide_matvec
+constexpr int kWideMaxD = 256;
+constexpr int kWideJ = 4;                     // rows a thread keeps per chain in wide_matvec
+constexpr int kWideKT = 16;                   // rows of A a tile of wide_matvec
+constexpr int kWideStages = 3;                // tiles in flight (cp.async ring)
+constexpr int kWideTileStride = kWideKT + 1;  // a kRowDot tile's row stride, padded
+
+// The structure of a whitening factor (ops/common.py STRUCTURES), a launch
+// argument of every wide entry. kDense: every term of its products;
+// kDiagonal: only A(i, i), out[i] = A(i, i) * in[i]. The plain versions keep
+// exactly the same terms (common.matvec).
+enum WideStructure : int { kDense = 0, kDiagonal = 1 };
 
 // Chains a group of the wide layout takes at dimension D (a power of two):
 // as many as keep each thread at kWideJ rows and two blocks on an SM.
@@ -135,97 +143,190 @@ __host__ __device__ __forceinline__ int wide_group(int D) {
   return D <= 64 ? 64 : (D <= 128 ? 32 : 16);
 }
 
+// Floats of one tile stage: kWideKT rows of D, or D rows of kWideTileStride
+// (kRowDot), with D rounded up to kWideJ (the row block that ends at D reads
+// its rows past D, and never writes them), rounded up to 16 bytes.
+__host__ __device__ __forceinline__ int wide_stage_floats(int D) {
+  return (((D + kWideJ - 1) & ~(kWideJ - 1)) * kWideTileStride + 3) & ~3;
+}
+
+// Dynamic shared memory of a wide kernel: five [D][NB] vectors and the tiles.
+__host__ __device__ __forceinline__ size_t wide_smem_bytes(int D, int NB) {
+  return sizeof(float) * (5 * (size_t)D * NB + kWideStages * (size_t)wide_stage_floats(D));
+}
+
 // Row d of element idx = d*NB + c of a group's vector (NB a power of two).
 __device__ __forceinline__ int wide_row(int idx, int NB) { return idx >> (31 - __clz(NB)); }
 
-// out[i][c] = sum_k A(k, i) * in[k][c] for i < D, c < NB, summed over k in
-// order with one rounding per product and per sum (common.matvec of the
-// matrix A(., i) stands for). A(k, i) is A[k*D + i], or A[i*D + k] with
-// kRowDot (then out = A in, as matvec(A, in)). Thread (is, cq) computes rows
-// is + ni*j (j < kWideJ, ni = 1024 / NB rows apart) for chains 4cq..4cq+3.
-// Row k = 0 starts every sum; rows 1.. stream through shared memory in tiles
-// of kWideKT rows, double-buffered in tile [2][KT][D]: thread i < D loads
-// column i of the next tile into registers while the block computes on the
-// current one, whose kWideKT rows run without a branch. Every thread of the
-// block calls it with in complete; it returns after a barrier.
-template <bool kRowDot>
-__device__ __forceinline__ void wide_matvec(const float* __restrict__ A, const float* in,
-                                            float* out, int D, int NB, float* tile) {
-  const int tid = threadIdx.x;
-  const int nq = NB >> 2;
-  const int ni = kWideThreads / nq;
-  const int cq = tid % nq;
-  const int is = tid / nq;
-  const int tile_n = kWideKT * D;
-  const float* inq = in + 4 * cq;
-  // A(k, tid) at a_col + k * dk: this thread's column of each tile.
-  const long long dk = kRowDot ? 1 : D;
-  const float* a_col = A + (kRowDot ? (long long)tid * D : tid);
-  float pre[kWideKT];
-  auto fetch = [&](int k0) {
-    if (tid < D) {
-#pragma unroll
-      for (int kk = 0; kk < kWideKT; ++kk)
-        pre[kk] = k0 + kk < D ? __ldg(a_col + (k0 + kk) * dk) : 0.0f;
-    }
-  };
-  auto put = [&](float* buf) {
-    if (tid < D) {
-#pragma unroll
-      for (int kk = 0; kk < kWideKT; ++kk) buf[kk * D + tid] = pre[kk];
-    }
-  };
-  int col[kWideJ];
-#pragma unroll
-  for (int j = 0; j < kWideJ; ++j) col[j] = min(is + ni * j, D - 1);
-  float acc[kWideJ][4];
-  auto madd = [&](const float* arow, const float4 v) {
-#pragma unroll
-    for (int j = 0; j < kWideJ; ++j) {
-      const float a = arow[col[j]];
-      acc[j][0] = acc[j][0] + a * v.x;
-      acc[j][1] = acc[j][1] + a * v.y;
-      acc[j][2] = acc[j][2] + a * v.z;
-      acc[j][3] = acc[j][3] + a * v.w;
-    }
-  };
+// Hopper's asynchronous copies from global to shared memory (LDGSTS): no
+// register holds the data. 16 bytes (both addresses 16-byte aligned) or 4.
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  fetch(1);
-  {  // row 0: the first products
-    const float4 v = *reinterpret_cast<const float4*>(inq);
+// Every thread of the block: start copying tile k0 (A(k, .) for k0 <= k <
+// k0 + kWideKT, k < D) into buf. A(k, i) is A[k*D + i], a contiguous run of
+// rows, stored as buf[kk*D + i]; with kRowDot it is A[i*D + k], stored as
+// buf[i*kWideTileStride + kk] so that the rows' reads hit distinct banks.
+template <bool kRowDot>
+__device__ __forceinline__ void wide_issue_tile(const float* __restrict__ A, int D, int k0,
+                                                float* buf) {
+  const int kn = min(kWideKT, D - k0);
+  const int tid = threadIdx.x;
+  if (kRowDot) {
+    for (int e = tid; e < D * kn; e += kWideThreads) {
+      const int i = kn == kWideKT ? e >> 4 : e / kn;
+      const int kk = e - i * kn;
+      cp_async4(buf + i * kWideTileStride + kk, A + (long long)i * D + k0 + kk);
+    }
+  } else {
+    const float* src = A + (long long)k0 * D;
+    const int n = kn * D;
+    int done = 0;
+    if ((reinterpret_cast<unsigned long long>(src) & 15) == 0) {
+      for (int e = tid; e < n >> 2; e += kWideThreads) cp_async16(buf + 4 * e, src + 4 * e);
+      done = n & ~3;
+    }
+    for (int e = done + tid; e < n; e += kWideThreads) cp_async4(buf + e, src + e);
+  }
+}
+
+// The products of a tile's rows for the thread's kWideJ rows and 4 chains:
+// acc[j] += A(k, r0 + j) * in[k][4cq .. 4cq + 3], k = k0 + kk, where a is
+// the tile at the thread's first row (A(k, r0 + j) at a[kk*D + j], or
+// a[j*kWideTileStride + kk] with kRowDot) and v is in at row k0 and chain
+// 4cq. A first tile's row kk = 0 starts every sum (a sum never starts as
+// 0 + term: -0.0 + 0.0 is +0.0).
+
+// All kWideKT rows, unrolled.
+template <bool kRowDot, bool kFirst>
+__device__ __forceinline__ void wide_tile_full(const float* a, const float* v, int D, int NB,
+                                               float (&acc)[kWideJ][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kWideKT; ++kk) {
+    const float4 x = *reinterpret_cast<const float4*>(v + kk * NB);
 #pragma unroll
     for (int j = 0; j < kWideJ; ++j) {
-      const float a = __ldg(A + (kRowDot ? (long long)col[j] * D : col[j]));
-      acc[j][0] = a * v.x;
-      acc[j][1] = a * v.y;
-      acc[j][2] = a * v.z;
-      acc[j][3] = a * v.w;
+      const float e = kRowDot ? a[j * kWideTileStride + kk] : a[kk * D + j];
+      if (kFirst && kk == 0) {
+        acc[j][0] = e * x.x;
+        acc[j][1] = e * x.y;
+        acc[j][2] = e * x.z;
+        acc[j][3] = e * x.w;
+      } else {
+        acc[j][0] = acc[j][0] + e * x.x;
+        acc[j][1] = acc[j][1] + e * x.y;
+        acc[j][2] = acc[j][2] + e * x.z;
+        acc[j][3] = acc[j][3] + e * x.w;
+      }
     }
   }
-  put(tile);
-  __syncthreads();
-  int b = 0;
-  for (int k0 = 1; k0 < D; k0 += kWideKT, b ^= 1) {
-    const bool more = k0 + kWideKT < D;
-    if (more) fetch(k0 + kWideKT);
-    const float* t = tile + b * tile_n;
-    const float* vk = inq + k0 * NB;
-    if (k0 + kWideKT <= D) {
+}
+
+// The first kn < kWideKT rows: the last tile.
+template <bool kRowDot>
+__device__ __forceinline__ void wide_tile_run(const float* a, const float* v, int kn, bool first,
+                                              int D, int NB, float (&acc)[kWideJ][4]) {
+  int kb = 0;
+  if (first) {
+    const float4 x = *reinterpret_cast<const float4*>(v);
 #pragma unroll
-      for (int kk = 0; kk < kWideKT; ++kk)
-        madd(t + kk * D, *reinterpret_cast<const float4*>(vk + kk * NB));
-    } else {
-      for (int kk = 0; kk < D - k0; ++kk)
-        madd(t + kk * D, *reinterpret_cast<const float4*>(vk + kk * NB));
+    for (int j = 0; j < kWideJ; ++j) {
+      const float e = kRowDot ? a[j * kWideTileStride] : a[j];
+      acc[j][0] = e * x.x;
+      acc[j][1] = e * x.y;
+      acc[j][2] = e * x.z;
+      acc[j][3] = e * x.w;
     }
-    if (more) put(tile + (b ^ 1) * tile_n);
+    kb = 1;
+  }
+  for (int kk = kb; kk < kn; ++kk) {
+    const float4 x = *reinterpret_cast<const float4*>(v + kk * NB);
+#pragma unroll
+    for (int j = 0; j < kWideJ; ++j) {
+      const float e = kRowDot ? a[j * kWideTileStride + kk] : a[kk * D + j];
+      acc[j][0] = acc[j][0] + e * x.x;
+      acc[j][1] = acc[j][1] + e * x.y;
+      acc[j][2] = acc[j][2] + e * x.z;
+      acc[j][3] = acc[j][3] + e * x.w;
+    }
+  }
+}
+
+// out[i][c] = sum_k A(k, i) * in[k][c] for i < D, c < NB, summed over k in
+// order with one rounding per product and per sum (common.matvec of the
+// matrix A(., i) stands for, with the factor's structure). A(k, i) is
+// A[k*D + i], or A[i*D + k] with kRowDot (then out = A in, as matvec(A,
+// in)). A diagonal factor is one elementwise pass, out[i] = A(i, i) in[i].
+// Dense: thread tid computes rows r0 = (tid / (NB/4)) * kWideJ .. r0 +
+// kWideJ - 1 (those below D; threads with r0 >= D only copy) for chains 4cq
+// .. 4cq + 3, cq = tid % (NB/4). The tiles of A stream through a ring of
+// kWideStages stages by cp.async, kWideStages - 1 ahead, one barrier a
+// tile. Every thread of the block calls it with in complete; it returns
+// after a barrier, with stages free again.
+template <bool kRowDot>
+__device__ __forceinline__ void wide_matvec(const float* __restrict__ A, const float* in,
+                                            float* out, int D, int NB, float* stages,
+                                            int structure) {
+  const int tid = threadIdx.x;
+  if (structure == kDiagonal) {
+    for (int idx = tid; idx < D * NB; idx += kWideThreads)
+      out[idx] = __ldg(A + (long long)wide_row(idx, NB) * (D + 1)) * in[idx];
     __syncthreads();
+    return;
+  }
+  const int nq = NB >> 2;
+  const int cq = tid & (nq - 1);
+  const int r0 = (tid >> (31 - __clz(nq))) * kWideJ;
+  const bool rows = r0 < D;
+  const float* inq = in + 4 * cq;
+  const int at = kRowDot ? r0 * kWideTileStride : r0;
+  const int ntiles = (D + kWideKT - 1) / kWideKT;
+  const int sf = wide_stage_floats(D);
+  float acc[kWideJ][4];
+#pragma unroll
+  for (int j = 0; j < kWideJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < kWideStages - 1; ++s) {
+    if (s < ntiles) wide_issue_tile<kRowDot>(A, D, s * kWideKT, stages + s * sf);
+    cp_async_commit();
+  }
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<kWideStages - 2>();  // this thread's copies of tile t have landed
+    __syncthreads();                   // everyone's, and tile t - 1 is no longer read
+    const int tn = t + kWideStages - 1;
+    if (tn < ntiles) wide_issue_tile<kRowDot>(A, D, tn * kWideKT, stages + (tn % kWideStages) * sf);
+    cp_async_commit();
+    const float* a = stages + (t % kWideStages) * sf + at;
+    const float* v = inq + t * kWideKT * NB;
+    const int kn = min(kWideKT, D - t * kWideKT);
+    // No continue: every thread reaches the next barrier.
+    if (!rows) {
+    } else if (kn < kWideKT) {
+      wide_tile_run<kRowDot>(a, v, kn, t == 0, D, NB, acc);
+    } else if (t == 0) {
+      wide_tile_full<kRowDot, true>(a, v, D, NB, acc);
+    } else {
+      wide_tile_full<kRowDot, false>(a, v, D, NB, acc);
+    }
   }
 #pragma unroll
   for (int j = 0; j < kWideJ; ++j) {
-    const int i = is + ni * j;
-    if (i < D)
-      *reinterpret_cast<float4*>(out + i * NB + 4 * cq) =
+    if (r0 + j < D)
+      *reinterpret_cast<float4*>(out + (r0 + j) * NB + 4 * cq) =
           make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
   }
   __syncthreads();
@@ -257,7 +358,7 @@ struct Wide {
   const float* x;                 // the points, left unchanged
   float* g;                       // out: the tempered gradient
   float* tmp;                     // scratch
-  float* tile;                    // wide_matvec's tiles, [2][kWideKT][D]
+  float* tile;                    // wide_matvec's tile stages, [kWideStages][wide_stage_floats]
   const float* beta;
   const int* need;  // chains whose tempered value eval writes to logp
   float* logp;
@@ -279,7 +380,7 @@ struct WideCorrelatedGaussian {
     for (int idx = threadIdx.x; idx < D * NB; idx += kWideThreads)
       w.tmp[idx] = w.x[idx] - __ldg(mu + wide_row(idx, NB));  // diff
     __syncthreads();
-    wide_matvec<false>(w.prm + 3 * D, w.tmp, w.g, D, NB, w.tile);  // sd = S diff
+    wide_matvec<false>(w.prm + 3 * D, w.tmp, w.g, D, NB, w.tile, kDense);  // sd = S diff
     const int c = threadIdx.x;
     if (c < NB && w.need[c]) {
       float acc = w.tmp[c] * w.g[c];
@@ -381,15 +482,18 @@ struct WideHierarchicalGaussian {
 
 // The tempered value and whitened gradient of a group at whitened positions
 // z: w.x = chol^T z, the model at w.x (gradient in w.g, w.tmp as scratch),
-// gw = chol w.g. gw must be w.tmp: the model's scratch is free again once
-// its gradient is whitened. Every thread of the block calls it with z
-// complete; it returns after a barrier. The wide HMC and NUTS kernels' step.
+// gw = chol w.g, the products keeping the terms of the factor's structure
+// (a diagonal factor: two elementwise passes). gw must be w.tmp: the model's
+// scratch is free again once its gradient is whitened. Every thread of the
+// block calls it with z complete; it returns after a barrier. The wide HMC
+// and NUTS kernels' step (the ChEES kernel folds the diagonal passes into
+// its half steps).
 template <class Model>
 __device__ __forceinline__ void wide_evaluate(const float* __restrict__ chol, const float* z,
-                                              float* gw, const Wide& w) {
-  wide_matvec<false>(chol, z, const_cast<float*>(w.x), w.D, w.NB, w.tile);
+                                              float* gw, const Wide& w, int structure) {
+  wide_matvec<false>(chol, z, const_cast<float*>(w.x), w.D, w.NB, w.tile, structure);
   Model::eval(w);
-  wide_matvec<true>(chol, w.g, gw, w.D, w.NB, w.tile);
+  wide_matvec<true>(chol, w.g, gw, w.D, w.NB, w.tile, structure);
 }
 
 }  // namespace ptmc

@@ -90,9 +90,11 @@
 // (chees_trajectory.cu): a group of NB = wide_group(D) chains (64, 32 or 16)
 // keeps its working vectors in shared memory as [d][NB] (z, r, the whitened
 // gradient, x = chol^T z and the model's gradient, 5 D NB floats, plus
-// wide_matvec's tiles of chol: 89.6 KB a block at 200-D, two blocks an SM),
-// and each product over D is a small matrix product over the group, summed
-// over k in order. The rest of a tree does not fit beside them: the two
+// wide_matvec's three tile stages of chol: 104.8 KB a block at 200-D, two
+// blocks an SM), and each product over D is a small matrix product over the
+// group, summed over k in order over the terms the factor's structure keeps
+// (a diagonal factor: elementwise passes, no tiles). The rest of a tree
+// does not fit beside them: the two
 // frontiers (z, r and gradient, 6 D a chain), the checkpoint stack (max_depth
 // rows of z and r) and the subtree's proposal (D) are 27 D floats a chain at
 // depth 10, 21.6 KB at 200-D, 346 KB for a group of 16, more than an SM's 228
@@ -447,6 +449,7 @@ struct WideParams {
   float* nalpha;
   float* alive;
   float* eps_out;
+  int structure;  // ptmc::WideStructure of chol
   int D;
   int T;
   int C;
@@ -514,7 +517,7 @@ __global__ void __launch_bounds__(kWideThreads, 2) nuts_wide_kernel(const WidePa
     if (o >= 0) P.q_prop[o] = z[idx];
   }
   __syncthreads();
-  ptmc::wide_evaluate<Model>(P.chol, z, gw, w);
+  ptmc::wide_evaluate<Model>(P.chol, z, gw, w, P.structure);
   float eps = 0.0f, logp0 = 0.0f, joint0 = 0.0f, logu = 0.0f, lprop = 0.0f;
   if (valid) {
     eps = P.eps[n];
@@ -547,7 +550,7 @@ __global__ void __launch_bounds__(kWideThreads, 2) nuts_wide_kernel(const WidePa
         z[idx] = front[s] + s_ve[c] * rh;
       }
       __syncthreads();
-      ptmc::wide_evaluate<Model>(P.chol, z, gw, w);
+      ptmc::wide_evaluate<Model>(P.chol, z, gw, w, P.structure);
       for (int idx = tid; idx < nv; idx += kWideThreads) {
         const int c = idx & (NB - 1);
         if (s_act[c]) r[idx] = r[idx] + s_hve[c] * gw[idx];
@@ -655,7 +658,7 @@ __global__ void __launch_bounds__(kWideThreads, 2) nuts_wide_kernel(const WidePa
         }
       }
       __syncthreads();
-      ptmc::wide_evaluate<Model>(P.chol, z, gw, w);
+      ptmc::wide_evaluate<Model>(P.chol, z, gw, w, P.structure);
       for (int idx = tid; idx < nv; idx += kWideThreads) {
         const int c = idx & (NB - 1);
         if (s_act[c]) r[idx] = r[idx] + s_hve[c] * gw[idx];
@@ -791,11 +794,11 @@ int launch_wide(const WideParams& P, void* stream) {
   const long long n = (long long)P.T * P.C;
   if (n <= 0) return (int)cudaSuccess;
   if (P.D < 1 || P.D > ptmc::kWideMaxD || P.max_depth < 1 || P.max_depth > kMaxDepth ||
-      n >= (1LL << 31)) {
+      n >= (1LL << 31) || P.structure < ptmc::kDense || P.structure > ptmc::kDiagonal) {
     return (int)cudaErrorInvalidValue;
   }
   const int nb = ptmc::wide_group(P.D);
-  const size_t smem = sizeof(float) * P.D * (5 * nb + 2 * ptmc::kWideKT);
+  const size_t smem = ptmc::wide_smem_bytes(P.D, nb);
   auto kernel = nuts_wide_kernel<Model>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -827,9 +830,10 @@ extern "C" int nuts_tree_curved(const float* q0, const float* r0, const float* b
 // The wide entries, for the functors correlated_gaussian, interval_gaussian
 // and hierarchical_gaussian: the arguments of nuts_tree_curved, plus prm (the
 // model's constants, model.cuda_params), scratch (device memory of
-// (7 + 2 * max_depth) * D * T * C floats, which the call overwrites) and D
-// (1 <= D <= 256). They launch blocks of 256 threads, one group of NB =
-// wide_group(D) chains a block, with (5 * NB + 32) * D * 4 bytes of dynamic
+// (7 + 2 * max_depth) * D * T * C floats, which the call overwrites),
+// structure (ptmc::WideStructure of chol: 0 dense, 1 diagonal) and
+// D (1 <= D <= 256). They launch blocks of 256 threads, one group of NB =
+// wide_group(D) chains a block, with ptmc::wide_smem_bytes(D, NB) of dynamic
 // shared memory.
 #define PTMC_NUTS_WIDE_ENTRY(NAME, MODEL)                                                     \
   extern "C" int nuts_tree_##NAME(                                                            \
@@ -837,10 +841,11 @@ extern "C" int nuts_tree_curved(const float* q0, const float* r0, const float* b
       const float* r_eps, const float* expo, const float* dirs, const float* accu,            \
       const long long* key, const float* chol, const float* prm, float* scratch,              \
       float* q_prop, float* logp0, float* logp_prop, float* alpha, float* nalpha,             \
-      float* alive, float* eps_out, int D, int T, int C, int max_depth, void* stream) {       \
+      float* alive, float* eps_out, int structure, int D, int T, int C, int max_depth,        \
+      void* stream) {                                                                         \
     const WideParams params{q0, r0, beta, eps, r_eps, expo, dirs, accu, key, chol, prm,     \
                             scratch, q_prop, logp0, logp_prop, alpha, nalpha, alive, eps_out, \
-                            D, T, C, max_depth};                                             \
+                            structure, D, T, C, max_depth};                                  \
     return launch_wide<MODEL>(params, stream);                                                \
   }
 

@@ -45,6 +45,7 @@ def make_context(state: SamplerState) -> ProposalContext:
         group_s=state.adapt.group_s,
         chol=state.adapt.chol,
         chol_inv=state.adapt.chol_inv,
+        structure=state.adapt.structure,
         de_buf=state.de.buf,
         de_valid=adaptation.de_valid_rows(state.de),
     )

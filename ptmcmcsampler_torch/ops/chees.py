@@ -49,18 +49,18 @@ SORT_BINS = 256
 
 def wide_group(ndim):
     """Chains a group of the wide layout runs together at dimension ``ndim``
-    (``wide_group`` in csrc/chees_trajectory.cu)."""
+    (``wide_group`` in csrc/models.cuh)."""
     return 64 if ndim <= 64 else (32 if ndim <= 128 else 16)
 
 
-def _trajectories_plain(q0, p0, beta, eps, nsteps, chol, model):
+def _trajectories_plain(q0, p0, beta, eps, nsteps, chol, model, structure):
     """``(q1, p1, logp1, logp0)``: the kernel's trajectory and its first
     evaluation. Each chain stops at its own ``nsteps``: the loop runs to the
     largest and masks the rest, which equals the Pallas kernel's masked loop
     exactly."""
     eps_b = eps[:, None, :]
     half = 0.5 * eps_b
-    fgw = common.whitened(model, chol, beta[:, None])
+    fgw = common.whitened(model, chol, beta[:, None], structure)
 
     logp0, g = fgw(q0)
     q, p, logp = q0, p0, logp0
@@ -78,13 +78,15 @@ def _trajectories_plain(q0, p0, beta, eps, nsteps, chol, model):
     return q, p, torch.where(torch.isnan(logp), float("-inf"), logp), logp0
 
 
-def chees_trajectories_plain(q0, p0, beta, eps, nsteps, chol, model):
+def chees_trajectories_plain(q0, p0, beta, eps, nsteps, chol, model, structure="dense"):
     """Plain PyTorch version of the trajectory entry (same arguments and
-    results)."""
-    return _trajectories_plain(q0, p0, beta, eps, nsteps, chol, model)[:3]
+    results). Raises if ``chol`` has nonzeros outside ``structure``."""
+    common.check_structure("chees_trajectories", structure, chol)
+    structure = common.kernel_structure(model, structure)
+    return _trajectories_plain(q0, p0, beta, eps, nsteps, chol, model, structure)[:3]
 
 
-def chees_trajectories(q0, p0, beta, eps, nsteps, chol, model):
+def chees_trajectories(q0, p0, beta, eps, nsteps, chol, model, structure="dense"):
     """End points of whitened leapfrog trajectories, one per chain.
 
     Args:
@@ -95,11 +97,14 @@ def chees_trajectories(q0, p0, beta, eps, nsteps, chol, model):
       chol:   ``[D, D]`` f32 Cholesky factor of the mass-matrix inverse.
       model:  gives ``value_grad`` (plain version), ``cuda_functor`` and,
               for a wide functor, ``cuda_params``.
+      structure: the factor's structure tag (``common.STRUCTURES``), worked
+              out where the factor was made; the wide entries skip the terms
+              it zeroes, the curved one multiplies every term.
     Returns:
       ``(q1 [T, D, C], p1 [T, D, C], logp1 [T, C])``; a NaN ``logp1`` is -inf.
     """
     if common.check_device("chees_trajectories", q0):
-        return chees_trajectories_plain(q0, p0, beta, eps, nsteps, chol, model)
+        return chees_trajectories_plain(q0, p0, beta, eps, nsteps, chol, model, structure)
     t, d, c = q0.shape
     functor = common.cuda_functor("chees", model, d, "chees_trajectories")
     f32 = torch.float32
@@ -114,9 +119,9 @@ def chees_trajectories(q0, p0, beta, eps, nsteps, chol, model):
     p1 = torch.empty_like(p0)
     logp1 = torch.empty((t, c), dtype=f32, device=q0.device)
     ptrs, dims = (q0, p0, beta, eps, nsteps, chol), (t, c)
-    if functor != "curved":  # a wide entry: the model's constants and D
+    if functor != "curved":  # a wide entry: the model's constants, the structure, D
         ptrs += (common.cuda_params("chees_trajectories", model, functor, q0.device),)
-        dims = (d, t, c)
+        dims = (common.structure_code("chees_trajectories", structure), d, t, c)
     ptrs += (q1, p1, logp1)
     fn = common.entry(
         "chees_trajectory", f"chees_trajectory_{functor}",
@@ -130,17 +135,22 @@ def chees_trajectories(q0, p0, beta, eps, nsteps, chol, model):
 chees_trajectories.launches = 0
 
 
-def chees_step_plain(x, r0, u, beta, eps, tlen, eps0, max_steps, chol, chol_inv, model):
+def chees_step_plain(x, r0, u, beta, eps, tlen, eps0, max_steps, chol, chol_inv, model,
+                     structure="dense"):
     """Plain PyTorch version of the fused step (same arguments and results).
 
     Every product over ``D`` is an ordered sum (``common.matvec``,
     ``common.rdot``), not ``torch.matmul``, so that it rounds as the kernel.
+    Raises if a factor has nonzeros outside ``structure``.
     """
+    common.check_structure("chees_step", structure, chol, chol_inv)
+    structure = common.kernel_structure(model, structure)
     eps_tc = torch.where(eps > 0, eps, eps0)
     tlen_tc = torch.maximum(tlen, eps_tc)
     nsteps = torch.clamp(torch.ceil(u * tlen_tc / eps_tc), 1, max_steps).to(torch.int32)
-    q0 = common.matvec(chol_inv.T, x)
-    z1, r1, logp1, logp0 = _trajectories_plain(q0, r0, beta, eps_tc, nsteps, chol, model)
+    q0 = common.matvec(chol_inv.T, x, structure)
+    z1, r1, logp1, logp0 = _trajectories_plain(q0, r0, beta, eps_tc, nsteps, chol, model,
+                                               structure)
     k0 = 0.5 * common.rdot(r0, r0)
     k1 = 0.5 * common.rdot(r1, r1)
     denergy = (logp1 - k1) - (logp0 - k0)
@@ -148,10 +158,11 @@ def chees_step_plain(x, r0, u, beta, eps, tlen, eps0, max_steps, chol, chol_inv,
     qxy = k0 - k1
     qxy = torch.where(torch.isnan(qxy), float("-inf"), qxy)
     alpha = torch.clamp(torch.exp(denergy), max=1.0)
-    return common.matvec(chol.T, z1), q0, z1, r1, qxy, alpha
+    return common.matvec(chol.T, z1, structure), q0, z1, r1, qxy, alpha
 
 
-def chees_step(x, r0, u, beta, eps, tlen, eps0, max_steps, chol, chol_inv, model):
+def chees_step(x, r0, u, beta, eps, tlen, eps0, max_steps, chol, chol_inv, model,
+               structure="dense"):
     """The per-chain part of a ChEES step, one trajectory a chain.
 
     Args:
@@ -167,6 +178,8 @@ def chees_step(x, r0, u, beta, eps, tlen, eps0, max_steps, chol, chol_inv, model
                 inverse and its inverse.
       model:    gives ``value_grad`` (plain version), ``cuda_functor`` and,
                 for a wide functor, ``cuda_params``.
+      structure: the factors' structure tag (``common.STRUCTURES``), worked
+                out where they were made (``state.AdaptState.structure``).
     Returns:
       ``(x1, q0, z1, r1, qxy, alpha)``: ``x1 = chol^T z1`` the proposal,
       ``q0 = chol_inv^T x`` the whitened start, ``(z1, r1)`` the end point
@@ -175,7 +188,7 @@ def chees_step(x, r0, u, beta, eps, tlen, eps0, max_steps, chol, chol_inv, model
     """
     if common.check_device("chees_step", x):
         return chees_step_plain(x, r0, u, beta, eps, tlen, eps0, max_steps, chol, chol_inv,
-                                model)
+                                model, structure)
     t, d, c = x.shape
     functor = common.cuda_functor("chees", model, d, "chees_step")
     f32 = torch.float32
@@ -195,9 +208,9 @@ def chees_step(x, r0, u, beta, eps, tlen, eps0, max_steps, chol, chol_inv, model
     ins = (x, r0, u, beta, eps, tlen, chol, chol_inv)
     outs = (x1, q0, z1, r1, qxy, alpha)
     dims = (t, c)
-    if functor != "curved":  # a wide entry: the model's constants and D
+    if functor != "curved":  # a wide entry: the model's constants, the structure, D
         ins += (common.cuda_params("chees_step", model, functor, x.device),)
-        dims = (d, t, c)
+        dims = (common.structure_code("chees_step", structure), d, t, c)
     fn = common.entry(
         "chees_trajectory", f"chees_step_{functor}",
         [ctypes.c_void_p] * len(ins) + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 6

@@ -10,12 +10,27 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import build
 
-# Most dimensions of the wide layout (csrc/models.cuh kWideMaxD).
+# Most dimensions of the wide layout (csrc/models.cuh kWideMaxD), and its
+# products: rows a thread keeps, rows a tile, stages in flight.
 WIDE_MAX_D = 256
+WIDE_J, WIDE_KT, WIDE_STAGES = 4, 16, 3
+
+
+def wide_smem_bytes(ndim, group):
+    """Dynamic shared memory of a wide kernel's block at dimension ``ndim``
+    and group size ``group`` (csrc/models.cuh wide_smem_bytes): five
+    ``[D][group]`` vectors and WIDE_STAGES tile stages of D rounded up to
+    WIDE_J rows of WIDE_KT + 1 floats (a row-dot tile's padded stride),
+    rounded up to 16 bytes."""
+    rows = -(-ndim // WIDE_J) * WIDE_J
+    stage = (rows * (WIDE_KT + 1) + 3) & ~3
+    return 4 * (5 * ndim * group + WIDE_STAGES * stage)
+
 
 # The device functors of csrc/models.cuh, by the name a model gives in
 # ``cuda_functor``: for each kernel that has an entry for the functor, the
@@ -66,8 +81,63 @@ def philox4x32(ctr, key):
     return c0, c1, c2, c3
 
 
-def matvec(m, v):
-    """``m @ v`` for ``m [D, D]``, ``v [..., D, C]``, summed over k in order."""
+# The structures of a whitening factor pair (chol, chol_inv); a wide entry
+# takes the index as its launch argument (csrc/models.cuh WideStructure).
+# "diagonal": both factors diagonal, their products elementwise; "dense":
+# any pair, every term multiplied (a triangular factor too: a lower path
+# measured slower than the dense one on every wide workload, PERF.md).
+STRUCTURES = ("dense", "diagonal")
+
+
+def matrix_structure(m):
+    """"diagonal" if the square matrix ``m`` (numpy, or a tensor) is zero
+    off its diagonal, else "dense". It reads a tensor's values to the host:
+    for where a factor is made and for the plain versions, never inside a
+    step on the card."""
+    a = m.detach().cpu().numpy() if isinstance(m, torch.Tensor) else np.asarray(m)
+    return "diagonal" if not (a - np.diag(np.diag(a))).any() else "dense"
+
+
+def factor_structure(*mats):
+    """The structure tag of a factor pair from its f32 values: "diagonal"
+    if every matrix is, else "dense". Worked out on the host where the
+    factors are made (state.py), never inside a step."""
+    diagonal = all(matrix_structure(m) == "diagonal" for m in mats)
+    return "diagonal" if diagonal else "dense"
+
+
+def check_structure(label, structure, *mats):
+    """Raise unless ``structure`` is a tag of STRUCTURES and each matrix of
+    ``mats`` is zero wherever it says: a wrong tag must never give a
+    silently wrong product. The plain versions' check; it reads the values,
+    so the kernel wrappers do not make it on the card."""
+    structure_code(label, structure)
+    if structure == "diagonal" and factor_structure(*mats) != "diagonal":
+        raise ValueError(f"{label}: the factor is tagged 'diagonal' but is dense")
+
+
+def structure_code(label, structure):
+    """A wide entry's launch argument for the tag ``structure``."""
+    if structure not in STRUCTURES:
+        raise ValueError(f"{label}: structure {structure!r} is not one of {STRUCTURES}")
+    return STRUCTURES.index(structure)
+
+
+def kernel_structure(model, structure):
+    """The structure a kernel and its plain version use for ``model``: the
+    tag for the wide functors, whose products skip a diagonal factor's
+    zeros; "dense" for everything else (the curved D = 2 kernels multiply
+    every term)."""
+    functor = getattr(model, "cuda_functor", None)
+    return structure if functor in FUNCTORS and functor != "curved" else "dense"
+
+
+def matvec(m, v, structure="dense"):
+    """``m @ v`` for ``m [D, D]``, ``v [..., D, C]``, summed over k in order,
+    or with ``structure`` "diagonal" the elementwise ``m[i, i] * v[i]``, as
+    the kernels compute it (csrc/models.cuh wide_matvec)."""
+    if structure == "diagonal":
+        return torch.diagonal(m)[:, None] * v
     out = m[:, 0, None] * v[..., 0:1, :]
     for k in range(1, m.shape[1]):
         out = out + m[:, k, None] * v[..., k:k + 1, :]
@@ -93,12 +163,13 @@ def log_hamiltonian(logp, p):
     return torch.where(torch.isnan(h), float("-inf"), h)
 
 
-def whitened(model, chol, beta_b):
-    """``q -> (logp, chol @ grad)`` at ``x = chol^T q``, for ``q [T, D, C]``."""
+def whitened(model, chol, beta_b, structure="dense"):
+    """``q -> (logp, chol @ grad)`` at ``x = chol^T q``, for ``q [T, D, C]``,
+    both products over the terms of the factor's ``structure``."""
 
     def fgw(q):
-        val, g = model.value_grad(matvec(chol.T, q), beta_b)
-        return val, matvec(chol, g)
+        val, g = model.value_grad(matvec(chol.T, q, structure), beta_b)
+        return val, matvec(chol, g, structure)
 
     return fgw
 

@@ -57,15 +57,17 @@ STREAM_HMC = 1
 TWO_PI_F32 = float(torch.tensor(2.0 * math.pi, dtype=torch.float32))
 
 
-def hmc_trajectories_plain(q0, p0, beta, nsteps, chol, eps, model):
+def hmc_trajectories_plain(q0, p0, beta, nsteps, chol, eps, model, structure="dense"):
     """Plain PyTorch version of the kernel (same arguments and results).
 
     The loop runs to the largest ``nsteps`` and masks each chain past its
-    own length or its break, as the Pallas kernel's masked loop.
+    own length or its break, as the Pallas kernel's masked loop. Raises if
+    ``chol`` has nonzeros outside ``structure``.
     """
+    common.check_structure("hmc_trajectories", structure, chol)
     e = torch.tensor(eps, dtype=torch.float32, device=q0.device)
     half = 0.5 * e
-    fgw = common.whitened(model, chol, beta[:, None])
+    fgw = common.whitened(model, chol, beta[:, None], common.kernel_structure(model, structure))
 
     logp0, g = fgw(q0)
     joint0 = common.log_hamiltonian(logp0, p0)
@@ -90,7 +92,7 @@ def hmc_trajectories_plain(q0, p0, beta, nsteps, chol, eps, model):
     return q, torch.where(torch.isnan(qxy), float("-inf"), qxy)
 
 
-def hmc_trajectories(q0, p0, beta, nsteps, chol, eps, model):
+def hmc_trajectories(q0, p0, beta, nsteps, chol, eps, model, structure="dense"):
     """End positions and MH corrections of fixed-step HMC trajectories.
 
     Args:
@@ -101,12 +103,14 @@ def hmc_trajectories(q0, p0, beta, nsteps, chol, eps, model):
       eps:    the step size, a Python float (``hmc_stepsize``).
       model:  gives ``value_grad`` (plain version), ``cuda_functor`` and,
               for a wide functor, ``cuda_params``.
+      structure: the factor's structure tag (``common.STRUCTURES``); the
+              wide entries skip the terms it zeroes.
     Returns:
       ``(q1 [T, D, C], qxy [T, C])`` with ``qxy = (joint1 - joint0) -
       (logp1 - logp0)``, NaN mapped to -inf.
     """
     if common.check_device("hmc_trajectories", q0):
-        return hmc_trajectories_plain(q0, p0, beta, nsteps, chol, eps, model)
+        return hmc_trajectories_plain(q0, p0, beta, nsteps, chol, eps, model, structure)
     t, d, c = q0.shape
     functor = common.cuda_functor("hmc", model, d, "hmc_trajectories")
     f32 = torch.float32
@@ -119,9 +123,9 @@ def hmc_trajectories(q0, p0, beta, nsteps, chol, eps, model):
     q1 = torch.empty_like(q0)
     qxy = torch.empty((t, c), dtype=f32, device=q0.device)
     ins, dims = (q0, p0, beta, nsteps, chol), (t, c)
-    if functor != "curved":  # a wide entry: the model's constants and D
+    if functor != "curved":  # a wide entry: the model's constants, the structure, D
         ins += (common.cuda_params("hmc_trajectories", model, functor, q0.device),)
-        dims = (d, t, c)
+        dims = (common.structure_code("hmc_trajectories", structure), d, t, c)
     fn = common.entry(
         "hmc_trajectory", f"hmc_trajectory_{functor}",
         [ctypes.c_void_p] * len(ins) + [ctypes.c_float] + [ctypes.c_void_p] * 2
@@ -176,21 +180,24 @@ def hmc_draws(key, t, d, c, nmin, nmax):
     return p0, nsteps.to(torch.int32).view(t, c)
 
 
-def hmc_step_plain(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model):
+def hmc_step_plain(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model, structure="dense"):
     """Plain PyTorch version of the fused step (the arguments and results of
     ``hmc_step``). ``draws`` is the key, or the draws as arrays ``(p0 [T, D,
-    C] f32, nsteps [T, C] int32)``; the key's are ``hmc_draws(key)``."""
+    C] f32, nsteps [T, C] int32)``; the key's are ``hmc_draws(key)``. Raises
+    if a factor has nonzeros outside ``structure``."""
+    common.check_structure("hmc_step", structure, chol, chol_inv)
+    kept = common.kernel_structure(model, structure)
     t, d, c = x.shape
     if isinstance(draws, torch.Tensor):
         p0, nsteps = hmc_draws(draws, t, d, c, nmin, nmax)
     else:
         p0, nsteps = draws
-    q0 = common.matvec(chol_inv.T, x)
-    q1, qxy = hmc_trajectories_plain(q0, p0, beta, nsteps, chol, eps, model)
-    return common.matvec(chol.T, q1), qxy
+    q0 = common.matvec(chol_inv.T, x, kept)
+    q1, qxy = hmc_trajectories_plain(q0, p0, beta, nsteps, chol, eps, model, structure)
+    return common.matvec(chol.T, q1, kept), qxy
 
 
-def hmc_step(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model):
+def hmc_step(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model, structure="dense"):
     """The per-chain part of an HMC step, one trajectory a chain.
 
     Args:
@@ -205,13 +212,14 @@ def hmc_step(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model):
       nmin, nmax: the lengths' range ``[nmin, nmax)``, Python ints.
       model:    gives ``value_grad`` (plain version), ``cuda_functor`` and,
                 for a wide functor, ``cuda_params``.
+      structure: the factors' structure tag (``common.STRUCTURES``).
     Returns:
       ``(x1 [T, D, C], qxy [T, C])``: the end point mapped back, ``chol^T
       q1``, and ``qxy = (joint1 - joint0) - (logp1 - logp0)``, NaN mapped
       to -inf.
     """
     if common.check_device("hmc_step", x):
-        return hmc_step_plain(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model)
+        return hmc_step_plain(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model, structure)
     if not isinstance(draws, torch.Tensor):
         raise ValueError("hmc_step: on the card the draws are a Philox key (int64 [2]), "
                          "not arrays")
@@ -229,9 +237,9 @@ def hmc_step(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model):
     x1 = out[:t * d * c].view(t, d, c)
     qxy = out[t * d * c:].view(t, c)
     ins, dims = (x, beta, draws, chol, chol_inv), (t, c)
-    if functor != "curved":  # a wide entry: the model's constants and D
+    if functor != "curved":  # a wide entry: the model's constants, the structure, D
         ins += (common.cuda_params("hmc_step", model, functor, x.device),)
-        dims = (d, t, c)
+        dims = (common.structure_code("hmc_step", structure), d, t, c)
     fn = common.entry(
         "hmc_trajectory", f"hmc_step_{functor}",
         [ctypes.c_void_p] * len(ins) + [ctypes.c_float, ctypes.c_int, ctypes.c_int]

@@ -72,16 +72,19 @@ def nuts_uniforms(key, depth, t, c):
     return out.view(rows, t, c)
 
 
-def nuts_trees_plain(q0, r0, beta, eps, expo, dirs, accu, resu, chol, model, r_eps=None):
+def nuts_trees_plain(q0, r0, beta, eps, expo, dirs, accu, resu, chol, model, r_eps=None,
+                     structure="dense"):
     """Plain PyTorch version of the kernel: the arguments and results of
     ``nuts_trees``, with the reservoir uniforms as the array ``resu``.
+    Raises if ``chol`` has nonzeros outside ``structure``.
 
     Lanes are masked where their tree or subtree has stopped. The loops (and
     the step-size search's) stop early once every lane has stopped, which
     reads the device: it is a version for tests and the CPU, never on the
     sampler's path on the card.
     """
-    fgw = common.whitened(model, chol, beta[:, None])
+    common.check_structure("nuts_trees", structure, chol)
+    fgw = common.whitened(model, chol, beta[:, None], common.kernel_structure(model, structure))
     logp0, g0 = fgw(q0)
     if r_eps is not None:
         fresh = eps <= 0
@@ -174,7 +177,8 @@ def nuts_trees_plain(q0, r0, beta, eps, expo, dirs, accu, resu, chol, model, r_e
     return z_prop, logp0, logp_prop, alpha, nalpha, alive.to(logp0.dtype), eps
 
 
-def nuts_trees(q0, r0, beta, eps, expo, dirs, accu, draws, chol, model, r_eps=None):
+def nuts_trees(q0, r0, beta, eps, expo, dirs, accu, draws, chol, model, r_eps=None,
+               structure="dense"):
     """One NUTS tree per chain, from pre-drawn randomness.
 
     Args:
@@ -195,6 +199,9 @@ def nuts_trees(q0, r0, beta, eps, expo, dirs, accu, draws, chol, model, r_eps=No
               search, or None. Given, a lane with ``eps <= 0`` first runs
               ``find_reasonable_epsilon`` and builds its tree with the step
               size found; without it, such a lane stays put.
+      structure: the factor's structure tag (``common.STRUCTURES``), worked
+              out where it was made; the wide entries skip the terms it
+              zeroes.
     Returns:
       ``(q_prop [T, D, C], logp0, logp_prop, alpha, nalpha, alive, eps_used)``,
       the last six ``[T, C]`` f32; ``alive`` is 1 where the depth cap cut the
@@ -207,7 +214,8 @@ def nuts_trees(q0, r0, beta, eps, expo, dirs, accu, draws, chol, model, r_eps=No
         resu = draws
         if draws.dtype == torch.int64:
             resu = nuts_uniforms(draws, depth, q0.shape[0], q0.shape[2])
-        return nuts_trees_plain(q0, r0, beta, eps, expo, dirs, accu, resu, chol, model, r_eps)
+        return nuts_trees_plain(q0, r0, beta, eps, expo, dirs, accu, resu, chol, model, r_eps,
+                                structure)
     t, d, c = q0.shape
     functor = common.cuda_functor("nuts", model, d, "nuts_trees")
     f32 = torch.float32
@@ -225,11 +233,11 @@ def nuts_trees(q0, r0, beta, eps, expo, dirs, accu, draws, chol, model, r_eps=No
     q_prop = torch.empty_like(q0)
     outs = torch.empty((6, t, c), dtype=f32, device=q0.device).unbind(0)
     ins, dims = (q0, r0, beta, eps, r_eps, expo, dirs, accu, draws, chol), (t, c, depth)
-    if functor != "curved":  # a wide entry: the model's constants, the scratch, D
+    if functor != "curved":  # a wide entry: the constants, the scratch, the structure, D
         prm = common.cuda_params("nuts_trees", model, functor, q0.device)
         scratch = torch.empty(wide_scratch_floats(d, depth) * t * c, dtype=f32, device=q0.device)
         ins += (prm, scratch)
-        dims = (d, t, c, depth)
+        dims = (common.structure_code("nuts_trees", structure), d, t, c, depth)
     fn = common.entry(
         "nuts_tree", f"nuts_tree_{functor}",
         [ctypes.c_void_p] * (len(ins) + 7) + [ctypes.c_int] * len(dims) + [ctypes.c_void_p],

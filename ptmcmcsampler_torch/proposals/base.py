@@ -28,6 +28,9 @@ class ProposalContext:
     chol_inv: torch.Tensor  # [D, D]
     de_buf: torch.Tensor  # [D, B]
     de_valid: int  # valid DE columns (host-known)
+    # The factors' structure tag (state.AdaptState.structure); "dense", which
+    # every factor satisfies, where a caller builds a context by hand.
+    structure: str = "dense"
 
 
 def safe_temperature(beta):

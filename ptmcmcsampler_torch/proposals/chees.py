@@ -45,7 +45,7 @@ def make_chees(config, model):
         t, _, c = x.shape
         x1, q0, z1, r1, qxy, alpha = chees_step(
             x, r0, u, betas, ss["chees_eps"], ss["chees_tlen"], eps0, max_steps,
-            ctx.chol.contiguous(), ctx.chol_inv.contiguous(), model,
+            ctx.chol.contiguous(), ctx.chol_inv.contiguous(), model, ctx.structure,
         )
         # The step size and length the trajectories used, per rung.
         eps_prev = ss["chees_eps"][:, 0]

@@ -113,7 +113,7 @@ def make_hmc(config, model):
         ``(joint1 - joint0) - (logp1 - logp0)``, so the outer MH ratio equals
         the Hamiltonian error."""
         return hmc_step(x, betas, draws, ctx.chol.contiguous(), ctx.chol_inv.contiguous(), eps,
-                        nmin, nmax, model)
+                        nmin, nmax, model, ctx.structure)
 
     def hmc(rng, x, betas, it, ctx, ss):
         key = torch.randint(0, 2**32, (2,), generator=rng, device=x.device, dtype=torch.int64)

@@ -82,7 +82,7 @@ def make_nuts(config, model):
         q_prop, logp0, logp_prop, alpha, nalpha, _, epsilon = nuts_trees(
             q0, r0.contiguous(), betas, eps_in.contiguous(), expo.contiguous(),
             dirs.contiguous(), accu.contiguous(), draws.contiguous(),
-            ctx.chol.contiguous(), model, r_eps=r_search,
+            ctx.chol.contiguous(), model, r_eps=r_search, structure=ctx.structure,
         )
         if force_eps is not None:
             mu = torch.log(10.0 * epsilon)

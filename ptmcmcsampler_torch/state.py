@@ -21,6 +21,7 @@ import torch
 
 from . import utils
 from .config import SamplerConfig
+from .ops.common import factor_structure
 
 DTYPE = torch.float32
 
@@ -40,6 +41,12 @@ class AdaptState:
     group_s: tuple  # per-group eigenvalues [(sg,), ...]
     chol: torch.Tensor  # [D, D] lower Cholesky factor of the mass-matrix inverse
     chol_inv: torch.Tensor  # [D, D] inverse of chol
+    # The pair's structure tag (ops/common.py STRUCTURES: "dense" or
+    # "diagonal"), worked out on the host where the factors are made: from
+    # their f32 values here and on a load, from how they are made in
+    # adaptation.refresh_factors. The wide kernels skip the terms it zeroes.
+    # Not a checkpoint entry: a load recomputes it.
+    structure: str
 
 
 @dataclasses.dataclass
@@ -143,7 +150,7 @@ def init_adapt_state(config: SamplerConfig, cov0, device) -> AdaptState:
         group_u.append(_t(u, device))
         group_s.append(_t(np.maximum(s, 0.0), device))
     chol = np.linalg.cholesky(cov0 + 1e-12 * np.mean(np.diag(cov0)) * np.eye(d))
-    chol_inv = np.linalg.solve(chol, np.eye(d))
+    chol_inv = np.linalg.solve(chol, np.eye(d))  # tested, not assumed, triangular
     return AdaptState(
         mean=torch.zeros(d, dtype=DTYPE, device=device),
         m2=torch.zeros(d, d, dtype=DTYPE, device=device),
@@ -154,6 +161,7 @@ def init_adapt_state(config: SamplerConfig, cov0, device) -> AdaptState:
         group_s=tuple(group_s),
         chol=_t(chol, device),
         chol_inv=_t(chol_inv, device),
+        structure=factor_structure(np.float32(chol), np.float32(chol_inv)),
     )
 
 
@@ -304,6 +312,8 @@ def state_from_numpy(arrays, config: SamplerConfig, device="cuda", seed=0) -> Sa
             **{n: f32(f"adapt/{n}") for n in _TENSOR_GROUPS["adapt"]},
             group_u=tuple(f32(f"adapt/group_u/{i}") for i in range(ng)),
             group_s=tuple(f32(f"adapt/group_s/{i}") for i in range(ng)),
+            structure=factor_structure(np.float32(arrays["adapt/chol"]),
+                                       np.float32(arrays["adapt/chol_inv"])),
         ),
         de=DEState(buf=f32("de/buf"), filled=de_fill_count(filled % 2**32, de_rows)),
         stepsize=StepSizeState(**{n: f32(f"stepsize/{n}") for n in SS_FIELDS}),

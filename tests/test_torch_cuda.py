@@ -752,6 +752,65 @@ def test_wide_hmc_step_matches_plain_bitwise(cuda, name, c):
         assert _same(common.matvec(chol.T, q1), x1) and _same(qxyk, qxy)
 
 
+def _structured(chol, factor):
+    """A factor pair of the kind ``factor`` from a lower ``chol``: its
+    diagonal, or itself ("lower"), each with its exact (triangular) inverse."""
+    if factor == "diagonal":
+        chol = torch.diag(torch.diagonal(chol)).contiguous()
+    eye = torch.eye(chol.shape[0], device=chol.device)
+    return chol, torch.linalg.solve_triangular(chol, eye, upper=False).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", ["diagonal", "lower"])
+@pytest.mark.parametrize("name", sorted(WIDE_MODELS))
+def test_wide_entries_with_structured_factors_match_plain_bitwise(cuda, name, factor):
+    """Every wide entry with a diagonal factor (tag "diagonal") and a lower
+    triangular one (tag "dense") equals its plain version, which keeps the
+    same terms, bit for bit, on a ragged batch: the ChEES step and
+    trajectory entries, the NUTS tree and the fused HMC step with its
+    trajectory entry."""
+    model = WIDE_MODELS[name]()
+    c = 300
+    args = list(_wide_step_inputs(cuda, model, c=c))
+    args[8], args[9] = _structured(args[8], factor)
+    structure = common.factor_structure(args[8].cpu(), args[9].cpu())
+    assert structure == {"diagonal": "diagonal", "lower": "dense"}[factor]
+    out = chees_step(*args, model, structure)
+    ref = chees_step_plain(*args, model, structure)
+    for what, a, b in zip(("x1", "q0", "z1", "r1", "qxy", "alpha"), out, ref):
+        assert _same(a, b), what
+    x, r0, u, betas, eps, tlen, eps0, max_steps, chol, chol_inv = args
+    eps_tc = torch.where(eps > 0, eps, eps0).contiguous()
+    nsteps = torch.clamp(torch.ceil(u * torch.maximum(tlen, eps_tc) / eps_tc), 1,
+                         max_steps).to(torch.int32)
+    traj = (out[1], r0, betas, eps_tc, nsteps, chol, model, structure)
+    for a, b in zip(chees_trajectories(*traj), chees_trajectories_plain(*traj)):
+        assert _same(a, b)
+    q0, r0, betas, eps, expo, dirs, accu, key, _, r_eps = _wide_tree_inputs(cuda, model, c, 4)
+    tree = nuts_trees(q0, r0, betas, eps, expo, dirs, accu, key, chol, model, r_eps=r_eps,
+                      structure=structure)
+    ref = nuts_trees_plain(q0, r0, betas, eps, expo, dirs, accu,
+                           nuts_uniforms(key, 4, *eps.shape), chol, model, r_eps, structure)
+    for what, a, b in zip(("q_prop", "logp0", "logp_prop", "alpha", "nalpha", "alive", "eps"),
+                          tree, ref):
+        assert _same(a, b), what
+    t, d, _ = x.shape
+    hkey = torch.tensor([0x1234567, 0x89ABCDE], dtype=torch.int64, device=cuda)
+    hargs = (x, betas, hkey, chol, chol_inv, 0.08, HMC_NMIN, HMC_NMAX, model, structure)
+    x1, qxy = hmc_step(*hargs)
+    p0, hsteps = hmc_kernel_draws(hkey, t, d, c, HMC_NMIN, HMC_NMAX, model)
+    x1p, qxyp = hmc_step_plain(*hargs[:2], (p0, hsteps), *hargs[3:])
+    assert _same(x1, x1p) and _same(qxy, qxyp)
+    q0 = common.matvec(chol_inv.T, x, structure)
+    htraj = (q0, p0, betas, hsteps, chol, 0.08, model, structure)
+    q1, qxyk = hmc_trajectories(*htraj)
+    q1p, qxykp = hmc_trajectories_plain(*htraj)
+    assert _same(q1, q1p) and _same(qxyk, qxykp)
+    with pytest.raises(ValueError, match="structure"):
+        chees_step(*args, model, "banded")
+
+
 def _wide_sampler(outdir, nchains=64):
     from ptmcmcsampler_torch import PTSampler
 
