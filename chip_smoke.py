@@ -73,25 +73,47 @@ Phases, in order; any failure exits non-zero:
      ``hmc_draws``' and momenta lie within DRAW_ULP_TOL ulp; the trajectory
      entry against its plain version, and the step's end points against the
      trajectory entry's from those draws.
-3. Main path 1 at full width: the bench's headline configuration (8 x 16384
+3. Graphs: ``run_block`` replays CUDA graphs of the step on the card (one
+   a combination of the step's host-side decisions, ``kernel.step_key``).
+   For path 1 and path 2, on the curved model and on the 50-D hierarchy, at
+   8 x 16384 chains: GRAPHS_ITERS iterations of the eager ``step`` loop and
+   of ``run_block`` from the same seed and kinds, crossing swaps, the end of
+   adaptation and DE's wait and factor refreshes (burn and cov_update cut
+   to GRAPHS_BURN and GRAPHS_COV_UPDATE, listed as cuts). Every state
+   tensor, the host fields and both generators' states must be equal bit
+   for bit, and each kernel must launch once per iteration of its kind in
+   both, counted through the graphs (a wrapper counts a call when it
+   launches; under capture that call records the launch, which each replay
+   makes: the launches are the calls, less those under capture, plus each
+   graph's recorded calls times its replays). One ``"phase": "graphs"``
+   line each, with both timings and the graphs' counts.
+   Main path 1 at full width: the bench's headline configuration (8 x 16384
    chains, SCAM/AM/DE/ChEES at 10/10/10/20, tskip=5, cov_update=1000,
    de_size=2000, hmc_stepsize=0.08, 3000 burn-in + 12000 timed iterations
-   in blocks of 1000) through ``build_step``/``run_block``. The fused ChEES
-   step must launch once per ChEES iteration, and the trajectory entry not
-   at all; the bench's moment gate must pass on every 8th cold chain (2048
-   of 16384). Prints one JSON line, with the path's peak device memory.
-4. Profile of path 1: 100 more iterations under ``torch.profiler``; prints
-   one JSON line with the device-busy share, the device operations an
-   iteration and the largest device times. Then 100 ChEES iterations alone
-   (``step(state, kind)``, without ``run_block``'s row copies), for the
+   in blocks of 1000) through ``build_step``/``run_block``'s graphs. The
+   fused ChEES step must launch once per ChEES iteration, counted through
+   the graphs, and the trajectory entry not at all; at least
+   MIN_REPLAYED_SHARE of the timed iterations must replay a graph; the
+   bench's moment gate must pass on every 8th cold chain (2048 of 16384).
+   Then the eager loop the graphs replaced (``step`` after ``step`` and a
+   row each iteration) on the final state: its iterations/s, and both
+   under the profiler. Prints one JSON line, with the path's peak device
+   memory, the eager loop's (a block of it before any graph exists), the
+   graphs' counts and both profiles.
+4. Profiles of path 1 (two JSON lines from the main path: 100 iterations
+   of the graphs and of the eager loop under ``torch.profiler``, with the
+   device-busy share, the device operations an iteration and the largest
+   device times); then 100 ChEES iterations alone, replayed
+   (``run_block`` with the kinds given, with its row copies), for the
    device operations of a ChEES iteration.
 5. Main path 2 at full width: the bench's ``grad_mode=nuts`` cycle
    (bench.py:163-199: SCAM/AM/DE/NUTS/HMC at 10 each, nuts_max_depth=10,
    hmc_stepsize=0.08, hmc_nmaxsteps=50, the same cadences and lengths). The
    NUTS kernel and the fused HMC step must launch once per NUTS and HMC
-   iteration, and the HMC trajectory entry not at all; the moment gate must
-   pass. Prints one JSON line, then its profile (as 4), and a profile of 100
-   HMC iterations alone, for the device operations of one.
+   iteration, counted through the graphs, and the HMC trajectory entry not
+   at all; the moment gate must pass. Prints one JSON line and its
+   profiles (as 3 and 4), and a profile of 100 HMC iterations alone,
+   replayed, for the device operations of one.
 6. Sampler, the user's entry point at full width: ``PTSampler`` with the
    bound methods of ``CurvedLikelihood`` (the kernel route) on path 1's
    workload as a user writes it (8 x 16384 chains, SCAM/AM/DE/ChEES at
@@ -113,10 +135,19 @@ Phases, in order; any failure exits non-zero:
    weights given and dropped, the route must be plain, only SCAM/AM/DE may
    run, and no kernel may launch (the gate's max z is logged). Each drain
    and checkpoint is timed on the host after the device queue has drained.
+   ``sample()`` runs the overlapped loop (block k+1 dispatched before block
+   k is drained, from host copies taken behind block k); each drain and
+   checkpoint is timed on the host, and whether the card was still running
+   the next block when it ended is counted (``drains_hidden``). Then the
+   serial loop (reached with a neff too large to stop the run) against the
+   overlapped one, SERIAL_ITERS iterations each from one seed: every file
+   must hold the same bytes (the checkpoint by its arrays); each loop's
+   wall, drains and checkpoints, and the serial loop's neff checks.
    Prints one JSON line: iterations/s of ``sample()``'s wall (drains
    included) beside path 1's ``run_block`` iterations/s, drain ms a block
    and the drains' share of the wall, checkpoint ms a drain, ESS/s over
-   that wall, the gate, launches, peak device memory.
+   that wall, the gate, launches (through the graphs), the graphs' counts,
+   peak device memory, and the serial-against-overlapped numbers.
 7. Path 1's cycle on bench.py's wide workloads at 8 x 16384 chains, each
    with bench.py's settings (x0 of bench.py:126-142, the block capped so
    a block's history ``[block, T, D, C]`` stays near 1.5 GB: 71, 57 and 50
@@ -124,13 +155,15 @@ Phases, in order; any failure exits non-zero:
    and the gate on every 8th, 10th or more cold chain, kept on the card):
    ``gaussian`` (IntervalTransformedGaussian, 40-D), ``hierarchical``
    (HierarchicalGaussian, 50-D) and ``gaussian200`` (CorrelatedGaussian,
-   200-D, seed 1). ``chees_step`` must launch once per ChEES iteration and
-   the trajectory entry never; the moment gate must pass on the first two,
-   and gaussian200 (no target: its box truncates it) must end finite, its
-   split R-hat logged. Then ChEES iterations alone under the profiler (100
-   on hierarchical, 20 on the others: a profile line each) for the device
-   ms of one, and the wide kernel's timings on the final state. One JSON
-   line a workload, with any cut of its timed iterations.
+   200-D, seed 1). ``chees_step`` must launch once per ChEES iteration
+   (through the graphs) and the trajectory entry never; the moment gate
+   must pass on the first two, and gaussian200 (no target: its box
+   truncates it) must end finite, its split R-hat logged. The eager loop
+   against the graphs as in 3 (100 iterations on hierarchical, 20 on the
+   others), then ChEES iterations alone, replayed, under the profiler (a
+   profile line each) for the device ms of one, and the wide kernel's
+   timings on the final state. One JSON line a workload, with any cut of
+   its timed iterations.
 8. Path 2's cycle (bench.py's ``grad_mode=nuts``: SCAM/AM/DE/NUTS/HMC at
    10 each, nuts_max_depth=10, hmc_stepsize=0.08, hmc_nmaxsteps=50) on the
    same three wide workloads at 8 x 16384 chains, bench.py's x0, block cap
@@ -229,6 +262,12 @@ T, C, D = 8, 16384, 2
 BURN_ITERS, TIMED_ITERS, BLOCK = 3000, 12000, 1000
 GATE_STRIDE = 8  # moment gate on cold chains 0, 8, 16, ...: 2048 of 16384
 PROFILE_ITERS = 100
+# The profile lines' numbers each main path line repeats, graphs and eager.
+PROFILE_KEYS = ("wall_ms_per_iter", "device_ms_per_iter", "device_busy_share",
+                "device_ops_per_iter")
+# The least share of a main path's timed iterations that must replay a
+# CUDA graph (the rest: a key's first iterations, eager warm-up and capture).
+MIN_REPLAYED_SHARE = 0.99
 NUTS_DEPTH, HMC_EPS, HMC_NMIN, HMC_NMAX = 10, 0.08, 2, 50
 DEVICE = "cuda:0"
 
@@ -281,6 +320,11 @@ SAMPLER_KW = dict(burn=1500, Tskip=5, isave=1000, covUpdate=1000, thin=10, SCAMw
 # The plain route runs without gradients: the ChEES and HMC weights are
 # given, as a user may, and dropped.
 PLAIN_C, PLAIN_ITERS = 1024, 2000
+# The serial loop against the overlapped one: this many iterations of the
+# sampler phase's workload each, the serial loop reached with a neff too
+# large to stop the run (its check, a cross-chain ESS over every cold chain
+# each block past 2 burn, is timed and listed apart).
+SERIAL_ITERS = 6000
 PLAIN_KW = dict(burn=500, Tskip=5, isave=500, covUpdate=500, thin=10, SCAMweight=10,
                 AMweight=10, DEweight=10, CHEESweight=10, HMCweight=10, NUTSweight=0,
                 MALAweight=0, HMCstepsize=HMC_EPS, HMCsteps=HMC_NMAX)
@@ -905,66 +949,127 @@ def phase_nuts_vs_plain(model):
     return max_err
 
 
-def headline_config():
+def headline_config(burn=BURN_ITERS // 2, cov_update=1000):
     from ptmcmcsampler_torch import SamplerConfig, build_default_jumps
 
-    burn = BURN_ITERS // 2
     return SamplerConfig(
         ndim=D, ntemps=T, nchains=C, groups=(tuple(range(D)),),
         jumps=build_default_jumps(
             SCAMweight=10, AMweight=10, DEweight=10, CHEESweight=20, burn=burn, have_grads=True
         ),
-        tskip=5, cov_update=1000, burn=burn, thin=1, de_size=2000, hmc_stepsize=0.08,
+        tskip=5, cov_update=cov_update, burn=burn, thin=1, de_size=2000, hmc_stepsize=0.08,
     )
 
 
-def nuts_config():
+def nuts_config(burn=BURN_ITERS // 2, cov_update=1000):
     """The bench's ``grad_mode=nuts`` cycle (bench.py:163-199)."""
     from ptmcmcsampler_torch import SamplerConfig, build_default_jumps
 
-    burn = BURN_ITERS // 2
     return SamplerConfig(
         ndim=D, ntemps=T, nchains=C, groups=(tuple(range(D)),),
         jumps=build_default_jumps(
             SCAMweight=10, AMweight=10, DEweight=10, NUTSweight=10, HMCweight=10, burn=burn,
             have_grads=True,
         ),
-        tskip=5, cov_update=1000, burn=burn, thin=1, de_size=2000, hmc_stepsize=HMC_EPS,
+        tskip=5, cov_update=cov_update, burn=burn, thin=1, de_size=2000, hmc_stepsize=HMC_EPS,
         hmc_nminsteps=HMC_NMIN, hmc_nmaxsteps=HMC_NMAX, nuts_max_depth=NUTS_DEPTH,
     )
 
 
-def phase_main_path(model, card, path, cfg, wrappers, absent=(), x0=(-0.1, -0.5),
-                    burn=BURN_ITERS, timed=TIMED_ITERS, block=BLOCK, stride=GATE_STRIDE):
-    """Run ``cfg`` at full width from ``x0``: ``burn`` then ``timed``
-    iterations in blocks of ``block``, keeping every ``stride``-th cold
-    chain of the timed ones on the card for the gate. ``wrappers`` maps each
-    jump kind whose kernel the path must launch once per iteration of that
-    kind to the kernel's wrapper (which counts its launches); the wrappers
-    in ``absent`` must not launch at all. A model without
-    ``posterior_moments`` (gaussian200) has no gate: it must end finite,
-    and its split R-hat is logged."""
-    from ptmcmcsampler_torch import build_step, init_state
-    from ptmcmcsampler_torch.diagnostics import moment_gate, multichain_ess, split_rhat
-    from ptmcmcsampler_torch.ladder import ladder_betas, temperature_ladder
+def counted_launches(stats, wrappers):
+    """Each wrapper's kernel launches over the span ``stats`` covers, counted
+    through the graphs: its calls, less those made under capture, plus each
+    graph's recorded calls times its replays (``kernel.BlockStats``)."""
+    return {key: stats.kernel_launches(w.__name__, w.launches) for key, w in wrappers.items()}
 
-    dev = torch.device(DEVICE)
-    t, d, c = cfg.ntemps, cfg.ndim, cfg.nchains
+
+def eager_block(step, cfg, state, n, kinds):
+    """``n`` iterations of the jump ``kinds`` as ``run_block`` ran them
+    before its graphs: ``step`` after ``step`` and a thinned row each
+    iteration into fresh buffers."""
+    from ptmcmcsampler_torch.utils import tempered_lnprob
+
+    t = cfg.ntemps
+    x = torch.empty((n,) + tuple(state.x.shape), device=state.x.device)
+    rows = torch.empty((5, n, t), device=state.x.device)
+    for r, kind in enumerate(kinds):
+        state = step(state, kind)
+        x[r] = state.x
+        rows[0, r] = state.lnlike[:, 0]
+        rows[1, r] = tempered_lnprob(state.lnlike[:, 0], state.lnprior[:, 0], state.betas)
+        rows[2, r] = state.counters.naccepted[:, 0]
+        rows[3, r] = state.counters.swaps_accepted[:, 0]
+        rows[4, r] = state.counters.swaps_proposed
+    return state
+
+
+def graph_pool_gb():
+    """GB of the allocator's segments that belong to a graph's private pool
+    (the memory a graph's replays write, which ``max_memory_allocated`` does
+    not see once the capture has ended), or "not measured"."""
+    segments = torch.cuda.memory._snapshot()["segments"]
+    if not segments or "segment_pool_id" not in segments[0]:
+        return "not measured"
+    return sum(seg["total_size"] for seg in segments
+               if tuple(seg["segment_pool_id"]) != (0, 0)) / 1e9
+
+
+def timed_window(fn, state, dev):
+    """``(seconds, peak GB allocated, state)`` of ``state = fn(state)``,
+    synchronised, the peak reset before."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    step, run_block = build_step(cfg, model, device=dev)
+    t0 = time.time()
+    state = fn(state)
+    torch.cuda.synchronize()
+    return time.time() - t0, torch.cuda.max_memory_allocated(dev) / 1e9, state
+
+
+def new_state(cfg, model, x0, dev, seed=7):
+    from ptmcmcsampler_torch import init_state
+    from ptmcmcsampler_torch.ladder import ladder_betas, temperature_ladder
+
+    t, d, c = cfg.ntemps, cfg.ndim, cfg.nchains
     _, betas = ladder_betas(temperature_ladder(d, t))
     x0 = np.asarray(x0, dtype=np.float64)
     xs = torch.tensor(x0, dtype=torch.float32, device=dev)[None, :, None].expand(t, d, c)
-    state = init_state(
-        cfg, 7, x0, np.eye(d), betas, model.lnlike(xs), model.lnprior(xs), device=dev
-    )
+    return init_state(cfg, seed, x0, np.eye(d), betas, model.lnlike(xs), model.lnprior(xs),
+                      device=dev)
+
+
+def phase_main_path(model, card, path, cfg, wrappers, absent=(), x0=(-0.1, -0.5),
+                    burn=BURN_ITERS, timed=TIMED_ITERS, block=BLOCK, stride=GATE_STRIDE,
+                    compare_iters=PROFILE_ITERS):
+    """Run ``cfg`` at full width from ``x0``: ``burn`` then ``timed``
+    iterations of ``run_block`` (its CUDA graphs) in blocks of ``block``,
+    keeping every ``stride``-th cold chain of the timed ones on the card for
+    the gate. ``wrappers`` maps each jump kind whose kernel the path must
+    launch once per iteration of that kind, counted through the graphs, to
+    the kernel's wrapper; the wrappers in ``absent`` must not launch at all.
+    At least MIN_REPLAYED_SHARE of the timed iterations must replay a graph.
+    A model without ``posterior_moments`` (gaussian200) has no gate: it must
+    end finite, and its split R-hat is logged. Then the eager loop the graphs
+    replaced against them on the path's final state, on the same jump kinds:
+    a block of each (wall and peak memory; the graphs' pool beside it), then
+    ``compare_iters`` iterations of each under the profiler."""
+    from ptmcmcsampler_torch import build_step
+    from ptmcmcsampler_torch.diagnostics import moment_gate, multichain_ess, split_rhat
+    from ptmcmcsampler_torch.proposals.cycle import draw_kinds
+
+    dev = torch.device(DEVICE)
+    t, d, c = cfg.ntemps, cfg.ndim, cfg.nchains
+    step, run_block = build_step(cfg, model, device=dev)
+    state = new_state(cfg, model, x0, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
 
     def every(n):  # log about ten blocks of a phase
         return max(1, n // 10)
 
+    stats = run_block.stats
     for w in (*wrappers.values(), *absent):
         w.launches = 0
+    stats.reset()
     t0 = time.time()
     for b in range(burn // block):
         state, out = run_block(state, block)
@@ -972,6 +1077,7 @@ def phase_main_path(model, card, path, cfg, wrappers, absent=(), x0=(-0.1, -0.5)
         if (b + 1) % every(burn // block) == 0:
             log(f"{path}: burn-in block {b + 1} at {time.time() - t0:.1f}s")
     cold = []
+    before = (sum(stats.replays.values()), stats.iterations)
     t1 = time.time()
     for b in range(timed // block):
         state, out = run_block(state, block)
@@ -981,19 +1087,26 @@ def phase_main_path(model, card, path, cfg, wrappers, absent=(), x0=(-0.1, -0.5)
             log(f"{path}: timed block {b + 1} at {time.time() - t1:.1f}s")
     elapsed = time.time() - t1
     del out
-    launches = {kind: w.launches for kind, w in wrappers.items()}
+    launches = counted_launches(stats, wrappers)
+    graphs = stats.summary()
+    graphs["timed_replayed_share"] = ((sum(stats.replays.values()) - before[0])
+                                      / (stats.iterations - before[1]))
     peak_mem_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
     kinds = [j.kind for j in cfg.jumps]
     for kind, n in launches.items():
         iters = int(state.counters.jump_proposed[kinds.index(kind), 0, 0])
-        log(f"{path}: {kind} kernel launches {n}, {kind} iterations {iters}")
+        log(f"{path}: {kind} kernel launches {n} (through the graphs), {kind} iterations {iters}")
         if n == 0 or n != iters:
             raise SystemExit(
                 f"path {path} did not launch the {kind} kernel once per {kind} iteration")
     for w in absent:
         if w.launches:
             raise SystemExit(f"path {path} launched {w.__name__} {w.launches} times")
+    log(f"{path}: graphs {graphs}")
+    if graphs["timed_replayed_share"] < MIN_REPLAYED_SHARE:
+        raise SystemExit(f"path {path}: only {graphs['timed_replayed_share']:.4f} of the timed "
+                         "iterations replayed a graph")
     if not (torch.isfinite(state.x).all() and state.x.shape == (t, d, c)):
         raise SystemExit(f"path {path}: state is not finite or has the wrong shape")
 
@@ -1007,6 +1120,23 @@ def phase_main_path(model, card, path, cfg, wrappers, absent=(), x0=(-0.1, -0.5)
         ok, max_z, ess = bool(torch.isfinite(chains).all()), None, multichain_ess(chains)
     rhat_max = float(np.nanmax(split_rhat(chains)))
     diag_sec = time.time() - t2
+    used = int(chains.shape[0])
+    del chains
+
+    # The eager loop against the graphs, on the final state and one kind
+    # sequence: a block of each, then each under the profiler.
+    kinds = draw_kinds(cfg, state.it, block, state.host_rng)
+    eager_sec, eager_peak_gb, state = timed_window(
+        lambda st: eager_block(step, cfg, st, block, kinds), state, dev)
+    graph_sec, graph_peak_gb, state = timed_window(
+        lambda st: run_block(st, block, kinds=kinds)[0], state, dev)
+    kinds = draw_kinds(cfg, state.it, compare_iters, state.host_rng)
+    state, graph_prof = phase_profile(state, lambda st, n: run_block(st, n, kinds=kinds)[0],
+                                      path, iters=compare_iters, iterations="all, graphs")
+    state, eager_prof = phase_profile(state, lambda st, n: eager_block(step, cfg, st, n, kinds),
+                                      path, iters=compare_iters, iterations="all, eager")
+    eager_ips, window_ips = block / eager_sec, block / graph_sec
+
     ctr = state.counters
     acc = (ctr.jump_accepted[:, 0].sum(-1).double()
            / ctr.jump_proposed[:, 0].sum(-1).clamp(min=1).double()).tolist()
@@ -1019,7 +1149,7 @@ def phase_main_path(model, card, path, cfg, wrappers, absent=(), x0=(-0.1, -0.5)
         "iters_per_sec": timed / elapsed,
         "ess_per_sec": float(ess.min()) / elapsed,
         "ess_min_dim": float(ess.min()),
-        "ess_chains_used": int(chains.shape[0]),
+        "ess_chains_used": used,
         "moments_ok": ok,
         "moments_max_z": max_z,
         "rhat_max": rhat_max,
@@ -1028,12 +1158,117 @@ def phase_main_path(model, card, path, cfg, wrappers, absent=(), x0=(-0.1, -0.5)
         "diagnostics_sec": diag_sec,
         "cold_acceptance": dict(zip(cfg.jump_names(), acc)),
         "launches": launches,
+        "graphs": graphs,
         "peak_mem_gb": peak_mem_gb,
+        # A block of the graphs and of the eager loop on the same kinds.
+        "graph_block": {
+            "iters_per_sec": window_ips,
+            "peak_mem_gb": graph_peak_gb,
+            "pool_gb": graph_pool_gb(),
+            "profile": {k: graph_prof[k] for k in PROFILE_KEYS},
+            # The profiled device ms an iteration at the unprofiled rate of
+            # the timed run (the profiler slows the host).
+            "device_busy_share_at_timed_rate":
+                graph_prof["device_ms_per_iter"] * timed / elapsed / 1e3
+                if isinstance(graph_prof["device_ms_per_iter"], float) else "not measured",
+        },
+        "eager": {
+            # The graphs' chains equal the eager loop's bit for bit (the
+            # "graphs" lines): the eager loop's ESS/s is this ESS/s scaled
+            # by the two blocks' rates on the same kinds.
+            "iters_per_sec": eager_ips,
+            "ess_per_sec": float(ess.min()) / elapsed * eager_ips / window_ips,
+            "wall_ms_per_iter": 1e3 * eager_sec / block,
+            "peak_mem_gb": eager_peak_gb,
+            "profile": {k: eager_prof[k] for k in PROFILE_KEYS},
+            "device_busy_share_at_block_rate":
+                eager_prof["device_ms_per_iter"] * eager_ips / 1e3
+                if isinstance(eager_prof["device_ms_per_iter"], float) else "not measured",
+        },
         "card": name,
         "power_limit": power,
     }
-    del chains
     return state, (step, run_block), result, ok
+
+
+# The graphs check: run_block's CUDA graphs against the eager step loop at
+# full width over GRAPHS_ITERS iterations that cross swaps (tskip 5), the end
+# of adaptation and of DE's wait (burn) and factor refreshes (cov_update):
+# burn and cov_update are cut from the paths' 1500 and 1000 to GRAPHS_BURN
+# and GRAPHS_COV_UPDATE so that 300 iterations cross them. run_block runs in
+# blocks of GRAPHS_BLOCK.
+GRAPHS_ITERS, GRAPHS_BURN, GRAPHS_COV_UPDATE, GRAPHS_BLOCK = 300, 100, 100, 50
+
+
+def phase_graphs(model, card, path, cfg, wrappers, x0):
+    """The graphs phase of the docstring: prints its JSON line; fails unless
+    the two agree bit for bit and each kernel launched once per iteration
+    of its kind in both (through the graphs in ``run_block``)."""
+    from ptmcmcsampler_torch import build_step
+    from ptmcmcsampler_torch.proposals.cycle import draw_kinds
+    from ptmcmcsampler_torch.state import state_tensors
+
+    dev = torch.device(DEVICE)
+    step, run_block = build_step(cfg, model, device=dev)
+    eager, graph = new_state(cfg, model, x0, dev), new_state(cfg, model, x0, dev)
+    kinds = draw_kinds(cfg, 0, GRAPHS_ITERS, eager.host_rng)
+    draw_kinds(cfg, 0, GRAPHS_ITERS, graph.host_rng)  # the host generators stay equal
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for kind in kinds:
+        eager = step(eager, kind)
+    torch.cuda.synchronize()
+    eager_sec = time.time() - t0
+    eager_launches = {k: w.launches for k, w in wrappers.items()}
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.time()
+    for i in range(0, GRAPHS_ITERS, GRAPHS_BLOCK):
+        graph, _ = run_block(graph, GRAPHS_BLOCK, kinds=kinds[i:i + GRAPHS_BLOCK])
+    torch.cuda.synchronize()
+    graph_sec = time.time() - t0
+    stats = run_block.stats
+    graph_launches = counted_launches(stats, wrappers)
+
+    def bits(a):
+        return a.contiguous().reshape(-1).view(torch.uint8)
+
+    te, tg = state_tensors(eager), state_tensors(graph)
+    differ = [p for p in te if not torch.equal(bits(te[p]), bits(tg[p]))]
+    if (eager.it, eager.de.filled, eager.adapt.structure) != (
+            graph.it, graph.de.filled, graph.adapt.structure):
+        differ.append("host fields")
+    differ += [g for g in ("rng", "host_rng")
+               if not torch.equal(getattr(eager, g).get_state(), getattr(graph, g).get_state())]
+    names = [j.kind for j in cfg.jumps]
+    iters = {k: int(graph.counters.jump_proposed[names.index(k), 0, 0]) for k in wrappers}
+    summary = stats.summary()
+    name, power = [v.strip() for v in card.split(",", 1)]
+    result = {
+        "phase": "graphs", "path": path, "model": type(model).__name__, "ndim": cfg.ndim,
+        "chains": [cfg.ntemps, cfg.nchains], "iters": GRAPHS_ITERS, "block": GRAPHS_BLOCK,
+        "cuts": {"burn": {"path": BURN_ITERS // 2, "run": cfg.burn},
+                 "cov_update": {"path": 1000, "run": cfg.cov_update}},
+        "bitwise_equal": not differ, "differ": differ, "tensors_compared": len(te),
+        "eager_sec": eager_sec, "graph_sec": graph_sec,
+        "eager_ms_per_iter": 1e3 * eager_sec / GRAPHS_ITERS,
+        "graph_ms_per_iter": 1e3 * graph_sec / GRAPHS_ITERS,
+        "graph_ms_per_iter_without_capture":
+            1e3 * (graph_sec - summary["capture_sec"]) / GRAPHS_ITERS,
+        **summary, "graph_keys": [list(map(str, k)) for k in stats.recorded],
+        "iterations_by_kind": iters, "eager_launches": eager_launches,
+        "graph_launches": graph_launches, "card": name, "power_limit": power,
+    }
+    print(json.dumps(result), flush=True)
+    if differ:
+        raise SystemExit(f"graphs {path}: the graphs and the eager loop differ in {differ}")
+    if any(n != iters[k] or eager_launches[k] != iters[k] or not n
+           for k, n in graph_launches.items()):
+        raise SystemExit(f"graphs {path}: launches {graph_launches} (graphs), {eager_launches} "
+                         f"(eager) for iterations {iters}")
+    return result
 
 
 def print_result(result, ok):
@@ -1084,20 +1319,11 @@ def phase_profile(state, advance, path, iters=PROFILE_ITERS, iterations="all"):
     return state, result
 
 
-def advance_blocks(run_block):
-    return lambda state, iters: run_block(state, iters)[0]
-
-
-def advance_kind(step, cfg, kind):
-    """``iters`` iterations of one jump kind, by ``step(state, kind)``."""
+def advance_kind(run_block, cfg, kind):
+    """``iters`` iterations of one jump kind, replayed by ``run_block`` (with
+    its row copies, one row an iteration)."""
     index = [j.kind for j in cfg.jumps].index(kind)
-
-    def advance(state, iters):
-        for _ in range(iters):
-            state = step(state, index)
-        return state
-
-    return advance
+    return lambda state, iters: run_block(state, iters, kinds=[index] * iters)[0]
 
 
 def kernel_entry(name, replaces, launches, max_err, kernel_ms, wrapper_ms, plain_ms, bytes_moved,
@@ -1426,22 +1652,30 @@ def nuts_path_extras(model, state):
     return {"nuts_eps": state.stepsize.epsilon.mean(1).tolist(), **tree_stats(out[4], out[5])}
 
 
-def time_drains(sampler, seconds):
-    """Record the host seconds of each of ``sampler``'s drains and
-    checkpoints in ``seconds[name]``, the device queue drained first, so
-    that a drain's time holds no wait for its block's device work."""
-    for name in ("_drain_block", "_save_checkpoint"):
+def time_drains(sampler, seconds, sync=False):
+    """Record the host seconds of each of ``sampler``'s drains, checkpoints
+    and neff checks in ``seconds[name]``. With ``sync`` (the serial loop,
+    whose drain reads the card) the device queue is drained first, so that a
+    drain's time holds no wait for its block's device work. Without it (the
+    overlapped loop, which drains a host copy while the card runs the next
+    block) ``seconds["busy_after"]`` records, after each checkpoint, whether
+    the card was still running the next block: the drain was hidden."""
+    for name in ("_drain_block", "_save_checkpoint", "_neff_value"):
         fn = getattr(sampler, name)
 
         def timed(*args, _fn=fn, _name=name):
-            torch.cuda.synchronize()
+            if sync:
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = _fn(*args)
             seconds[_name].append(time.perf_counter() - t0)
+            if _name == "_save_checkpoint" and not sync:
+                seconds["busy_after"].append(not torch.cuda.current_stream().query())
             return out
 
         setattr(sampler, name, timed)
         seconds[name] = []
+    seconds["busy_after"] = []
 
 
 def iterations(sampler, kind):
@@ -1451,13 +1685,42 @@ def iterations(sampler, kind):
 
 def drain_stats(seconds, wall):
     drains, ckpts = seconds["_drain_block"], seconds["_save_checkpoint"]
-    return {
+    out = {
         "drains": len(drains),
         "drain_ms_per_block": 1e3 * float(np.mean(drains)),
         "drain_share": float(np.sum(drains)) / wall,
         "checkpoint_ms_per_drain": 1e3 * float(np.mean(ckpts)),
         "checkpoint_share": float(np.sum(ckpts)) / wall,
+        "neff_sec": float(np.sum(seconds["_neff_value"])),
     }
+    if seconds["busy_after"]:
+        out["drains_hidden"] = int(np.sum(seconds["busy_after"]))
+    return out
+
+
+def same_files(a, b):
+    """Whether two output directories hold the same files with the same
+    bytes (a checkpoint ``.npz`` by its arrays: the zip stamps its time)."""
+    names = sorted(os.listdir(a))
+    if names != sorted(os.listdir(b)):
+        return False
+    for name in names:
+        pa, pb = os.path.join(a, name), os.path.join(b, name)
+        if name.endswith(".npz"):
+            with np.load(pa) as x, np.load(pb) as y:
+                if x.files != y.files or any(
+                        x[k].dtype != y[k].dtype or x[k].shape != y[k].shape
+                        or x[k].tobytes() != y[k].tobytes() for k in x.files):
+                    return False
+        else:
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                while True:
+                    ca, cb = fa.read(1 << 24), fb.read(1 << 24)
+                    if ca != cb:
+                        return False
+                    if not ca:
+                        break
+    return True
 
 
 def curved_sampler(model, outdir, callables="bound", nchains=None, grads=True, **kw):
@@ -1486,7 +1749,7 @@ def phase_sampler(model, card, path1_iters_per_sec, wrappers):
     root = tempfile.mkdtemp(prefix="chip_smoke_sampler_")
     outdir = os.path.join(root, "chains")
     try:
-        # (a) Full width, the kernel route.
+        # (a) Full width, the kernel route, the overlapped loop.
         for w in wrappers.values():
             w.launches = 0
         torch.cuda.synchronize()
@@ -1499,7 +1762,7 @@ def phase_sampler(model, card, path1_iters_per_sec, wrappers):
             s.sample([-0.1, -0.5], SAMPLER_ITERS, **SAMPLER_KW)
             torch.cuda.synchronize()
             wall = time.time() - t0
-        launches = {name: w.launches for name, w in wrappers.items()}
+        launches = counted_launches(s.block_stats, wrappers)
         peak_mem_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         chees_iters = iterations(s, KIND_CHEES)
         log(f"sampler: route {s.route}, {chees_iters} ChEES iterations, launches {launches}, "
@@ -1538,6 +1801,8 @@ def phase_sampler(model, card, path1_iters_per_sec, wrappers):
         result = {
             "phase": "sampler",
             "route": s.route,
+            "loop": "overlapped",
+            "graphs": s.block_stats.summary(),
             "iters_per_sec": SAMPLER_ITERS / wall,
             "path1_run_block_iters_per_sec": path1_iters_per_sec,
             "wall_sec": wall,
@@ -1573,7 +1838,7 @@ def phase_sampler(model, card, path1_iters_per_sec, wrappers):
             s.sample([-0.1, -0.5], SAMPLER_RESUME_ITERS, **SAMPLER_KW)
             torch.cuda.synchronize()
             wall = time.time() - t0
-        resumed_launches = {name: w.launches for name, w in wrappers.items()}
+        resumed_launches = counted_launches(s.block_stats, wrappers)
         resumed_iters = iterations(s, KIND_CHEES) - chees_iters
         rows = 1 + SAMPLER_RESUME_ITERS // thin
         text_rows = np.loadtxt(os.path.join(outdir, "chain_1.0.txt"), ndmin=2).shape[0]
@@ -1599,7 +1864,32 @@ def phase_sampler(model, card, path1_iters_per_sec, wrappers):
         }
         del s
 
-        # (c) The plain route: torch lambdas, no functor. With gradients the
+        # (c) The serial loop (a neff too large to stop the run) against the
+        # overlapped one, SERIAL_ITERS iterations each from the same seed:
+        # the same bytes in every file, and each loop's wall.
+        loops = {}
+        for loop, neff in (("overlapped", None), ("serial", 10**12)):
+            seconds = {}
+            with contextlib.redirect_stdout(sys.stderr):
+                s = curved_sampler(model, os.path.join(root, loop), seed=7)
+                time_drains(s, seconds, sync=neff is not None)
+                t0 = time.time()
+                s.sample([-0.1, -0.5], SERIAL_ITERS, neff=neff, **SAMPLER_KW)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            stats = drain_stats(seconds, wall)
+            loops[loop] = {"iters_per_sec": SERIAL_ITERS / wall, "wall_sec": wall,
+                           "iters_per_sec_without_neff": SERIAL_ITERS / (wall - stats["neff_sec"]),
+                           "replayed_share": s.block_stats.summary()["replayed_share"], **stats}
+            del s
+        same = same_files(os.path.join(root, "overlapped"), os.path.join(root, "serial"))
+        log(f"sampler serial vs overlapped: {loops}, files equal: {same}")
+        result["serial_vs_overlapped"] = {"iters": SERIAL_ITERS, "files_equal": same, **loops}
+        if not same:
+            print(json.dumps(result), flush=True)
+            raise SystemExit("sampler: the overlapped and the serial loop wrote different files")
+
+        # (d) The plain route: torch lambdas, no functor. With gradients the
         # card is refused (a kernel wrapper there launches or raises);
         # without, SCAM/AM/DE run on the card and no kernel launches.
         try:
@@ -1622,7 +1912,7 @@ def phase_sampler(model, card, path1_iters_per_sec, wrappers):
             s.sample([-0.1, -0.5], PLAIN_ITERS, **PLAIN_KW)
             torch.cuda.synchronize()
             wall = time.time() - t0
-        plain_launches = {name: w.launches for name, w in wrappers.items()}
+        plain_launches = counted_launches(s.block_stats, wrappers)
         jumps = s.config.jump_names()
         post = s.chains[:, PLAIN_KW["burn"] // PLAIN_KW["thin"] + 1:]
         plain_ok, plain_z, _ = moment_gate(post, target)
@@ -1637,7 +1927,7 @@ def phase_sampler(model, card, path1_iters_per_sec, wrappers):
             "route": s.route, "chains": [T, PLAIN_C], "iters": PLAIN_ITERS,
             "iters_per_sec": PLAIN_ITERS / wall, "jumps": list(jumps),
             "launches": plain_launches, "moments_ok": plain_ok, "moments_max_z": plain_z,
-            "with_gradients": "refused",
+            "with_gradients": "refused", "graphs": s.block_stats.summary(),
         }
         return result, {"sampler": launches["chees_step"],
                         "sampler_resume": resumed_launches["chees_step"]}
@@ -1666,8 +1956,9 @@ def wide_counts(name, d, iters=None):
     return block, burn, timed, cuts, stride
 
 
-def wide_config(d, burn):
-    """Path 1's cycle on a wide workload, bench.py's settings."""
+def wide_config(d, burn, cov_update=1000):
+    """Path 1's cycle on a wide workload, bench.py's settings (adaptation
+    over the first half of ``burn``)."""
     from ptmcmcsampler_torch import SamplerConfig, build_default_jumps
 
     return SamplerConfig(
@@ -1676,7 +1967,8 @@ def wide_config(d, burn):
             SCAMweight=10, AMweight=10, DEweight=10, CHEESweight=20, burn=burn // 2,
             have_grads=True,
         ),
-        tskip=5, cov_update=1000, burn=burn // 2, thin=1, de_size=2000, hmc_stepsize=HMC_EPS,
+        tskip=5, cov_update=cov_update, burn=burn // 2, thin=1, de_size=2000,
+        hmc_stepsize=HMC_EPS,
     )
 
 
@@ -1696,11 +1988,12 @@ def phase_wide_path(name, card, max_err, chees_ptxas):
     cfg = wide_config(d, burn)
     state, (step, run_block), result, ok = phase_main_path(
         model, card, name, cfg, {KIND_CHEES: chees_step}, absent=(chees_trajectories,), x0=x0,
-        burn=burn, timed=timed, block=block, stride=stride)
-    del run_block
-    state, prof = phase_profile(state, advance_kind(step, cfg, KIND_CHEES), name,
+        burn=burn, timed=timed, block=block, stride=stride,
+        compare_iters=PROFILE_ITERS if d <= 64 else 20)
+    state, prof = phase_profile(state, advance_kind(run_block, cfg, KIND_CHEES), name,
                                 iters=PROFILE_ITERS if name == "hierarchical" else 20,
-                                iterations=f"{KIND_CHEES} only")
+                                iterations=f"{KIND_CHEES} only, graphs")
+    del run_block
     result.update(
         workload=name, block=block, burn_iters=burn, timed_iters=timed, gate_stride=stride,
         cuts=cuts,
@@ -1925,7 +2218,7 @@ def phase_wide_sampler(card, wrappers):
             s.sample(np.zeros(d), WIDE_SAMPLER_ITERS, **WIDE_SAMPLER_KW)
             torch.cuda.synchronize()
             wall = time.time() - t0
-        launches = {name: w.launches for name, w in wrappers.items()}
+        launches = counted_launches(s.block_stats, wrappers)
         iters = {kind: iterations(s, kind) for kind in (KIND_CHEES, KIND_NUTS, KIND_HMC)}
         thin = WIDE_SAMPLER_KW["thin"]
         rows = 1 + WIDE_SAMPLER_ITERS // thin
@@ -1954,6 +2247,7 @@ def phase_wide_sampler(card, wrappers):
         acc = dict(zip(s.config.jump_names(), (
             s.state.counters.jump_accepted[:, 0].sum(-1).double()
             / s.state.counters.jump_proposed[:, 0].sum(-1).clamp(min=1).double()).tolist()))
+        graphs = s.block_stats.summary()
         del s
 
         for w in wrappers.values():
@@ -1979,6 +2273,7 @@ def phase_wide_sampler(card, wrappers):
             "iterations_by_kind": iters, "launches": launches, "cold_acceptance": acc,
             "moments_ok": ok, "moments_max_z": max_z, "ess_min_dim": float(ess.min()),
             "rows": int(text.shape[0]), "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "graphs": graphs,
             "refused_300d": refusal, "card": name, "power_limit": power,
         }
         return result, launches
@@ -2137,7 +2432,7 @@ def phase_wide_nuts_hmc_vs_plain(name, model):
     return err
 
 
-def wide_nuts_config(d, burn):
+def wide_nuts_config(d, burn, cov_update=1000):
     """Path 2's cycle (bench.py's grad_mode=nuts, bench.py:163-199) on a wide
     workload."""
     from ptmcmcsampler_torch import SamplerConfig, build_default_jumps
@@ -2148,7 +2443,8 @@ def wide_nuts_config(d, burn):
             SCAMweight=10, AMweight=10, DEweight=10, NUTSweight=10, HMCweight=10,
             burn=burn // 2, have_grads=True,
         ),
-        tskip=5, cov_update=1000, burn=burn // 2, thin=1, de_size=2000, hmc_stepsize=HMC_EPS,
+        tskip=5, cov_update=cov_update, burn=burn // 2, thin=1, de_size=2000,
+        hmc_stepsize=HMC_EPS,
         hmc_nminsteps=HMC_NMIN, hmc_nmaxsteps=HMC_NMAX, nuts_max_depth=NUTS_DEPTH,
     )
 
@@ -2183,8 +2479,8 @@ def phase_wide_nuts_path(name, card, err, ptxas):
     cfg = wide_nuts_config(d, burn)
     state, (step, run_block), result, ok = phase_main_path(
         model, card, f"nuts/{name}", cfg, {KIND_NUTS: nuts_trees, KIND_HMC: hmc_step},
-        absent=(hmc_trajectories,), x0=x0, burn=burn, timed=timed, block=block, stride=stride)
-    del run_block
+        absent=(hmc_trajectories,), x0=x0, burn=burn, timed=timed, block=block, stride=stride,
+        compare_iters=PROFILE_ITERS if d <= 64 else 20)
     dev = state.x.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(96)
@@ -2196,8 +2492,9 @@ def phase_wide_nuts_path(name, card, err, ptxas):
     nalpha, alive = trees[4], trees[5]
     efficiency = group_lane_efficiency(nalpha, wide_group(d))
     del trees
-    state, prof = phase_profile(state, advance_kind(step, cfg, KIND_NUTS), f"nuts/{name}",
-                                iters=5 if d > 64 else 20, iterations=f"{KIND_NUTS} only")
+    state, prof = phase_profile(state, advance_kind(run_block, cfg, KIND_NUTS), f"nuts/{name}",
+                                iters=5 if d > 64 else 20, iterations=f"{KIND_NUTS} only, graphs")
+    del run_block
     result.update(
         workload=name, block=block, burn_iters=burn, timed_iters=timed, gate_stride=stride,
         cuts=cuts, nuts_eps=state.stepsize.epsilon.mean(1).tolist(),
@@ -2478,30 +2775,40 @@ def main():
     wide2_err = {name: phase_wide_nuts_hmc_vs_plain(name, wide_workload(name)[0])
                  for name in WIDE_NUTS_ITERS}
 
+    path1 = {KIND_CHEES: chees_step}
+    path2 = {KIND_NUTS: nuts_trees, KIND_HMC: hmc_step}
+    hier, hier_x0 = wide_workload("hierarchical")
+    cut = dict(cov_update=GRAPHS_COV_UPDATE)
+    for path, cfg, m, x0, wrappers in (
+            ("chees", headline_config(GRAPHS_BURN, **cut), model, (-0.1, -0.5), path1),
+            ("nuts", nuts_config(GRAPHS_BURN, **cut), model, (-0.1, -0.5), path2),
+            ("hierarchical", wide_config(hier.ndim, 2 * GRAPHS_BURN, **cut), hier, hier_x0, path1),
+            ("nuts/hierarchical", wide_nuts_config(hier.ndim, 2 * GRAPHS_BURN, **cut), hier,
+             hier_x0, path2)):
+        phase_graphs(m, card, path, cfg, wrappers, x0)
+        torch.cuda.empty_cache()
+
     cfg = headline_config()
     state, (step, run_block), result, ok = phase_main_path(
-        model, card, "chees", cfg, {KIND_CHEES: chees_step}, absent=(chees_trajectories,))
+        model, card, "chees", cfg, path1, absent=(chees_trajectories,))
     result.update(chees_eps=state.stepsize.chees_eps[:, 0].tolist(),
                   chees_tlen=state.stepsize.chees_tlen[:, 0].tolist())
     print_result(result, ok)
     path1_iters_per_sec = result["iters_per_sec"]
     launches = {"chees_step": result["launches"][KIND_CHEES], "chees_trajectories": 0}
-    state, _ = phase_profile(state, advance_blocks(run_block), "chees")
-    state, _ = phase_profile(state, advance_kind(step, cfg, KIND_CHEES), "chees",
-                             iterations=f"{KIND_CHEES} only")
+    state, _ = phase_profile(state, advance_kind(run_block, cfg, KIND_CHEES), "chees",
+                             iterations=f"{KIND_CHEES} only, graphs")
     kernels = [chees_kernel_entry(model, state, launches, err["chees"])]
     del state, step, run_block
 
     cfg = nuts_config()
     state, (step, run_block), result, ok = phase_main_path(
-        model, card, "nuts", cfg, {KIND_NUTS: nuts_trees, KIND_HMC: hmc_step},
-        absent=(hmc_trajectories,))
+        model, card, "nuts", cfg, path2, absent=(hmc_trajectories,))
     result.update(nuts_path_extras(model, state))
     print_result(result, ok)
     launches = result["launches"]
-    state, _ = phase_profile(state, advance_blocks(run_block), "nuts")
-    state, _ = phase_profile(state, advance_kind(step, cfg, KIND_HMC), "nuts",
-                             iterations=f"{KIND_HMC} only")
+    state, _ = phase_profile(state, advance_kind(run_block, cfg, KIND_HMC), "nuts",
+                             iterations=f"{KIND_HMC} only, graphs")
     kernels.append(nuts_kernel_entry(model, state, launches[KIND_NUTS], err["nuts"]))
     kernels.append(hmc_kernel_entry(
         model, state, {"hmc_step": launches[KIND_HMC], "hmc_trajectories": 0}, err["hmc"],

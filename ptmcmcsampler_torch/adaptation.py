@@ -82,18 +82,23 @@ def de_buffer_push(de: DEState, xs: torch.Tensor) -> DEState:
     The law is the JAX package's: column ``(start + i) % B`` takes
     ``xs[:, i]``, with ``start = filled % B``. The JAX version writes it as a
     masked roll, because a traced-index scatter is slow on a TPU; here the
-    start is a host integer, so the write is one or two slice copies, done
-    in place on ``de.buf``. The count stays below ``2 * B``
+    columns are written in place on ``de.buf`` through a device index,
+    ``(de.start + arange(m)) % B``, so a captured step reads the start from
+    the device and no host value is frozen into it. The host-known count
+    advances as before and stays below ``2 * B``
     (:func:`~ptmcmcsampler_torch.state.de_fill_count`).
     """
     rows = de.buf.shape[1]
     m = xs.shape[1]
-    start = de.filled % rows
-    head = min(m, rows - start)
-    de.buf[:, start:start + head] = xs[:, :head]
-    if head < m:
-        de.buf[:, : m - head] = xs[:, head:]
-    return DEState(buf=de.buf, filled=de_fill_count(de.filled + m, rows))
+    cols = (de.start + torch.arange(m, device=de.buf.device)) % rows
+    de.buf.index_copy_(1, cols, xs)
+    return DEState(buf=de.buf, filled=de_filled_after(de, m), start=(de.start + m) % rows)
+
+
+def de_filled_after(de: DEState, m: int) -> int:
+    """The host count after ``m`` more columns: what the block runner keeps
+    on the host for an iteration whose push ran inside a graph."""
+    return de_fill_count(de.filled + m, de.buf.shape[1])
 
 
 def de_valid_rows(de: DEState) -> int:

@@ -46,7 +46,9 @@ def save_checkpoint(path, state, meta=None, key=None):
     arrays["key"] = np.zeros(2, np.uint32) if key is None else np.asarray(key, np.uint32)
     arrays["torch/rng"] = state.rng.get_state().numpy()
     arrays["torch/host_rng"] = state.host_rng.get_state().numpy()
-    arrays["torch/device"] = np.asarray(state.x.device.type)
+    # The generators' device: the sampler checkpoints a host copy of a state
+    # on the card, whose generators stay the card's.
+    arrays["torch/device"] = np.asarray(state.rng.device.type)
     tmp = path + ".tmp.npz"
     np.savez(tmp, **arrays)
     os.replace(tmp, path)

@@ -7,23 +7,36 @@ One step, for the whole ``[ntemps, nchains]`` batch at once:
 
 as in the JAX package's ``kernel.build_step``. Every cadence and the jump
 kind are host integers (the kinds are drawn a block at a time), so a step
-never reads a value back from the device; ``run_block`` does not either.
-The one exception is ``torch.linalg.eigh`` in the factor refresh, which
-synchronises on CUDA once every ``cov_update`` iterations.
+never reads a value back from the device. The one exception is
+``torch.linalg.eigh`` in the factor refresh, which synchronises on CUDA once
+every ``cov_update`` iterations.
+
+The JAX package's ``run_block`` is one compiled ``lax.scan``, so a block
+reaches the TPU as one program. Here, on the card, ``run_block`` replays
+CUDA graphs of the step: every host-side decision of an iteration
+(:func:`step_key`) keys one graph, captured on the runner's static state (a
+holder whose tensors keep their addresses, ``state.copy_into``). A key's
+first iteration runs eagerly on a side stream (PyTorch's warm-up rule, which
+also builds any kernel library outside a capture); its next use captures the
+graph, and every later one replays it. The factor refresh and the thinned
+rows run eagerly between replays. On the CPU, and for models whose callables
+run on the host, ``run_block`` runs the same body eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple
 
 import torch
 
 from . import adaptation, swaps, utils
-from .config import SamplerConfig
+from .config import KIND_CHEES, KIND_DE, KIND_NUTS, SamplerConfig
+from .ops import chees as ops_chees, hmc as ops_hmc, nuts as ops_nuts
 from .proposals.base import ProposalContext
 from .proposals.cycle import build_jump_branches, draw_kinds
-from .state import SS_FIELDS, SamplerState
+from .state import SS_FIELDS, SamplerState, copy_into, map_state
 
 
 class BlockOutput(NamedTuple):
@@ -61,30 +74,160 @@ def _accept_logratio(new_ll, new_lp, old_ll, old_lp, qxy, betas):
     return torch.where(torch.isnan(raw), float("-inf"), raw)
 
 
-def history_updates(config: SamplerConfig, state: SamplerState, it) -> SamplerState:
-    """Welford moments and the DE ring every iteration; the factor refresh at
-    the end of every ``cov_update``-th iteration, which consumes the same
-    samples as the reference's refresh at the top of the next
-    (PTMCMCSampler.py:545-546)."""
+def history_push(config: SamplerConfig, state: SamplerState) -> SamplerState:
+    """Welford moments and the DE ring, every iteration."""
     if config.adapt_from == "all":
         xs = state.x.movedim(1, 0).reshape(config.ndim, -1)
     else:
         xs = state.x[0]  # cold-temperature chains [D, C]
     adapt = adaptation.welford_batch_update(state.adapt, xs)
     de = adaptation.de_buffer_push(state.de, state.x[0])
-    if it % config.cov_update == 0 and it > 0:
-        adapt = adaptation.refresh_factors(config, adapt)
     return dataclasses.replace(state, adapt=adapt, de=de)
 
 
-def build_step(config: SamplerConfig, model, device="cuda"):
-    """Build ``step(state, kind=None) -> state`` and
-    ``run_block(state, nrows) -> (state, BlockOutput)``.
+def refresh_due(config: SamplerConfig, it) -> bool:
+    return it % config.cov_update == 0 and it > 0
+
+
+def refresh(config: SamplerConfig, state: SamplerState, it) -> SamplerState:
+    """The factor refresh at the end of every ``cov_update``-th iteration,
+    which consumes the same samples as the reference's refresh at the top
+    of the next (PTMCMCSampler.py:545-546)."""
+    if not refresh_due(config, it):
+        return state
+    return dataclasses.replace(state, adapt=adaptation.refresh_factors(config, state.adapt))
+
+
+def history_updates(config: SamplerConfig, state: SamplerState, it) -> SamplerState:
+    """:func:`history_push`, then :func:`refresh`."""
+    return refresh(config, history_push(config, state), it)
+
+
+def step_key(config: SamplerConfig, state: SamplerState, it, kind) -> tuple:
+    """Every host-side decision iteration ``it`` of jump ``kind`` makes from
+    ``state`` (its host fields before the iteration): the jump, whether a
+    swap sweep is due, whether adaptation runs (ChEES and NUTS read ``it <=
+    burn``), the DE ring's valid rows (DE's draw range) and the factors'
+    structure tag (a launch argument of the wide kernels). Two iterations
+    with one key run the same device work, so one CUDA graph serves both.
+    The factor refresh is not part of it: it runs outside every graph."""
+    jump = config.jumps[kind].kind
+    return (
+        kind,
+        config.ntemps > 1 and it % config.tskip == 0,
+        it <= config.burn if jump in (KIND_CHEES, KIND_NUTS) else None,
+        adaptation.de_valid_rows(state.de) if jump == KIND_DE else None,
+        state.adapt.structure,
+    )
+
+
+def _wrapper_calls():
+    """The calls each kernel wrapper has counted (its ``launches``), by name."""
+    wrappers = (ops_chees.chees_step, ops_chees.chees_trajectories, ops_hmc.hmc_step,
+                ops_hmc.hmc_trajectories, ops_nuts.nuts_trees)
+    return {w.__name__: w.launches for w in wrappers}
+
+
+def _graphs_on(device) -> bool:
+    """Whether ``run_block`` captures graphs on ``device``: on the card."""
+    return device.type == "cuda"
+
+
+class _CudaGraphs:
+    """A runner's warm-ups and captures on the card.
+
+    Both run on one side stream of the runner's, so the state a step makes
+    lazily for each stream it runs on (a cuBLAS workspace, 32 MiB on an
+    H100, which PyTorch keeps for the process) is made once a runner and not
+    once a warm-up. The graphs share one memory pool: no tensor made under
+    capture outlives it (the body's results are copied into the holder),
+    and the graphs replay one at a time on one stream, so the pool holds one
+    iteration's intermediates.
+    """
+
+    def __init__(self, device):
+        self.side = torch.cuda.Stream(device)
+        self.pool = None
+
+    def warm_up(self, fn):
+        """Run ``fn()`` eagerly on the side stream, ordered after and before
+        the current stream's work: a key's first iteration."""
+        current = torch.cuda.current_stream(self.side.device)
+        self.side.wait_stream(current)
+        with torch.cuda.stream(self.side):
+            fn()
+        current.wait_stream(self.side)
+
+    def capture(self, fn, static):
+        """A CUDA graph of ``fn()``, a step on the holder ``static``, with the
+        generator ``static.rng`` registered: each replay draws at its current
+        Philox offset and advances it as an eager run of ``fn`` does."""
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(static.rng)
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.side):
+            fn()
+        return graph
+
+
+class BlockStats:
+    """What ``run_block`` did since it was built or last ``reset()``.
+
+    A wrapper counts one call when it launches its kernel; under capture
+    that call only records the launch, which each replay then makes. So a
+    kernel's device launches are its wrapper's calls, less the calls made
+    under capture, plus for each graph the calls it recorded times its
+    replays (:meth:`kernel_launches`).
+    """
+
+    def __init__(self):
+        self.recorded = {}  # graph key -> {wrapper: calls recorded at capture}
+        self.reset()
+
+    def reset(self):
+        self.captured = 0  # graphs captured
+        self.capture_sec = 0.0
+        self.captured_calls = {}  # wrapper -> calls made under capture
+        self.replays = {}  # graph key -> replays
+        self.eager = {"warm-up": 0, "no capture": 0}  # eager iterations by reason
+        self.refreshes = 0  # factor refreshes, run eagerly after their iteration
+
+    @property
+    def iterations(self):
+        return sum(self.replays.values()) + sum(self.eager.values())
+
+    def kernel_launches(self, name, calls):
+        """Device launches of wrapper ``name``'s kernel, from its ``calls``
+        counted over the same span."""
+        replayed = sum(rec.get(name, 0) * self.replays.get(key, 0)
+                       for key, rec in self.recorded.items())
+        return calls - self.captured_calls.get(name, 0) + replayed
+
+    def summary(self):
+        n = self.iterations
+        return {
+            "graphs": len(self.recorded),
+            "captured": self.captured,
+            "capture_sec": self.capture_sec,
+            "iterations": n,
+            "replays": sum(self.replays.values()),
+            "replayed_share": sum(self.replays.values()) / n if n else None,
+            "eager": dict(self.eager),
+            "refreshes": self.refreshes,
+        }
+
+
+def build_step(config: SamplerConfig, model, device="cuda", capture=True):
+    """Build ``step(state, kind=None) -> state`` and ``run_block(state,
+    nrows, kinds=None, on_dispatched=None) -> (state, BlockOutput)``.
 
     ``model`` gives batched ``lnlike(x[..., D, C])``, ``lnprior`` and, for
     the gradient jumps, ``value_grad(x, beta)`` and a ``cuda_functor``.
     ``device`` is where the step runs, the card unless the caller asks for
-    the CPU; the state must live there.
+    the CPU; the state must live there. ``capture=False`` runs ``run_block``
+    eagerly on the card too: for models whose callables run on the host,
+    which a graph cannot hold.
     """
     device = utils.resolve_device(device, "build_step")
     t, c = config.ntemps, config.nchains
@@ -145,40 +288,125 @@ def build_step(config: SamplerConfig, model, device="cuda"):
             ),
         )
 
-    def step(state: SamplerState, kind=None) -> SamplerState:
-        """One iteration; ``kind`` is the jump index, drawn here if not given."""
+    def advance(state: SamplerState, it, kind) -> SamplerState:
+        """Iteration ``it`` of jump ``kind`` but for the factor refresh: the
+        device work a graph holds."""
+        state = mh_step(dataclasses.replace(state, it=it), it, kind)
+        return history_push(config, pt_swap(state, it))
+
+    def check_device(state):
         if state.x.device != device:
             raise ValueError(f"state is on {state.x.device}, the step was built for {device}")
+
+    def step(state: SamplerState, kind=None) -> SamplerState:
+        """One eager iteration; ``kind`` is the jump index, drawn here if not
+        given. The graphs of ``run_block`` are held against it."""
+        check_device(state)
         it = state.it + 1
         if kind is None:
             kind = draw_kinds(config, state.it, 1, state.host_rng)[0]
-        state = mh_step(dataclasses.replace(state, it=it), it, kind)
-        state = pt_swap(state, it)
-        return history_updates(config, state, it)
+        return refresh(config, advance(state, it, kind), it)
 
-    def run_block(state: SamplerState, nrows: int):
-        """Run ``nrows * thin`` iterations, returning the thinned rows."""
-        dev = state.x.device
+    stats = BlockStats()
+    graphs = {}  # step key -> its CUDA graph
+    warmed = set()  # keys whose first iteration ran eagerly
+    held = {}  # "static": the holder; "card": the _CudaGraphs, made at first use
+    on_card = capture and _graphs_on(device)
+
+    def body(static, it, kind):
+        copy_into(static, advance(static, it, kind))
+
+    def capture_graph(static, it, kind, key):
+        before = _wrapper_calls()
+        t0 = time.perf_counter()
+        try:
+            graph = held["card"].capture(lambda: body(static, it, kind), static)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"run_block: capturing the {config.jumps[kind].name} step of model "
+                f"{type(model).__name__} (iteration {it}, key {key}) failed: {e}. A step on "
+                "the card must not read the device from the host") from e
+        stats.capture_sec += time.perf_counter() - t0
+        stats.captured += 1
+        calls = {n: k - before[n] for n, k in _wrapper_calls().items() if k != before[n]}
+        stats.recorded[key] = calls
+        for n, k in calls.items():
+            stats.captured_calls[n] = stats.captured_calls.get(n, 0) + k
+        return graph
+
+    def iterate(static, it, kind):
+        """Iteration ``it``: replay its key's graph, or run it eagerly."""
+        key = step_key(config, static, it, kind)
+        filled = adaptation.de_filled_after(static.de, c)
+        if key in graphs or (on_card and key in warmed):
+            if key not in graphs:
+                graphs[key] = capture_graph(static, it, kind, key)
+            graphs[key].replay()
+            stats.replays[key] = stats.replays.get(key, 0) + 1
+        elif on_card:
+            if "card" not in held:
+                held["card"] = _CudaGraphs(device)
+            held["card"].warm_up(lambda: body(static, it, kind))
+            warmed.add(key)
+            stats.eager["warm-up"] += 1
+        else:
+            body(static, it, kind)
+            stats.eager["no capture"] += 1
+        static.it, static.de.filled = it, filled  # the host fields a replay leaves
+
+    def run_block(state: SamplerState, nrows: int, kinds=None, on_dispatched=None):
+        """Run ``nrows * thin`` iterations, returning the thinned rows.
+
+        The returned state is the runner's static state, which the next call
+        advances in place; a state it is given that is not that one is
+        written into it first (``copy_into``), which covers a loaded
+        checkpoint and a resume. ``kinds``: the iterations' jump indices,
+        drawn from ``state.host_rng`` when not given. ``on_dispatched()``,
+        if given, is called once, before the block's first synchronising
+        step (a factor refresh) or at its end: with graphs the block's
+        iterations up to there are then enqueued, and the device runs them
+        while the caller works.
+        """
+        check_device(state)
+        static = held.get("static")
+        if static is None:  # the holder: the first state's values at addresses of its own
+            static = held["static"] = map_state(
+                state, lambda a: a.clone(memory_format=torch.contiguous_format))
+        copy_into(static, state)
+        dev = static.x.device
         thin = config.thin
-        kinds = draw_kinds(config, state.it, nrows * thin, state.host_rng)
-        x = torch.empty((nrows,) + tuple(state.x.shape), dtype=state.x.dtype, device=dev)
-        lnlike = torch.empty((nrows, t), dtype=state.x.dtype, device=dev)
+        if kinds is None:
+            kinds = draw_kinds(config, static.it, nrows * thin, static.host_rng)
+        elif len(kinds) != nrows * thin:
+            raise ValueError(f"run_block: {len(kinds)} kinds for {nrows * thin} iterations")
+        x = torch.empty((nrows,) + tuple(static.x.shape), dtype=static.x.dtype, device=dev)
+        lnlike = torch.empty((nrows, t), dtype=static.x.dtype, device=dev)
         lnprob = torch.empty_like(lnlike)
         nacc = torch.empty((nrows, t), dtype=torch.int32, device=dev)
         sacc = torch.empty_like(nacc)
         sprop = torch.empty_like(nacc)
         for r in range(nrows):
             for k in range(thin):
-                state = step(state, kinds[r * thin + k])
-            x[r] = state.x
-            lnlike[r] = state.lnlike[:, 0]
+                it = static.it + 1
+                iterate(static, it, kinds[r * thin + k])
+                if refresh_due(config, it):
+                    if on_dispatched is not None:
+                        on_dispatched()
+                        on_dispatched = None
+                    copy_into(static, refresh(config, static, it))
+                    stats.refreshes += 1
+            x[r] = static.x
+            lnlike[r] = static.lnlike[:, 0]
             lnprob[r] = utils.tempered_lnprob(
-                state.lnlike[:, 0], state.lnprior[:, 0], state.betas
+                static.lnlike[:, 0], static.lnprior[:, 0], static.betas
             )
-            nacc[r] = state.counters.naccepted[:, 0]
-            sacc[r] = state.counters.swaps_accepted[:, 0]
-            sprop[r] = state.counters.swaps_proposed
-        its = torch.arange(1, nrows + 1, device=dev) * thin + (state.it - nrows * thin)
-        return state, BlockOutput(x, lnlike, lnprob, its, nacc, sacc, sprop)
+            nacc[r] = static.counters.naccepted[:, 0]
+            sacc[r] = static.counters.swaps_accepted[:, 0]
+            sprop[r] = static.counters.swaps_proposed
+        if on_dispatched is not None:
+            on_dispatched()
+        its = torch.arange(1, nrows + 1, device=dev) * thin + (static.it - nrows * thin)
+        return static, BlockOutput(x, lnlike, lnprob, its, nacc, sacc, sprop)
 
+    run_block.stats = stats
     return step, run_block

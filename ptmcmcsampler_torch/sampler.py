@@ -7,7 +7,7 @@ whole ``[ntemps, nchains]`` batch advances in ``kernel.run_block`` blocks of
 chain files and a checkpoint.
 
 User callables take one point ``x [ndim]``, as the reference's do. They
-reach ``build_step``, which wants a batched model, by one of two routes:
+reach ``build_step``, which wants a batched model, by one of three routes:
 
 * **kernel**: ``logl``, ``logp``, ``logl_grad`` and ``logp_grad`` are the
   bound methods ``lnlikefn``, ``lnpriorfn``, ``lnlikefn_grad`` and
@@ -19,13 +19,19 @@ reach ``build_step``, which wants a batched model, by one of two routes:
   whose kernel does not take the functor at the model's dimension (a wide
   functor beyond D = 256) is refused on the card when ``sample()`` starts
   (:func:`card_refusal`); on the CPU every jump runs.
-* **plain**: anything else. Callables that ``torch.func.vmap`` can batch
-  run batched on the device; others (numpy) run on the host, one call a
-  point, in float64. The gradient jumps run the kernels' plain versions,
-  which run only on the CPU: on the card a kernel wrapper launches its
-  kernel or raises. So on the card this route is refused for a model with
-  gradients (ROADMAP A15 brings user models to the kernels); without
-  gradients it runs there, since SCAM, AM and DE reach no kernel.
+* **plain**: anything else that ``torch.func.vmap`` can batch: it runs
+  batched on the device. The gradient jumps run the kernels' plain
+  versions, which run only on the CPU: on the card a kernel wrapper
+  launches its kernel or raises. So on the card this route is refused for a
+  model with gradients (ROADMAP A15 brings user models to the kernels);
+  without gradients it runs there, since SCAM, AM and DE reach no kernel.
+* **host**: the plain route where a callable cannot be batched (numpy):
+  it runs on the host, one call a point, in float64. A CUDA graph cannot
+  hold a host call, so ``run_block`` runs this route eagerly on the card.
+
+On the card the other two routes replay CUDA graphs of the step
+(``kernel.run_block``). ``sample()`` dispatches block k+1 before it drains
+block k, as the JAX package does, unless ``neff`` is given.
 
 Gradient jumps need both ``logl_grad`` and ``logp_grad``; without them they
 are dropped, as in the JAX package.
@@ -52,10 +58,10 @@ from . import diagnostics, utils
 from .config import KIND_CHEES, KIND_HMC, KIND_NUTS, SamplerConfig, build_default_jumps
 from .io.chainfile import ChainWriter
 from .io.checkpoint import load_checkpoint, save_checkpoint
-from .kernel import build_step
+from .kernel import BlockOutput, build_step
 from .ladder import ladder_betas, temperature_ladder
 from .ops import common
-from .state import init_state
+from .state import clone_generator, init_state, map_state
 
 _FUNCTOR_METHODS = ("lnlikefn", "lnpriorfn", "lnlikefn_grad", "lnpriorfn_grad")
 _BATCHED_METHODS = ("lnlike", "lnprior", "value_grad")
@@ -182,7 +188,9 @@ class PTSampler:
     ``jump_select``, ``swap_mode``, ``adapt_from``, ``de_pair``,
     ``de_block``, ...; MIGRATION.md), plus ``device``: the card unless the
     caller passes ``device="cpu"``. The chosen model route is ``route``,
-    ``"kernel"`` or ``"plain"``.
+    ``"kernel"``, ``"plain"`` or ``"host"``. ``block_stats`` is the last
+    ``sample()`` call's ``run_block.stats`` (graphs, replays, eager
+    iterations).
     """
 
     def __init__(
@@ -276,6 +284,11 @@ class PTSampler:
                 logp_grad if have_grads else None,
                 loglargs or [], loglkwargs or {}, logpargs or [], logpkwargs or {},
             )
+            if not all(getattr(self, f"_{what}_traceable", True)
+                       for what in ("logl", "logp", "logl_grad", "logp_grad")):
+                self.route = "host"
+                route = (f"host callables from plain PyTorch on {self.device}; run_block "
+                         "runs eagerly (a CUDA graph cannot hold a host call)")
         if self.verbose:
             print(f"Model route: {route}")
 
@@ -295,6 +308,7 @@ class PTSampler:
         self._key_words = np.random.SeedSequence(int(seed)).generate_state(2)
 
         self.state = None
+        self.block_stats = None
         self.ladder = None
         self._chain_host = []  # cold chain 0 thinned history ([rows, D] blocks)
         # ALL cold chains ([rows, C, D] blocks) — a bounded in-RAM window of
@@ -499,8 +513,9 @@ class PTSampler:
             print("NOTE: using corrected MALA density ratio "
                   "(reference MALA is known-broken)")
 
-        step, run_block = build_step(config, self._model, device=self.device)
-        self._step_fn = step
+        _, run_block = build_step(config, self._model, device=self.device,
+                                  capture=self.route != "host")
+        self.block_stats = run_block.stats
 
         p0 = np.asarray(p0, dtype=np.float64)
         x0 = np.broadcast_to(p0, (self.ntemps, self.nchains, self.ndim))
@@ -573,32 +588,67 @@ class PTSampler:
             prof = profile(activities=activities)
             prof.start()
 
-        # The serial loop: run a block, drain it, checkpoint. The JAX
-        # package dispatches the next block before draining the last one;
-        # eager PyTorch holds the host until it has launched a block's every
-        # operation, so there is nothing to overlap yet (ROADMAP A13).
+        def drain(st, out, it_done):
+            self._drain_block(st, out, it_done, tstart, Niter, writer, config)
+            self._drain_count += 1
+
+        def save(st, it_done):
+            self._save_checkpoint(
+                ckpt_path, st,
+                dict(iter=int(it_done), niter=int(Niter), thin=int(thin), isave=int(isave),
+                     drains=int(self._drain_count), swap_mode=config.swap_mode),
+            )
+
+        # Double-buffered dispatch, the JAX package's loop (its sampler.py
+        # :743-771) for a run without a neff stop: block k's rows and state
+        # go to the host by copies enqueued right behind it; block k+1 is
+        # dispatched, and block k is drained and checkpointed from those
+        # copies while the device runs k+1. run_block calls back before k+1's
+        # first synchronising step (the factor refresh), so the host writes
+        # while the device works.
+        if neff is None and not run_complete:
+            pending = None  # the last block's host copies, not drained yet
+
+            def drain_pending():
+                nonlocal pending
+                if pending is not None:
+                    snap, out_h, done, it_done = pending
+                    pending = None
+                    if done is not None:
+                        done.synchronize()
+                    drain(snap, out_h, it_done)
+                    save(snap, it_done)
+
+            while it < last:
+                todo_iters = Niter - it
+                rows = min(rows_per_block, max(todo_iters // thin, 1))
+                state, out = run_block(state, rows, on_dispatched=drain_pending)
+                it += rows * thin
+                pending = (*self._to_host(state, out), it)
+                self.state = state
+            drain_pending()
+            message = "\nRun Complete"
+            run_complete = True
+
+        # The serial loop, for a neff stop: its decision must see the block
+        # just drained. Run a block, drain it, checkpoint.
         while not run_complete:
             todo_iters = Niter - it
             rows = min(rows_per_block, max(todo_iters // thin, 1))
             state, out = run_block(state, rows)
             it += rows * thin
-            self._drain_block(state, out, it, tstart, Niter, writer, config)
-            self._drain_count += 1
+            drain(state, out, it)
             self.state = state
 
             if it >= last:
                 message = "\nRun Complete"
                 run_complete = True
-            elif neff is not None and it > 2 * burn:
+            elif it > 2 * burn:
                 n_eff = self._neff_value(burn // thin, it)
                 if int(n_eff) >= neff:
                     message = "\nRun Complete with {0} effective samples".format(int(n_eff))
                     run_complete = True
-            self._save_checkpoint(
-                ckpt_path, state,
-                dict(iter=int(it), niter=int(Niter), thin=int(thin), isave=int(isave),
-                     drains=int(self._drain_count), swap_mode=config.swap_mode),
-            )
+            save(state, it)
 
         if prof is not None:
             prof.stop()
@@ -609,6 +659,30 @@ class PTSampler:
         return state
 
     # ------------------------------------------------------------ internals
+
+    @staticmethod
+    def _to_host(state, out):
+        """Block k's state and rows on the host, taken before block k+1 is
+        dispatched: ``(state, rows, done)``, where on the card every
+        tensor is a non-blocking copy into pinned memory, enqueued behind
+        block k and so not waiting for block k+1, and ``done`` an event
+        recorded after them (None on the CPU, where the copies are clones).
+        The generators' states are taken now: a checkpoint written while
+        block k+1 runs must hold block k's."""
+        if state.x.is_cuda:
+            def host(a):
+                return torch.empty(a.shape, dtype=a.dtype, pin_memory=True).copy_(
+                    a, non_blocking=True)
+        else:
+            host = torch.clone
+        snap = map_state(state, host, rng=clone_generator(state.rng),
+                         host_rng=clone_generator(state.host_rng))
+        rows = BlockOutput(*(host(a) for a in out))
+        done = None
+        if state.x.is_cuda:
+            done = torch.cuda.Event()
+            done.record()
+        return snap, rows, done
 
     def _save_checkpoint(self, path, state, meta):
         save_checkpoint(path, state, meta=meta, key=self._key_words)

@@ -5,6 +5,11 @@ so one CUDA thread per chain reads neighbouring addresses. Host-known
 integers (the iteration number and the DE fill count) are Python ints, so
 the step never has to ask the device for them.
 
+A captured step (``kernel.run_block`` on the card) reads and writes fixed
+addresses: the block runner keeps one static state, a holder made by
+:func:`map_state`, and writes every other state into it in place with
+:func:`copy_into`.
+
 ``state_to_numpy`` / ``state_from_numpy`` use the path names of the JAX
 package's checkpoint format (``"x"``, ``"adapt/cov"``, ``"adapt/group_u/0"``,
 ``"de/buf"``, ``"stepsize/chees_tlen"``, ``"counters/naccepted"``, ...), so a
@@ -55,6 +60,14 @@ class DEState:
 
     buf: torch.Tensor  # [D, B] (history-minor, like SamplerState.x)
     filled: int  # columns written so far, below 2 * B (host-known)
+    # The ring's next column, ``filled % B``, as an int64 scalar on the
+    # ring's device: a captured step writes the ring through it
+    # (adaptation.de_buffer_push). Made from ``filled`` when not given.
+    start: torch.Tensor = None
+
+    def __post_init__(self):
+        if self.start is None:
+            self.start = torch.tensor(self.filled % self.buf.shape[1], device=self.buf.device)
 
 
 def de_fill_count(filled: int, rows: int) -> int:
@@ -223,30 +236,95 @@ _TENSOR_GROUPS = {
 }
 
 
-def state_to_numpy(state: SamplerState) -> dict:
-    """Flatten to ``{path: numpy array}`` with the checkpoint's path names."""
-
-    def np_(a):
-        return a.detach().cpu().numpy().copy()
-
+def state_tensors(state: SamplerState) -> dict:
+    """Every tensor of ``state`` by path: the checkpoint's path names (see
+    :func:`state_to_numpy`) and ``"de/start"``."""
     out = {
-        "it": np.asarray(state.it, np.int32),
-        "x": np_(state.x),
-        "lnlike": np_(state.lnlike),
-        "lnprior": np_(state.lnprior),
-        "betas": np_(state.betas),
-        "de/buf": np_(state.de.buf),
-        "de/filled": np.asarray(de_fill_count(state.de.filled, state.de.buf.shape[1]),
-                                np.int32),
+        "x": state.x, "lnlike": state.lnlike, "lnprior": state.lnprior, "betas": state.betas,
+        "de/buf": state.de.buf, "de/start": state.de.start,
     }
     for group, names in _TENSOR_GROUPS.items():
         sub = getattr(state, group)
-        for name in names:
-            out[f"{group}/{name}"] = np_(getattr(sub, name))
+        out.update({f"{group}/{name}": getattr(sub, name) for name in names})
     for i, (u, s) in enumerate(zip(state.adapt.group_u, state.adapt.group_s)):
-        out[f"adapt/group_u/{i}"] = np_(u)
-        out[f"adapt/group_s/{i}"] = np_(s)
+        out[f"adapt/group_u/{i}"] = u
+        out[f"adapt/group_s/{i}"] = s
     return out
+
+
+def state_to_numpy(state: SamplerState) -> dict:
+    """Flatten to ``{path: numpy array}`` with the checkpoint's path names."""
+    out = {"it": np.asarray(state.it, np.int32)}
+    for path, a in state_tensors(state).items():
+        if path == "de/start":  # filled % B: the count below stands for it
+            out["de/filled"] = np.asarray(
+                de_fill_count(state.de.filled, state.de.buf.shape[1]), np.int32)
+            continue
+        out[path] = a.detach().cpu().numpy().copy()
+    return out
+
+
+def map_state(state: SamplerState, fn, rng=None, host_rng=None) -> SamplerState:
+    """A state whose every tensor is ``fn(tensor)``, with the host fields of
+    ``state`` and the generators ``rng``/``host_rng`` (by default the same
+    objects as ``state``'s). ``map_state(state, torch.clone)`` is a holder
+    with addresses of its own; the sampler maps block states to the host."""
+    a, de = state.adapt, state.de
+    return SamplerState(
+        it=state.it,
+        x=fn(state.x),
+        lnlike=fn(state.lnlike),
+        lnprior=fn(state.lnprior),
+        betas=fn(state.betas),
+        adapt=AdaptState(
+            **{n: fn(getattr(a, n)) for n in _TENSOR_GROUPS["adapt"]},
+            group_u=tuple(fn(u) for u in a.group_u),
+            group_s=tuple(fn(v) for v in a.group_s),
+            structure=a.structure,
+        ),
+        de=DEState(buf=fn(de.buf), filled=de.filled, start=fn(de.start)),
+        stepsize=StepSizeState(**{n: fn(getattr(state.stepsize, n)) for n in SS_FIELDS}),
+        counters=Counters(**{n: fn(getattr(state.counters, n))
+                             for n in _TENSOR_GROUPS["counters"]}),
+        rng=state.rng if rng is None else rng,
+        host_rng=state.host_rng if host_rng is None else host_rng,
+    )
+
+
+def clone_generator(gen: torch.Generator) -> torch.Generator:
+    """A new generator on ``gen``'s device in ``gen``'s state (host-side: no
+    device work)."""
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
+
+
+def copy_into(static: SamplerState, state: SamplerState) -> SamplerState:
+    """Write ``state`` into ``static`` in place and return ``static``: every
+    tensor into ``static``'s tensor of the same path (skipped where they are
+    one object), the host fields, and the generators' states where the
+    objects differ. ``static``'s addresses do not change, so a step captured
+    on them reads what was written. Raises ``ValueError`` where a tensor's
+    shape or type differs."""
+    if state is static:
+        return static
+    dst = state_tensors(static)
+    for path, t in state_tensors(state).items():
+        d = dst[path]
+        if d is t:
+            continue
+        if d.shape != t.shape or d.dtype != t.dtype:
+            raise ValueError(f"copy_into: {path} is {tuple(t.shape)} {t.dtype}, the static "
+                             f"state's {tuple(d.shape)} {d.dtype}")
+        d.copy_(t)
+    static.it = state.it
+    static.de.filled = state.de.filled
+    static.adapt.structure = state.adapt.structure
+    for name in ("rng", "host_rng"):
+        gen = getattr(state, name)
+        if gen is not getattr(static, name):
+            getattr(static, name).set_state(gen.get_state())
+    return static
 
 
 def state_shapes(config: SamplerConfig) -> dict:

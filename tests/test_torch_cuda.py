@@ -8,6 +8,7 @@ on a machine with a card and without JAX it runs alone with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
 
+import dataclasses
 import shutil
 
 import numpy as np
@@ -442,44 +443,98 @@ def test_build_step_defaults_to_the_card():
     assert step(state).x.is_cuda
 
 
+def _small_state(cfg, model, dev, seed=1):
+    d = cfg.ndim
+    x0 = np.array([-0.1, -0.5]) if d == 2 else np.full(d, 0.3)
+    xs = torch.tensor(x0, dtype=torch.float32, device=dev)[None, :, None].expand(2, d, 64)
+    return init_state(cfg, seed, x0, np.eye(d), np.array([1.0, 0.5]), model.lnlike(xs),
+                      model.lnprior(xs), device=dev)
+
+
 def _run_small(cfg, dev, iters):
     model = CurvedLikelihood()
     _, run_block = build_step(cfg, model, device=dev)
-    x0 = np.array([-0.1, -0.5])
-    xs = torch.tensor(x0, dtype=torch.float32, device=dev)[None, :, None].expand(2, 2, 64)
-    state = init_state(cfg, 1, x0, np.eye(2), np.array([1.0, 0.5]), model.lnlike(xs),
-                       model.lnprior(xs), device=dev)
-    state, out = run_block(state, iters)
+    state, out = run_block(_small_state(cfg, model, dev), iters)
     assert torch.isfinite(out.x).all()
-    return state
+    return state, run_block.stats
 
 
 def _iterations(cfg, state, kind):
     return int(state.counters.jump_proposed[[s.kind for s in cfg.jumps].index(kind), 0, 0])
 
 
+def _launches(stats, wrapper):
+    """A kernel's device launches, counted through the graphs: its wrapper's
+    calls, less those made under capture, plus each graph's recorded calls
+    times its replays."""
+    return stats.kernel_launches(wrapper.__name__, wrapper.launches)
+
+
 @pytest.mark.cuda
 def test_main_path_launches_kernel_each_chees_iteration(cuda):
-    """One fused-step launch a ChEES iteration; the trajectory entry is not
-    on the path."""
+    """One fused-step launch a ChEES iteration, counted through the graphs;
+    the trajectory entry is not on the path."""
     cfg = _small_config()
     chees_step.launches = chees_trajectories.launches = 0
-    state = _run_small(cfg, cuda, 60)
-    assert chees_step.launches == _iterations(cfg, state, KIND_CHEES) > 0
+    state, stats = _run_small(cfg, cuda, 60)
+    assert _launches(stats, chees_step) == _iterations(cfg, state, KIND_CHEES) > 0
     assert chees_trajectories.launches == 0
+    assert sum(stats.replays.values()) > 0
 
 
 @pytest.mark.cuda
 def test_nuts_path_launches_kernels_each_iteration(cuda):
     """One NUTS tree launch a NUTS iteration and one fused-step launch an
-    HMC iteration; the HMC trajectory entry is not on the path."""
+    HMC iteration, counted through the graphs; the HMC trajectory entry is
+    not on the path."""
     cfg = _small_config(NUTSweight=10, HMCweight=10)
     nuts_trees.launches = hmc_step.launches = hmc_trajectories.launches = 0
-    state = _run_small(cfg, cuda, 80)
-    assert nuts_trees.launches == _iterations(cfg, state, KIND_NUTS) > 0
-    assert hmc_step.launches == _iterations(cfg, state, KIND_HMC) > 0
+    state, stats = _run_small(cfg, cuda, 80)
+    assert _launches(stats, nuts_trees) == _iterations(cfg, state, KIND_NUTS) > 0
+    assert _launches(stats, hmc_step) == _iterations(cfg, state, KIND_HMC) > 0
     assert hmc_trajectories.launches == 0
     assert (state.stepsize.epsilon > 0).all()
+
+
+def _bits(a):
+    return a.contiguous().reshape(-1).view(torch.uint8).cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_name, jumps", [
+    ("curved", dict(CHEESweight=20)),
+    ("curved", dict(NUTSweight=10, HMCweight=10)),
+    ("hierarchical", dict(CHEESweight=20, MALAweight=10)),
+    ("hierarchical", dict(NUTSweight=10, HMCweight=10)),
+])
+def test_graph_run_block_equals_the_eager_step_loop(cuda, model_name, jumps):
+    """``run_block``'s graphs against ``step`` after ``step`` on the same
+    seed and kinds, over 80 iterations that cross burn-in (20), swaps (every
+    5) and refreshes (every 25): every tensor, the host fields and both
+    generators' states equal, bit for bit (the graphs draw at the eager
+    loop's Philox offsets)."""
+    from ptmcmcsampler_torch.proposals.cycle import draw_kinds
+    from ptmcmcsampler_torch.state import state_tensors
+
+    model = CurvedLikelihood() if model_name == "curved" else HierarchicalGaussian()
+    cfg = dataclasses.replace(_small_config(**jumps), ndim=model.ndim,
+                              groups=(tuple(range(model.ndim)),), nuts_max_depth=6)
+    step, run_block = build_step(cfg, model, device=cuda)
+    eager, graph = _small_state(cfg, model, cuda), _small_state(cfg, model, cuda)
+    kinds = draw_kinds(cfg, 0, 80, eager.host_rng)
+    for kind in kinds:
+        eager = step(eager, kind)
+    graph, _ = run_block(graph, 80, kinds=kinds)
+    torch.cuda.synchronize()
+    te, tg = state_tensors(eager), state_tensors(graph)
+    for path in te:
+        assert torch.equal(_bits(te[path]), _bits(tg[path])), path
+    assert (eager.it, eager.de.filled, eager.adapt.structure) == (
+        graph.it, graph.de.filled, graph.adapt.structure)
+    assert torch.equal(eager.rng.get_state(), graph.rng.get_state())
+    stats = run_block.stats
+    assert stats.captured == len(stats.recorded) > 0 and sum(stats.replays.values()) > 0
+    assert stats.iterations == 80 and stats.refreshes == 3
 
 
 def _sampler(model_kind, outdir, nchains=64, grads=True):
@@ -523,7 +578,7 @@ def test_sampler_kernel_route_on_the_card(cuda, tmp_path):
     for kind, w in _COUNTED.items():
         iters = _iterations(s.config, s.state, kind)
         assert iters > 0
-        assert w.launches == iters, kind
+        assert _launches(s.block_stats, w) == iters, kind
     assert chees_trajectories.launches == hmc_trajectories.launches == 0
     assert np.loadtxt(str(tmp_path / "chain_1.0.txt")).shape == (61, 6)
 
@@ -835,7 +890,7 @@ def test_sampler_refuses_wide_nuts_and_hmc_on_the_card(cuda, tmp_path, weights):
     for kind, w in _COUNTED.items():
         iters = _iterations(s.config, s.state, kind) if kind in [
             j.kind for j in s.config.jumps] else 0
-        assert w.launches == iters, kind
+        assert _launches(s.block_stats, w) == iters, kind
     assert hmc_trajectories.launches == 0 and chees_trajectories.launches == 0
     assert nuts_trees.launches + hmc_step.launches > 0
 
@@ -859,5 +914,29 @@ def test_sampler_wide_chees_on_the_card(cuda, tmp_path):
     kw = dict(_SAMPLE, NUTSweight=0, HMCweight=0, MALAweight=10)
     s.sample(np.zeros(s.ndim), 120, **kw)
     assert torch.isfinite(s.state.x).all()
-    assert chees_step.launches == _iterations(s.config, s.state, KIND_CHEES) > 0
+    assert _launches(s.block_stats, chees_step) == _iterations(s.config, s.state, KIND_CHEES) > 0
     assert chees_trajectories.launches == hmc_step.launches == nuts_trees.launches == 0
+
+
+class _HostReadingLikelihood(CurvedLikelihood):
+    """The curved model with a prior that reads the device from the host:
+    legal eagerly, impossible inside a CUDA graph."""
+
+    def lnprior(self, x):
+        if float(x.abs().max()) > 1e30:
+            raise ValueError("unreachable")
+        return super().lnprior(x)
+
+
+@pytest.mark.cuda
+def test_a_step_that_reads_the_host_raises_at_capture(cuda):
+    """A key's first iteration runs eagerly; its capture, at the key's next
+    use, hits the host read and raises naming the jump and the model: the
+    runner never falls back to the eager loop."""
+    cfg = _small_config()
+    model = _HostReadingLikelihood()
+    _, run_block = build_step(cfg, model, device=cuda)
+    with pytest.raises(RuntimeError, match=r"capturing the \w+ step of model "
+                                           r"_HostReadingLikelihood"):
+        run_block(_small_state(cfg, model, cuda), 40)
+    torch.cuda.synchronize()

@@ -209,12 +209,14 @@ def _curved_callables(kind):
     ("bound", {}, "kernel"),
     ("bound", {"loglargs": [], "logpkwargs": {}}, "kernel"),
     ("lambda", {}, "plain"),
-    ("bound", {"logpkwargs": {"scale": 1.0}}, "plain"),
+    ("bound", {"logpkwargs": {"scale": 1.0}}, "host"),
     ("two_objects", {}, "plain"),
 ])
 def test_route_choice(tmp_path, capsys, kind, kwargs, route):
     """The kernel route takes the four bound methods of one model with a
-    functor and no extra arguments; anything else is the plain route."""
+    functor and no extra arguments; anything else is the plain route, or the
+    host route where a callable does not batch under ``torch.func.vmap``
+    (``lnpriorfn`` takes no ``scale``)."""
     ll, lp, llg, lpg = _curved_callables("lambda" if kind == "lambda" else "bound")
     if kind == "two_objects":
         lp = CurvedLikelihood().lnpriorfn
@@ -227,7 +229,8 @@ def test_route_choice(tmp_path, capsys, kind, kwargs, route):
         assert "Model route: kernel (functor 'curved')" in text
     else:
         assert not hasattr(s._model, "cuda_functor")
-        assert "Model route: plain PyTorch on cpu" in text
+        assert ("Model route: plain PyTorch on cpu" if route == "plain" else
+                "Model route: host callables from plain PyTorch on cpu") in text
 
 
 @pytest.mark.parametrize("kind, kwargs, refused", [
