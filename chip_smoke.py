@@ -73,6 +73,18 @@ Phases, in order; any failure exits non-zero:
      ``hmc_draws``' and momenta lie within DRAW_ULP_TOL ulp; the trajectory
      entry against its plain version, and the step's end points against the
      trajectory entry's from those draws.
+   * The user functors (``ops/user.py register_functor``): two models
+     defined here as a user writes them, ``UserHierarchy`` (the 50-D
+     hierarchy, its device function in WideHierarchicalGaussian's operation
+     order) and ``UserRefGaussian`` (the reference's test_nuts.py target,
+     10-D, no constants), whose libraries build with the others. Every
+     entry (both ChEES entries, NUTS at depth 4 and 10, the fused HMC step,
+     its draws and its trajectory entry) against its plain version on the
+     wide checks' draws at 8 x 16384 chains, with a dense and a diagonal
+     factor: no lane may differ in any bit; ``UserHierarchy``'s outputs
+     must equal the built-in hierarchical_gaussian entries' bit for bit,
+     and each entry is timed against the built-in one (the per-chain
+     adapter's cost).
 3. Graphs: ``run_block`` replays CUDA graphs of the step on the card (one
    a combination of the step's host-side decisions, ``kernel.step_key``).
    For path 1 and path 2, on the curved model and on the 50-D hierarchy, at
@@ -184,6 +196,20 @@ Phases, in order; any failure exits non-zero:
    on the rows past iteration 1000. Then a 300-D ``CorrelatedGaussian``
    (beyond the wide layout's 256) must be refused when ``sample()`` starts,
    naming ``device="cpu"``. One JSON line.
+9a. The user paths: path 1's and path 2's cycles (as 7 and 8) on
+   ``UserHierarchy`` (bench.py's hierarchical workload through the user
+   functor) and on ``UserRefGaussian``, at 8 x 16384 chains, cut to
+   USER_ITERS and USER_NUTS_ITERS (the cuts in each JSON line): launches
+   once per iteration of their kind, the moment gate, iterations/s and
+   ESS/s, and the user entries' timings on the final states.
+9b. ``PTSampler`` with the user models' bound methods on the card: the
+   route line must name ``user_hierarchy``; UserHierarchy as in 9, whose
+   chain files are compared byte for byte with the built-in model's from
+   the same seed (the result printed); the reference's test_nuts.py
+   scenario with UserRefGaussian (SCAM/AM/DE/NUTS/HMC, HMCsteps 20,
+   HMCstepsize 0.2, 8 x 1024): launches and the gate against N(0, I); a
+   100-D UserRefGaussian, beyond its functor's dims (2, 64), refused when
+   ``sample()`` starts. One JSON line ``"phase": "user_sampler"``.
 10. Kernels line: each kernel's launches on its path, error against the
    plain version, device time (CUDA events, stream held, inputs from its
    path's final state), the time of a wrapper call, the plain version's time
@@ -231,13 +257,18 @@ Phases, in order; any failure exits non-zero:
    bounds, draws, the steps taken, ptxas and layout. Before it, a line of
    what is counted from the code and not measured: the ``__syncthreads``
    a wide ChEES leapfrog step and a wide evaluation take, by functor,
-   dimension and structure tag.
+   dimension and structure tag. The user functors' entries are items of
+   the same ``wide`` lists (workloads ``user_hierarchical`` and
+   ``user_ref_gaussian``), their source the kernel's header that the
+   generated unit instantiates, with their timings against the built-in
+   entries (``against_builtin``) and the seconds of the parallel build.
 11. Last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import filecmp
 import json
 import os
 import re
@@ -362,6 +393,11 @@ WIDE_MODEL_OPS = {
     "correlated_gaussian": lambda d: 2 * d * d + 5 * d,
     "interval_gaussian": lambda d: 25 * d,
     "hierarchical_gaussian": lambda d: 10 * d,
+    # The user functors, counted from their sources (one thread a chain
+    # evaluates value and gradient): the hierarchy's 13 a dimension past the
+    # first and 11 more; the Gaussian's 7 a dimension and 7 more.
+    "user_hierarchy": lambda d: 13 * (d - 1) + 11,
+    "user_ref_gaussian": lambda d: 7 * d + 7,
 }
 # Path 2's cycle (bench.py's grad_mode=nuts) on the same three workloads:
 # name -> (burn-in, timed) iterations. bench.py runs 3000 and 12000; a
@@ -382,12 +418,184 @@ WIDE_PLAIN_COLUMNS_NUTS = 1024
 # bench.py's start.
 WIDE_TREE_EPS_BOX = 1e-3
 WIDE_CAPPED_EPS = 1e-6
+# The user paths: path 1's and path 2's cycles on the user models at T x C
+# chains through build_step/run_block, name -> (burn-in, timed) iterations,
+# cut from bench.py's 3000 + 12000 to fit the script's limit (the cuts are
+# listed in each JSON line). user_hierarchical is bench.py's hierarchical
+# workload through the registered functor; user_ref_gaussian the 10-D
+# Gaussian, run for its entries' launches and timings on a path.
+USER_ITERS = {"user_hierarchical": (1500, 4500), "user_ref_gaussian": (500, 1000)}
+USER_NUTS_ITERS = {"user_hierarchical": (1000, 3000), "user_ref_gaussian": (500, 1000)}
+# The user sampler phase's reference scenario (the reference's test_nuts.py
+# cycle through PTSampler, its HMC settings), at 8 x 1024 chains.
+USER_REF_ITERS = 2000
+USER_REF_KW = dict(burn=500, Tskip=5, isave=500, covUpdate=500, thin=10, SCAMweight=10,
+                   AMweight=10, DEweight=10, CHEESweight=0, NUTSweight=10, HMCweight=10,
+                   MALAweight=0, HMCstepsize=0.2, HMCsteps=20)
 # The wide sampler phase: HierarchicalGaussian's bound methods through
 # PTSampler on the card, 8 x 1024 chains, SCAM/AM/DE/ChEES/NUTS/HMC.
 WIDE_SAMPLER_C, WIDE_SAMPLER_ITERS = 1024, 2000
 WIDE_SAMPLER_KW = dict(burn=500, Tskip=5, isave=500, covUpdate=500, thin=10, SCAMweight=10,
                        AMweight=10, DEweight=10, CHEESweight=20, NUTSweight=10, HMCweight=10,
                        MALAweight=0, HMCstepsize=HMC_EPS, HMCsteps=HMC_NMAX)
+
+
+# ---- User models: a model the package does not know, as a user brings it ----
+
+# UserHierarchy's device function (ops/user.py register_functor): the 50-D
+# hierarchy's tempered value and gradient of one chain, in the operation
+# order of WideHierarchicalGaussian::eval (csrc/models.cuh), so that its
+# entries equal the built-in hierarchical_gaussian entries bit for bit.
+# prm: 1/s_mu, 1/s_t, 1/s_y, y [D - 1].
+USER_HIERARCHY_SOURCE = r"""
+__device__ static float value_grad(const float* x, int stride, int D, float beta,
+                                   const float* prm, float* g) {
+  const float r_mu = prm[0], r_t = prm[1], r_y = prm[2];
+  const float mu = x[0];
+  const float m = mu * r_mu;
+  float acc = 0.0f, sr = 0.0f, su = 0.0f;
+  for (int d = 1; d < D; ++d) {
+    const float th = x[d * stride];
+    const float u = (th - mu) * r_t;
+    const float wv = u * r_t;
+    const float r = (prm[3 + d - 1] - th) * r_y;
+    g[d * stride] = beta * (r * r_y) - wv;
+    acc = d > 1 ? acc + wv : wv;
+    sr = d > 1 ? sr + r * r : r * r;
+    su = d > 1 ? su + u * u : u * u;
+  }
+  g[0] = -(m * r_mu) + acc;
+  const float ll = -0.5f * sr;
+  const float lp = -0.5f * (m * m) - 0.5f * su;
+  return beta * ll + lp;
+}
+"""
+
+# UserRefGaussian's device function: the reference's test_nuts.py target,
+# -x.x/2 - D/2 log(2 pi) on the open box |x| < 10 (flat prior there), the
+# sum over D ordered as its plain value_grad orders it. No constants.
+USER_REF_GAUSSIAN_SOURCE = r"""
+__device__ static float value_grad(const float* x, int stride, int D, float beta,
+                                   const float* prm, float* g) {
+  float ss = 0.0f;
+  bool inside = true;
+  for (int d = 0; d < D; ++d) {
+    const float xd = x[d * stride];
+    ss = d ? ss + xd * xd : xd * xd;
+    inside = inside && fabsf(xd) < 10.0f;
+    g[d * stride] = beta * (-xd);
+  }
+  const float ll = -0.5f * ss - (float)D * 0.9189385f;
+  return beta * ll + (inside ? 0.0f : -INFINITY);
+}
+"""
+# 0.5 log(2 pi) in f32, as the device source writes it.
+HALF_LOG_2PI_F32 = np.float32(0.9189385)
+# The dims each user functor is registered for: the hierarchy at any D the
+# wide layout takes; the Gaussian up to 64, so that a 100-D one is refused.
+USER_DIMS = {"hierarchy": (2, 256), "ref_gaussian": (2, 64)}
+
+
+class UserHierarchy:
+    """``models.HierarchicalGaussian`` as a user brings it to the kernels:
+    its per-point methods, its batched plain versions and its constants are
+    the built-in model's; its device functor is USER_HIERARCHY_SOURCE,
+    registered as ``user_hierarchy``."""
+
+    def __init__(self, **kw):
+        from ptmcmcsampler_torch import register_functor
+        from ptmcmcsampler_torch.models import HierarchicalGaussian
+
+        self._m = HierarchicalGaussian(**kw)
+        self.ndim = self._m.ndim
+        self.cuda_functor = register_functor("hierarchy", USER_HIERARCHY_SOURCE,
+                                             dims=USER_DIMS["hierarchy"])
+
+    def lnlikefn(self, x):
+        return self._m.lnlikefn(x)
+
+    def lnpriorfn(self, x):
+        return self._m.lnpriorfn(x)
+
+    def lnlikefn_grad(self, x):
+        return self._m.lnlikefn_grad(x)
+
+    def lnpriorfn_grad(self, x):
+        return self._m.lnpriorfn_grad(x)
+
+    def lnlike(self, x):
+        return self._m.lnlike(x)
+
+    def lnprior(self, x):
+        return self._m.lnprior(x)
+
+    def value_grad(self, x, beta):
+        return self._m.value_grad(x, beta)
+
+    def cuda_params(self, device):
+        return self._m.cuda_params(device)
+
+    def cuda_params_len(self):
+        return self._m.cuda_params_len()
+
+    def posterior_moments(self):
+        return self._m.posterior_moments()
+
+
+class UserRefGaussian:
+    """The reference's test_nuts.py model (``tests/test_gradient_jumps.py``
+    ``TestReferenceNutsScenario``): ll = -x.x/2 - D/2 log(2 pi), a flat
+    prior on the open box |x| < 10, 10-D by default. Its device functor is
+    USER_REF_GAUSSIAN_SOURCE, registered as ``user_ref_gaussian``; it has
+    no constants. ``value_grad`` is the kernels' plain version: the same
+    operations in the same order (an ordered sum over D)."""
+
+    def __init__(self, ndim=10):
+        from ptmcmcsampler_torch import register_functor
+
+        self.ndim = int(ndim)
+        self._c0 = float(np.float32(self.ndim) * HALF_LOG_2PI_F32)
+        self.cuda_functor = register_functor("ref_gaussian", USER_REF_GAUSSIAN_SOURCE,
+                                             dims=USER_DIMS["ref_gaussian"])
+
+    def lnlikefn(self, x):
+        return -0.5 * torch.sum(x * x) - self._c0
+
+    def lnpriorfn(self, x):
+        return torch.where(torch.all(torch.abs(x) < 10.0), 0.0, float("-inf"))
+
+    def lnlikefn_grad(self, x):
+        return self.lnlikefn(x), -x
+
+    def lnpriorfn_grad(self, x):
+        return self.lnpriorfn(x), torch.zeros_like(x)
+
+    def lnlike(self, x):
+        """``x [..., D, C] -> [..., C]``."""
+        return -0.5 * torch.sum(x * x, dim=-2) - self._c0
+
+    def lnprior(self, x):
+        inside = torch.all(torch.abs(x) < 10.0, dim=-2)
+        return torch.where(inside, 0.0, float("-inf"))
+
+    def value_grad(self, x, beta):
+        """Tempered ``(beta*ll + lp, beta*grad ll)``, ``beta`` broadcasting
+        against ``[..., C]``: the device function's operation order."""
+        from ptmcmcsampler_torch.ops.common import rsum
+
+        ll = -0.5 * rsum(x * x) - self._c0
+        beta = torch.as_tensor(beta, dtype=x.dtype, device=x.device)
+        beta_d = beta.unsqueeze(-2) if beta.dim() else beta
+        return beta * ll + self.lnprior(x), beta_d * (-x)
+
+    def cuda_params(self, device):
+        return torch.empty(0, dtype=torch.float32, device=device)
+
+    def cuda_params_len(self):
+        return 0
+
+    def posterior_moments(self):
+        return np.zeros(self.ndim), np.eye(self.ndim)
 
 
 def log(msg):
@@ -608,13 +816,21 @@ def phase_chees_vs_plain(model):
 
 
 def wide_workload(name):
-    """bench.py's model and start for a wide workload (bench.py:126-142)."""
+    """bench.py's model and start for a wide workload (bench.py:126-142);
+    for ``user_hierarchical`` and ``user_ref_gaussian`` the user models'
+    (the hierarchy's is bench.py's, the Gaussian's the reference's)."""
     from ptmcmcsampler_torch.models import (
         CorrelatedGaussian, HierarchicalGaussian, IntervalTransformedGaussian,
     )
 
     if name == "gaussian":
         return IntervalTransformedGaussian(ndim=40), np.zeros(40)
+    if name == "user_hierarchical":
+        model = UserHierarchy()
+        return model, np.zeros(model.ndim)
+    if name == "user_ref_gaussian":
+        model = UserRefGaussian()
+        return model, np.full(model.ndim, 0.1)
     if name == "hierarchical":
         model = HierarchicalGaussian()
         return model, np.zeros(model.ndim)
@@ -1437,9 +1653,10 @@ def chees_capped_timings(model, q0, p0, betas, eps, chol, nsteps):
 def ptxas_info(text):
     """Registers, spill bytes and stack frame of each kernel in an ``nvcc
     -Xptxas -v`` log, by kernel and template arguments: ``hmc_kernel<1>``
-    is the fused step, ``hmc_kernel<0>`` the trajectory entry, and
+    is the fused step, ``hmc_kernel<0>`` the trajectory entry,
     ``chees_wide_kernel<WideHierarchicalGaussian,1>`` the wide fused step of
-    that functor."""
+    that functor and ``chees_wide_kernel<WidePerChain,user_hierarchy_functor,1>``
+    the one of the registered user functor ``user_hierarchy``."""
     info = {}
     for block in text.split("Compiling entry function '")[1:]:
         mangled = block.split("'", 1)[0]
@@ -1451,6 +1668,8 @@ def ptxas_info(text):
         if not (name and regs and frame):
             continue
         args = (re.findall(r"\d(Wide[A-Za-z]+Gaussian)E", mangled)
+                + re.findall(r"\d(WidePerChain)I", mangled)
+                + re.findall(r"\d([a-z_]+_functor)E", mangled)
                 + re.findall(r"L[ib](\d+)E", mangled))
         label = f"{name.group(1)}<{','.join(args)}>"
         info[label] = {"registers": int(regs.group(1)), "stack_bytes": int(frame.group(1)),
@@ -1972,7 +2191,7 @@ def wide_config(d, burn, cov_update=1000):
     )
 
 
-def phase_wide_path(name, card, max_err, chees_ptxas):
+def phase_wide_path(name, card, max_err, chees_ptxas, iters=WIDE_ITERS):
     """Path 1's cycle on the wide workload ``name`` at 8 x 16384 chains
     (``chees_step`` once per ChEES iteration, the trajectory entry never),
     then ChEES iterations alone under the profiler (100 on hierarchical, 20
@@ -1984,7 +2203,7 @@ def phase_wide_path(name, card, max_err, chees_ptxas):
 
     model, x0 = wide_workload(name)
     d = model.ndim
-    block, burn, timed, cuts, stride = wide_counts(name, d)
+    block, burn, timed, cuts, stride = wide_counts(name, d, iters)
     cfg = wide_config(d, burn)
     state, (step, run_block), result, ok = phase_main_path(
         model, card, name, cfg, {KIND_CHEES: chees_step}, absent=(chees_trajectories,), x0=x0,
@@ -2011,9 +2230,12 @@ def phase_wide_path(name, card, max_err, chees_ptxas):
 
 
 # The wide functors' classes in csrc/models.cuh, as ptxas names them.
+# A registered user functor's entries instantiate WidePerChain<its struct>.
 WIDE_CLASSES = {"correlated_gaussian": "WideCorrelatedGaussian",
                 "interval_gaussian": "WideIntervalGaussian",
-                "hierarchical_gaussian": "WideHierarchicalGaussian"}
+                "hierarchical_gaussian": "WideHierarchicalGaussian",
+                "user_hierarchy": "WidePerChain,user_hierarchy_functor",
+                "user_ref_gaussian": "WidePerChain,user_ref_gaussian_functor"}
 
 
 def product_ops(m):
@@ -2459,7 +2681,7 @@ def group_lane_efficiency(nalpha, nb):
     return float(n.sum()) / float(nb * groups.max(dim=1).values.sum())
 
 
-def phase_wide_nuts_path(name, card, err, ptxas):
+def phase_wide_nuts_path(name, card, err, ptxas, iters=WIDE_NUTS_ITERS):
     """Path 2's cycle on the wide workload ``name`` at T x C chains through
     ``build_step``/``run_block`` (the NUTS kernel once per NUTS iteration,
     ``hmc_step`` once per HMC iteration, the HMC trajectory entry never), the
@@ -2475,7 +2697,7 @@ def phase_wide_nuts_path(name, card, err, ptxas):
 
     model, x0 = wide_workload(name)
     d = model.ndim
-    block, burn, timed, cuts, stride = wide_counts(name, d, WIDE_NUTS_ITERS)
+    block, burn, timed, cuts, stride = wide_counts(name, d, iters)
     cfg = wide_nuts_config(d, burn)
     state, (step, run_block), result, ok = phase_main_path(
         model, card, f"nuts/{name}", cfg, {KIND_NUTS: nuts_trees, KIND_HMC: hmc_step},
@@ -2737,13 +2959,315 @@ def wide_hmc_entry(name, model, state, launches, max_err, ptxas):
             "bound_by": bound_by, "library_ms": library_ms, **extra}
 
 
+# ---- User functors (ops/user.py): a user's model in the three kernels ----
+
+def phase_user_vs_plain(model, builtin=None):
+    """Every entry of ``model``'s registered functor (chees_step,
+    chees_trajectories, nuts_trees, hmc_step, hmc_trajectories and the HMC
+    draws) against its plain version, the model's batched ``value_grad``, on
+    ``wide_inputs``/``wide_tree_inputs`` draws at T x C chains, the plain
+    versions on ``wide_columns``, with a dense and a diagonal factor: no lane
+    may differ in any bit; the step's end points must equal the trajectory
+    entry's; the kernel's draws must equal ``hmc_draws``' lengths and lie
+    within DRAW_ULP_TOL ulp of its momenta. With ``builtin`` (the built-in
+    model of the same function) every output of every entry must equal the
+    built-in entry's on the same inputs, bit for bit, and each entry is
+    timed against it in turns (user, built-in, built-in, user; CUDA events,
+    stream held): the cost of the per-chain adapter. Returns ``(errors by
+    kernel, timings)``."""
+    from ptmcmcsampler_torch.ops import common
+    from ptmcmcsampler_torch.ops.chees import (
+        chees_step, chees_step_plain, chees_trajectories, chees_trajectories_plain,
+    )
+    from ptmcmcsampler_torch.ops.hmc import (
+        hmc_draws, hmc_kernel_draws, hmc_step, hmc_step_plain, hmc_trajectories,
+        hmc_trajectories_plain,
+    )
+    from ptmcmcsampler_torch.ops.nuts import nuts_trees, nuts_trees_plain, nuts_uniforms
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6161)
+    d, functor = model.ndim, model.cuda_functor
+    cols = wide_columns(C, dev)
+    err = {"chees": 0.0, "nuts": 0.0, "hmc": 0.0}
+    timings = {}
+
+    def check(label, kernel, out, ref, other=None):
+        """0 lanes of ``out`` differ from the plain ``ref`` on the columns,
+        nor from the built-in entry's ``other`` anywhere."""
+        n = lanes_differ(take_columns(out, C, cols), ref)
+        m = lanes_differ(out, other) if other is not None else 0
+        log(f"user {functor} (D={d}) {label}: {n} lanes differ from the plain version"
+            + (f", {m} from the built-in entry" if other is not None else ""))
+        if n or m:
+            raise SystemExit(f"user {functor} {label}: lanes differ")
+        err[kernel] = max(err[kernel], 0.0)
+
+    def timed(label, fn, reps):
+        """Both models' entry ``fn(m)`` in turns; ms of each."""
+        if builtin is None:
+            ms = {"user_ms": cuda_ms(lambda: fn(model), reps, hold_stream=True),
+                  "builtin_ms": None}
+        else:
+            a = cuda_ms(lambda: fn(model), reps, hold_stream=True)
+            b = cuda_ms(lambda: fn(builtin), reps, hold_stream=True)
+            b2 = cuda_ms(lambda: fn(builtin), reps, hold_stream=True)
+            a2 = cuda_ms(lambda: fn(model), reps, hold_stream=True)
+            ms = {"user_ms": (a + a2) / 2, "builtin_ms": (b + b2) / 2,
+                  "ratio": (a + a2) / (b + b2)}
+        timings[label] = ms
+        log(f"user {functor} {label}: {ms}")
+
+    for factor in ("dense", "diagonal"):
+        structure = FACTOR_TAGS[factor]
+        args = wide_inputs(gen, dev, model, C, 32, WIDE_EPS, HMC_EPS, factor)
+        _, r0, u, betas, eps, tlen, eps0, max_steps, chol, chol_inv = args
+        out = chees_step(*args, model, structure)
+        ref = chees_step_plain(*take_columns(args, C, cols), model, structure)
+        other = chees_step(*args, builtin, structure) if builtin else None
+        check(f"{factor} chees_step", "chees", out, ref, other)
+        eps_tc, nsteps = step_lengths(u, eps, tlen, eps0, max_steps)
+        traj = (out[1], r0, betas, eps_tc, nsteps, chol)
+        tout = chees_trajectories(*traj, model, structure)
+        tref = chees_trajectories_plain(*take_columns(traj, C, cols), model, structure)
+        tother = chees_trajectories(*traj, builtin, structure) if builtin else None
+        check(f"{factor} chees_trajectories", "chees", tout, tref, tother)
+        if not (torch.equal(tout[0], out[2]) and torch.equal(tout[1], out[3])):
+            raise SystemExit(f"user {functor} {factor}: the step's end points differ from the "
+                             "trajectory entry's")
+        timed(f"{factor} chees_step", lambda m: chees_step(*args, m, structure), 20)
+        timed(f"{factor} chees_trajectories",
+              lambda m: chees_trajectories(*traj, m, structure), 20)
+        del out, ref, other, tout, tref, tother
+
+        for depth in (4, NUTS_DEPTH):
+            targs, r_eps = wide_tree_inputs(gen, dev, model, C, depth, factor)
+            out = nuts_trees(*targs, model, r_eps=r_eps, structure=structure)
+            resu = nuts_uniforms(targs[7], depth, T, C)
+            resu = resu if cols is None else resu.index_select(-1, cols).contiguous()
+            sub = take_columns(targs, C, cols)
+            ref = nuts_trees_plain(*sub[:7], resu, sub[8], model,
+                                   take_columns([r_eps], C, cols)[0], structure)
+            other = nuts_trees(*targs, builtin, r_eps=r_eps, structure=structure) \
+                if builtin else None
+            check(f"{factor} nuts_trees depth {depth}", "nuts", out, ref, other)
+            timed(f"{factor} nuts_trees depth {depth}",
+                  lambda m: nuts_trees(*targs, m, r_eps=r_eps, structure=structure), 3)
+            del out, ref, other, sub, resu, targs, r_eps
+
+        x = args[0]
+        key = torch.randint(0, 2**32, (2,), generator=gen, device=dev, dtype=torch.int64)
+        hargs = (x, betas, key, chol, chol_inv, HMC_EPS, HMC_NMIN, HMC_NMAX)
+        x1, qxy = hmc_step(*hargs, model, structure)
+        p0, hsteps = hmc_kernel_draws(key, T, d, C, HMC_NMIN, HMC_NMAX, model)
+        p0t, hstepst = hmc_draws(key, T, d, C, HMC_NMIN, HMC_NMAX)
+        max_ulp = int(ulps(p0, p0t).max())
+        if not torch.equal(hsteps, hstepst) or max_ulp > DRAW_ULP_TOL:
+            raise SystemExit(f"user {functor} {factor}: the kernel's draws differ from "
+                             f"hmc_draws (p0 within {max_ulp} ulp)")
+        sub = take_columns((x, p0, hsteps), C, cols)
+        ref = hmc_step_plain(sub[0], betas, (sub[1], sub[2]), chol, chol_inv, HMC_EPS,
+                             HMC_NMIN, HMC_NMAX, model, structure)
+        other = hmc_step(*hargs, builtin, structure) if builtin else None
+        check(f"{factor} hmc_step", "hmc", (x1, qxy), ref, other)
+        if builtin is not None:  # the same draw code: the built-in's draws, bit for bit
+            bp0, bsteps = hmc_kernel_draws(key, T, d, C, HMC_NMIN, HMC_NMAX, builtin)
+            m = lanes_differ((p0, hsteps), (bp0, bsteps))
+            log(f"user {functor} {factor} hmc draws: within {max_ulp} ulp of hmc_draws, "
+                f"lengths equal; {m} lanes differ from the built-in entry's")
+            if m:
+                raise SystemExit(f"user {functor} {factor}: hmc draws differ from the "
+                                 "built-in's")
+        q0 = common.matvec(chol_inv.T, x, structure)
+        htraj = (q0, p0, betas, hsteps, chol, HMC_EPS)
+        q1, qxyk = hmc_trajectories(*htraj, model, structure)
+        tref = hmc_trajectories_plain(*take_columns(htraj, C, cols), model, structure)
+        tother = hmc_trajectories(*htraj, builtin, structure) if builtin else None
+        check(f"{factor} hmc_trajectories", "hmc", (q1, qxyk), tref, tother)
+        if lanes_differ((common.matvec(chol.T, q1, structure), qxyk), (x1, qxy)):
+            raise SystemExit(f"user {functor} {factor}: the HMC step's end points differ from "
+                             "the trajectory entry's")
+        timed(f"{factor} hmc_step", lambda m: hmc_step(*hargs, m, structure), 20)
+        timed(f"{factor} hmc_trajectories",
+              lambda m: hmc_trajectories(*htraj, m, structure), 20)
+        timed(f"{factor} hmc draws",
+              lambda m: hmc_kernel_draws(key, T, d, C, HMC_NMIN, HMC_NMAX, m), 20)
+        del args, x1, qxy, p0, hsteps, p0t, hstepst, ref, other, q0, q1, qxyk, tref, tother, sub
+    torch.cuda.empty_cache()
+    return err, timings
+
+
+def user_item(item, timings):
+    """A user functor's kernel item from a path phase: its source is the
+    kernel's header the generated unit instantiates, and it carries the
+    user-against-built-in timings of its kernel's entries."""
+    header = {"chees": "chees_kernels.cuh", "nuts": "nuts_kernels.cuh",
+              "hmc": "hmc_kernels.cuh"}[item["name"].split("_", 1)[0]]
+    kernel = item["name"].split("_", 1)[0]
+    item.update(
+        source=f"ptmcmcsampler_torch/csrc/{header}",
+        generated_by="ptmcmcsampler_torch/ops/user.py",
+        against_builtin={k: v for k, v in timings.items() if k.split()[1].startswith(kernel)},
+    )
+    return item
+
+
+def phase_user_sampler(card, wrappers):
+    """``PTSampler`` with user models' bound methods on the card, the kernel
+    route, its libraries built at construction. UserHierarchy at 8 x
+    WIDE_SAMPLER_C chains with every jump, WIDE_SAMPLER_ITERS iterations:
+    the route line must name the functor; ChEES, NUTS and HMC must launch
+    the user entries once per iteration of their kind; the chain files'
+    rows and the gate as the wide sampler phase checks them; then the
+    built-in HierarchicalGaussian from the same seed, whose files are
+    compared with the user run's byte for byte (the first differing row and
+    the largest difference printed where they differ). Then the reference's
+    test_nuts.py scenario with UserRefGaussian (SCAM/AM/DE/NUTS/HMC,
+    HMCsteps 20, HMCstepsize 0.2) at 8 x WIDE_SAMPLER_C: launches, and the
+    cold chains' moments against N(0, I). Then a 100-D UserRefGaussian,
+    beyond its functor's dims, must be refused when ``sample()`` starts,
+    before any iteration or launch. Returns ``(result, launches)``."""
+    import io
+
+    from ptmcmcsampler_torch import PTSampler
+    from ptmcmcsampler_torch.config import KIND_CHEES, KIND_HMC, KIND_NUTS
+    from ptmcmcsampler_torch.diagnostics import moment_gate
+    from ptmcmcsampler_torch.models import HierarchicalGaussian
+
+    dev = torch.device(DEVICE)
+    root = tempfile.mkdtemp(prefix="chip_smoke_user_sampler_")
+
+    def run(m, outdir, iters, kw):
+        for w in wrappers.values():
+            w.launches = 0
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            t0 = time.time()
+            s = PTSampler(m.ndim, m.lnlikefn, m.lnpriorfn, np.eye(m.ndim),
+                          logl_grad=m.lnlikefn_grad, logp_grad=m.lnpriorfn_grad, ntemps=T,
+                          nchains=WIDE_SAMPLER_C, outDir=outdir, seed=7)
+            made = time.time() - t0
+            t0 = time.time()
+            if iters:
+                s.sample(np.full(m.ndim, 0.1) if isinstance(m, UserRefGaussian)
+                         else np.zeros(m.ndim), iters, **kw)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        sys.stderr.write(said.getvalue())
+        return s, said.getvalue(), made, wall
+
+    def check(label, s, kw, kinds):
+        launches = counted_launches(s.block_stats, wrappers)
+        got = {kind: iterations(s, kind) for kind in kinds}
+        target, _ = s._model.posterior_moments()
+        thin = kw["thin"]
+        ok, max_z, ess = moment_gate(s.chains[:, 1000 // thin + 1:], target)
+        checks = {f"{wrappers[name].__name__} launches": (launches[name], got[kind])
+                  for kind, name in ((KIND_CHEES, "chees_step"), (KIND_NUTS, "nuts_trees"),
+                                     (KIND_HMC, "hmc_step")) if kind in kinds}
+        checks.update({
+            "trajectory entries' launches": (launches["chees_trajectories"]
+                                             + launches["hmc_trajectories"], 0),
+            "iterations of each kind > 0": (min(got.values()) > 0, True),
+            "finite state": (bool(torch.isfinite(s.state.x).all()), True),
+            "moment gate": (ok, True),
+        })
+        log(f"user sampler {label}: iterations {got}, launches {launches}, gate ok {ok} "
+            f"max z {max_z:.3f}")
+        for what, (value, want) in checks.items():
+            if value != want:
+                raise SystemExit(f"user sampler {label}: {what} is {value}, expected {want}")
+        return {"iterations_by_kind": got, "launches": launches, "moments_ok": ok,
+                "moments_max_z": max_z, "ess_min_dim": float(ess.min())}
+
+    try:
+        hier = UserHierarchy()
+        d = hier.ndim
+        user_dir, builtin_dir = os.path.join(root, "user"), os.path.join(root, "builtin")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        s, said, made, wall = run(hier, user_dir, WIDE_SAMPLER_ITERS, WIDE_SAMPLER_KW)
+        route = next((line for line in said.splitlines() if line.startswith("Model route")), "")
+        if s.route != "kernel" or "kernel (functor 'user_hierarchy')" not in route:
+            raise SystemExit(f"user sampler: the route is {s.route!r}: {route!r}")
+        hier_result = check("user_hierarchy", s, WIDE_SAMPLER_KW,
+                            (KIND_CHEES, KIND_NUTS, KIND_HMC))
+        launches = dict(hier_result["launches"])
+        rows = 1 + WIDE_SAMPLER_ITERS // WIDE_SAMPLER_KW["thin"]
+        text = np.loadtxt(os.path.join(user_dir, "chain_1.0.txt"), ndmin=2)
+        if text.shape != (rows, d + 4):
+            raise SystemExit(f"user sampler: chain_1.0.txt is {text.shape}, expected "
+                             f"{(rows, d + 4)}")
+        hier_result.update(iters_per_sec=WIDE_SAMPLER_ITERS / wall, wall_sec=wall,
+                           construct_sec=made, route=route,
+                           peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        del s
+        _, _, _, builtin_wall = run(HierarchicalGaussian(), builtin_dir, WIDE_SAMPLER_ITERS,
+                                    WIDE_SAMPLER_KW)
+        equal = same_files(user_dir, builtin_dir)
+        files = {"equal_to_builtin": equal, "builtin_iters_per_sec":
+                 WIDE_SAMPLER_ITERS / builtin_wall}
+        if not equal:  # the first differing file; a chain text file's first row
+            name = next((n for n in sorted(os.listdir(user_dir))
+                         if not filecmp.cmp(os.path.join(user_dir, n),
+                                            os.path.join(builtin_dir, n), shallow=False)), "")
+            files["first_differing_file"] = name
+            if name.startswith("chain_") and name.endswith(".txt"):
+                a = np.loadtxt(os.path.join(user_dir, name), ndmin=2)
+                b = np.loadtxt(os.path.join(builtin_dir, name), ndmin=2)
+                if a.shape == b.shape:
+                    files.update(first_differing_row=int(np.argmax((a != b).any(axis=1))),
+                                 largest_difference=float(np.abs(a - b).max()))
+        log(f"user sampler: files of the user functor's run and the built-in's equal: "
+            f"{files}")
+        shutil.rmtree(user_dir, ignore_errors=True)
+        shutil.rmtree(builtin_dir, ignore_errors=True)
+
+        ref = UserRefGaussian()
+        s, said, _, wall = run(ref, os.path.join(root, "ref"), USER_REF_ITERS, USER_REF_KW)
+        ref_result = check("user_ref_gaussian", s, USER_REF_KW, (KIND_NUTS, KIND_HMC))
+        acc = dict(zip(s.config.jump_names(), (
+            s.state.counters.jump_accepted[:, 0].sum(-1).double()
+            / s.state.counters.jump_proposed[:, 0].sum(-1).clamp(min=1).double()).tolist()))
+        ref_result.update(iters_per_sec=USER_REF_ITERS / wall, cold_acceptance=acc)
+        for name in ("nuts_trees", "hmc_step"):
+            launches[f"{name} (user_ref_gaussian)"] = ref_result["launches"][name]
+        del s
+
+        big = UserRefGaussian(ndim=100)
+        s, _, _, _ = run(big, os.path.join(root, "refused"), 0, USER_REF_KW)
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                s.sample(np.zeros(100), 100, **USER_REF_KW)
+        except NotImplementedError as e:
+            refusal = str(e)
+        else:
+            raise SystemExit("user sampler: the 100-D model was not refused")
+        log(f"user sampler: 100-D UserRefGaussian refused: {refusal}")
+        if ("got 100" not in refusal or 'device="cpu"' not in refusal or s.state is not None
+                or any(w.launches for w in wrappers.values())):
+            raise SystemExit(f"user sampler: the refusal is not the expected one: {refusal}")
+        name, power = [v.strip() for v in card.split(",", 1)]
+        result = {
+            "phase": "user_sampler", "chains": [T, WIDE_SAMPLER_C],
+            "user_hierarchy": {"iters": WIDE_SAMPLER_ITERS, **hier_result, **files},
+            "user_ref_gaussian": {"iters": USER_REF_ITERS, "settings": USER_REF_KW,
+                                  **ref_result},
+            "refused_100d": refusal, "card": name, "power_limit": power,
+        }
+        return result, launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from ptmcmcsampler_torch.config import KIND_CHEES, KIND_HMC, KIND_NUTS
     from ptmcmcsampler_torch.models import CurvedLikelihood
-    from ptmcmcsampler_torch.ops import build
+    from ptmcmcsampler_torch.ops import build, user
     from ptmcmcsampler_torch.ops.chees import chees_step, chees_trajectories
     from ptmcmcsampler_torch.ops.hmc import hmc_step, hmc_trajectories
     from ptmcmcsampler_torch.ops.nuts import nuts_trees
@@ -2754,15 +3278,25 @@ def main():
     nvcc = subprocess.run([build.nvcc_path(), "--version"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[-1]
     log(f"nvcc: {nvcc}")
+    # The user models register their functors; every library, built-in and
+    # generated, is built at once, one nvcc each.
+    users = {name: wide_workload(name)[0] for name in USER_ITERS}
+    user_libs = tuple(lib for m in users.values() for lib in user.libraries(m.cuda_functor))
     t0 = time.time()
-    logs = build.build()
+    logs = build.build(build.SOURCES + user_libs)
+    build_sec = time.time() - t0
     for name, text in logs.items():
-        log(f"built {name} in {time.time() - t0:.1f}s:\n{text.strip()}")
-    hmc_all = ptxas_info(logs.get("hmc_trajectory", ""))
+        log(f"built {name} in {build_sec:.1f}s:\n{text.strip()}")
+
+    def kernel_log(source):  # a kernel's build log and its user units'
+        return logs.get(source, "") + "".join(
+            logs.get(lib, "") for lib in user_libs if lib.startswith(source + "_"))
+
+    hmc_all = ptxas_info(kernel_log("hmc_trajectory"))
     hmc_ptxas = {k: v for k, v in hmc_all.items() if "Wide" not in k}
     hmc_ptxas = hmc_ptxas or "not measured (built before)"
-    chees_ptxas = ptxas_info(logs.get("chees_trajectory", ""))
-    wide2_ptxas = {"nuts_tree": ptxas_info(logs.get("nuts_tree", "")), "hmc_trajectory": hmc_all}
+    chees_ptxas = ptxas_info(kernel_log("chees_trajectory"))
+    wide2_ptxas = {"nuts_tree": ptxas_info(kernel_log("nuts_tree")), "hmc_trajectory": hmc_all}
 
     model = CurvedLikelihood()
     err = {
@@ -2774,6 +3308,10 @@ def main():
                 for name in WIDE_ITERS}
     wide2_err = {name: phase_wide_nuts_hmc_vs_plain(name, wide_workload(name)[0])
                  for name in WIDE_NUTS_ITERS}
+    user_err, user_timings = {}, {}
+    for name, m in users.items():
+        builtin = wide_workload("hierarchical")[0] if name == "user_hierarchical" else None
+        user_err[name], user_timings[name] = phase_user_vs_plain(m, builtin)
 
     path1 = {KIND_CHEES: chees_step}
     path2 = {KIND_NUTS: nuts_trees, KIND_HMC: hmc_step}
@@ -2831,6 +3369,28 @@ def main():
         for item in items:
             if item["workload"] == "hierarchical":
                 item["launches_by_path"]["sampler"] = wide_sampler_launches[wrapper]
+
+    # The user models: path 1 and path 2 through their functors' entries,
+    # then PTSampler.
+    for name in USER_ITERS:
+        item = phase_wide_path(name, card, user_err[name]["chees"], chees_ptxas, USER_ITERS)
+        wide.append(user_item(item, user_timings[name]))
+    for name in USER_NUTS_ITERS:
+        items = phase_wide_nuts_path(name, card, user_err[name], wide2_ptxas, USER_NUTS_ITERS)
+        wide_nuts += (user_item(items[0], user_timings[name]),)
+        wide_hmc += (user_item(items[1], user_timings[name]),)
+    result, user_sampler_launches = phase_user_sampler(card, wrappers)
+    print(json.dumps(result), flush=True)
+    for items, wrapper in ((wide, "chees_step"), (wide_nuts, "nuts_trees"),
+                           (wide_hmc, "hmc_step")):
+        for item in items:
+            if item["workload"] == "user_hierarchical":
+                item["launches_by_path"]["sampler"] = user_sampler_launches[wrapper]
+            elif item["workload"] == "user_ref_gaussian" and wrapper != "chees_step":
+                item["launches_by_path"]["sampler, reference scenario"] = \
+                    user_sampler_launches[f"{wrapper} (user_ref_gaussian)"]
+            if item["workload"].startswith("user_"):
+                item["build_sec_all_libraries"] = build_sec
     kernels[0]["wide"] = wide
     kernels[1]["wide"] = list(wide_nuts)
     kernels[2]["wide"] = list(wide_hmc)

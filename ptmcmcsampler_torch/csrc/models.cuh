@@ -480,6 +480,30 @@ struct WideHierarchicalGaussian {
   }
 };
 
+// A user's device functor F (ops/user.py register_functor) as a wide
+// functor. F gives one chain's tempered value and gradient:
+//
+//   static __device__ float value_grad(const float* x, int stride, int D,
+//                                      float beta, const float* prm, float* g);
+//
+// reading x[d * stride] and writing g[d * stride] for d < D, and returning
+// beta*ll + lp. Thread c < NB evaluates chain c of the group (x = w.x + c,
+// g = w.g + c, stride NB, prm the model's constants, null where it has
+// none); the block's other threads only wait at the barrier. It writes
+// logp[c] where need[c], leaves w.tmp alone, and returns after the barrier
+// the eval contract asks for.
+template <class F>
+struct WidePerChain {
+  __device__ static void eval(const Wide& w) {
+    const int c = threadIdx.x;
+    if (c < w.NB) {
+      const float v = F::value_grad(w.x + c, w.NB, w.D, w.beta[c], w.prm, w.g + c);
+      if (w.need[c]) w.logp[c] = v;
+    }
+    __syncthreads();
+  }
+};
+
 // The tempered value and whitened gradient of a group at whitened positions
 // z: w.x = chol^T z, the model at w.x (gradient in w.g, w.tmp as scratch),
 // gw = chol w.g, the products keeping the terms of the factor's structure

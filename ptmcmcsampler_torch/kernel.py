@@ -33,7 +33,7 @@ import torch
 
 from . import adaptation, swaps, utils
 from .config import KIND_CHEES, KIND_DE, KIND_NUTS, SamplerConfig
-from .ops import chees as ops_chees, hmc as ops_hmc, nuts as ops_nuts
+from .ops import chees as ops_chees, hmc as ops_hmc, nuts as ops_nuts, user
 from .proposals.base import ProposalContext
 from .proposals.cycle import build_jump_branches, draw_kinds
 from .state import SS_FIELDS, SamplerState, copy_into, map_state
@@ -223,13 +223,16 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
     nrows, kinds=None, on_dispatched=None) -> (state, BlockOutput)``.
 
     ``model`` gives batched ``lnlike(x[..., D, C])``, ``lnprior`` and, for
-    the gradient jumps, ``value_grad(x, beta)`` and a ``cuda_functor``.
+    the gradient jumps, ``value_grad(x, beta)`` and a ``cuda_functor`` (a
+    registered user functor's libraries are built here on the card).
     ``device`` is where the step runs, the card unless the caller asks for
     the CPU; the state must live there. ``capture=False`` runs ``run_block``
     eagerly on the card too: for models whose callables run on the host,
     which a graph cannot hold.
     """
     device = utils.resolve_device(device, "build_step")
+    if device.type == "cuda":  # a user functor's libraries, before any capture
+        user.prepare(model, device)
     t, c = config.ntemps, config.nchains
     branches = build_jump_branches(config, model, device)
 

@@ -3,8 +3,12 @@
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface. It is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library under
 ``ptmcmcsampler_torch/_build/``, named by a hash of its source, of every
-header it includes from ``csrc/`` (``models.cuh``, shared by all kernels)
-and of the flags, at first use, and loaded with ``ctypes``. No PyTorch
+header it includes from ``csrc/`` (``models.cuh``, shared by all kernels,
+and the kernel's own ``*_kernels.cuh``) and of the flags, at first use, and
+loaded with ``ctypes``. A registered user functor's libraries
+(``ops/user.py``) are translation units generated as text
+(``GENERATED``): each is written into ``_build/`` beside its library and
+compiled with ``csrc/`` on the include path, under the same key. No PyTorch
 headers are included, so a build takes seconds. A missing ``nvcc`` or a
 failed build raises.
 """
@@ -32,6 +36,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# Library name -> the text of a generated translation unit (ops/user.py).
+GENERATED: dict = {}
 _loaded: dict = {}
 
 
@@ -47,24 +53,31 @@ def nvcc_path():
 _LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 
-def _inputs(path, csrc, seen):
-    """``path`` and, recursively, every header it includes from ``csrc``."""
-    if path in seen:
-        return
-    seen.append(path)
-    for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+def _source_text(name, csrc):
+    """The translation unit of library ``name``: generated, or ``csrc/<name>.cu``."""
+    if name in GENERATED:
+        return GENERATED[name].encode()
+    return (csrc / f"{name}.cu").read_bytes()
+
+
+def _headers(text, csrc, seen):
+    """Every header that ``text`` includes from ``csrc``, recursively."""
+    for inc in _LOCAL_INCLUDE.findall(text):
         header = csrc / inc.decode()
-        if header.exists():
-            _inputs(header, csrc, seen)
+        if header.exists() and header not in seen:
+            seen.append(header)
+            _headers(header.read_bytes(), csrc, seen)
 
 
 def library_path(name, csrc=CSRC):
-    """Where the library of ``csrc/<name>.cu`` is built: named by a hash of
-    the source, the headers it includes and the flags."""
-    files = []
-    _inputs(csrc / f"{name}.cu", csrc, files)
+    """Where library ``name`` is built: named by a hash of its translation
+    unit, the headers it includes from ``csrc`` and the flags."""
+    text = _source_text(name, csrc)
+    headers = []
+    _headers(text, csrc, headers)
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in files:
+    digest.update(f"{name}.cu".encode() + b"\0" + text)
+    for f in headers:
         digest.update(f.name.encode() + b"\0" + f.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -79,8 +92,14 @@ def build(names=SOURCES):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in todo:
-        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        lib = library_path(name)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        if name in GENERATED:
+            source = lib.with_suffix(".cu")
+            source.write_text(GENERATED[name])
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(source)]
+        else:
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
@@ -100,7 +119,7 @@ def build(names=SOURCES):
 
 
 def load(name):
-    """The ``ctypes`` handle of ``csrc/<name>.cu``, built on first use."""
+    """The ``ctypes`` handle of library ``name``, built on first use."""
     if name not in _loaded:
         build((name,))
         _loaded[name] = ctypes.CDLL(str(library_path(name)))

@@ -19,7 +19,8 @@ one launch for all of it.
   curved model (D = 2) runs one thread a chain with its vectors in
   registers; the wide models (``correlated_gaussian``,
   ``interval_gaussian``, ``hierarchical_gaussian``, any D up to
-  ``common.WIDE_MAX_D``) run the wide layout, groups of ``wide_group(D)``
+  ``common.WIDE_MAX_D``, and a registered user functor at its dims, from its
+  own library: ``ops/user.py``) run the wide layout, groups of ``wide_group(D)``
   chains with their vectors in shared memory, and take the model's
   constants (``model.cuda_params``). Both order each block's 256 chains by
   length.
@@ -124,7 +125,7 @@ def chees_trajectories(q0, p0, beta, eps, nsteps, chol, model, structure="dense"
         dims = (common.structure_code("chees_trajectories", structure), d, t, c)
     ptrs += (q1, p1, logp1)
     fn = common.entry(
-        "chees_trajectory", f"chees_trajectory_{functor}",
+        "chees_trajectory", functor, f"chees_trajectory_{functor}",
         [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(dims) + [ctypes.c_void_p],
     )
     common.launch("chees_trajectory", fn, q0.device, *(a.data_ptr() for a in ptrs), *dims)
@@ -212,7 +213,7 @@ def chees_step(x, r0, u, beta, eps, tlen, eps0, max_steps, chol, chol_inv, model
         ins += (common.cuda_params("chees_step", model, functor, x.device),)
         dims = (common.structure_code("chees_step", structure), d, t, c)
     fn = common.entry(
-        "chees_trajectory", f"chees_step_{functor}",
+        "chees_trajectory", functor, f"chees_step_{functor}",
         [ctypes.c_void_p] * len(ins) + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 6
         + [ctypes.c_int] * len(dims) + [ctypes.c_void_p],
     )

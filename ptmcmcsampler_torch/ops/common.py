@@ -36,7 +36,8 @@ def wide_smem_bytes(ndim, group):
 # ``cuda_functor``: for each kernel that has an entry for the functor, the
 # dimensions ``(least, most)`` it takes. The curved functor is compiled for
 # D = 2 into the register kernels of all three; the wide functors run in the
-# wide layout of all three at any D up to WIDE_MAX_D.
+# wide layout of all three at any D up to WIDE_MAX_D. ``user.register_functor``
+# adds a user's functor, which runs in the wide layout at its own dims.
 _WIDE = {"chees": (1, WIDE_MAX_D), "hmc": (1, WIDE_MAX_D), "nuts": (1, WIDE_MAX_D)}
 FUNCTORS = {
     "curved": {"chees": (2, 2), "hmc": (2, 2), "nuts": (2, 2)},
@@ -178,7 +179,8 @@ def kernel_refusal(functor, kernel, ndim):
     """Why ``kernel`` ("chees", "hmc" or "nuts") cannot run the device
     functor ``functor`` at dimension ``ndim``, or None if it can."""
     if functor not in FUNCTORS:
-        return "no CUDA device functor in csrc/models.cuh"
+        return ("no CUDA device functor: none of csrc/models.cuh, nor one registered "
+                "with ptmcmcsampler_torch.register_functor")
     dims = FUNCTORS[functor].get(kernel)
     if dims is None:
         return f"the {kernel.upper()} kernel has no entry for functor {functor!r}"
@@ -238,10 +240,13 @@ def check_device(fn_name, t):
     return False
 
 
-def entry(source, symbol, argtypes):
-    """The ``ctypes`` function ``symbol`` of ``csrc/<source>.cu``, built on
-    first use; it returns the launch's CUDA error code."""
-    fn = getattr(build.load(source), symbol)
+def entry(source, functor, symbol, argtypes):
+    """The ``ctypes`` function ``symbol`` of ``csrc/<source>.cu``, or of the
+    library generated for ``functor`` if it is a registered user functor
+    (``ops/user.py``), built on first use; it returns the launch's CUDA
+    error code."""
+    library = f"{source}_{functor}"
+    fn = getattr(build.load(library if library in build.GENERATED else source), symbol)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes

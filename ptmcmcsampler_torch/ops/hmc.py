@@ -29,7 +29,8 @@ it, and no momentum or length array exists on the path.
   wrong shape, type or layout, array draws for the fused step, or a failed
   launch all raise. The curved model (D = 2) runs one chain a thread; the
   wide models (``correlated_gaussian``, ``interval_gaussian``,
-  ``hierarchical_gaussian``, any D up to ``common.WIDE_MAX_D``) run the wide
+  ``hierarchical_gaussian``, any D up to ``common.WIDE_MAX_D``, and a
+  registered user functor at its dims: ``ops/user.py``) run the wide
   layout, a group of ``wide_group(D)`` chains a block with their vectors in
   shared memory, and take the model's constants (``model.cuda_params``).
 * On a CPU tensor it runs its plain version: the same function as masked
@@ -127,7 +128,7 @@ def hmc_trajectories(q0, p0, beta, nsteps, chol, eps, model, structure="dense"):
         ins += (common.cuda_params("hmc_trajectories", model, functor, q0.device),)
         dims = (common.structure_code("hmc_trajectories", structure), d, t, c)
     fn = common.entry(
-        "hmc_trajectory", f"hmc_trajectory_{functor}",
+        "hmc_trajectory", functor, f"hmc_trajectory_{functor}",
         [ctypes.c_void_p] * len(ins) + [ctypes.c_float] + [ctypes.c_void_p] * 2
         + [ctypes.c_int] * len(dims) + [ctypes.c_void_p],
     )
@@ -241,7 +242,7 @@ def hmc_step(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model, structure="
         ins += (common.cuda_params("hmc_step", model, functor, x.device),)
         dims = (common.structure_code("hmc_step", structure), d, t, c)
     fn = common.entry(
-        "hmc_trajectory", f"hmc_step_{functor}",
+        "hmc_trajectory", functor, f"hmc_step_{functor}",
         [ctypes.c_void_p] * len(ins) + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
         + [ctypes.c_void_p] * 2 + [ctypes.c_int] * len(dims) + [ctypes.c_void_p],
     )
@@ -271,7 +272,7 @@ def hmc_kernel_draws(key, t, d, c, nmin, nmax, model):
     nsteps = torch.empty((t, c), dtype=torch.int32, device=key.device)
     dims = (t, c) if functor == "curved" else (d, t, c)
     fn = common.entry(
-        "hmc_trajectory", f"hmc_draws_{functor}",
+        "hmc_trajectory", functor, f"hmc_draws_{functor}",
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2
         + [ctypes.c_int] * len(dims) + [ctypes.c_void_p],
     )

@@ -18,7 +18,8 @@ algorithm is written out in ``csrc/nuts_tree.cu``.
   key, or raises. The curved model (D = 2) runs one thread a chain, each
   building its own tree; the wide models (``correlated_gaussian``,
   ``interval_gaussian``, ``hierarchical_gaussian``, any D up to
-  ``common.WIDE_MAX_D``) run the wide layout, a group of ``wide_group(D)``
+  ``common.WIDE_MAX_D``, and a registered user functor at its dims:
+  ``ops/user.py``) run the wide layout, a group of ``wide_group(D)``
   chains a block stepping through the plain version's masked schedule
   together, with the model's constants (``model.cuda_params``) and a global
   scratch for the frontiers, checkpoints and subtree proposals, allocated
@@ -239,7 +240,7 @@ def nuts_trees(q0, r0, beta, eps, expo, dirs, accu, draws, chol, model, r_eps=No
         ins += (prm, scratch)
         dims = (common.structure_code("nuts_trees", structure), d, t, c, depth)
     fn = common.entry(
-        "nuts_tree", f"nuts_tree_{functor}",
+        "nuts_tree", functor, f"nuts_tree_{functor}",
         [ctypes.c_void_p] * (len(ins) + 7) + [ctypes.c_int] * len(dims) + [ctypes.c_void_p],
     )
     common.launch(

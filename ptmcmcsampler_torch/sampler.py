@@ -15,16 +15,20 @@ reach ``build_step``, which wants a batched model, by one of three routes:
   ``lnprior`` and ``value_grad`` and names a ``cuda_functor``, and no
   ``*args``/``*kwargs`` are passed. The object goes to ``build_step`` whole,
   and on the card its gradient jumps launch the CUDA kernels compiled with
-  that functor (the four models of ``models`` are such objects). A jump
-  whose kernel does not take the functor at the model's dimension (a wide
-  functor beyond D = 256) is refused on the card when ``sample()`` starts
+  that functor: a built-in one (the four models of ``models`` are such
+  objects) or a user's, registered with ``register_functor``
+  (``ops/user.py``), whose libraries are built when the sampler is made on
+  the card. A jump whose kernel does not take the functor at the model's
+  dimension (a wide functor beyond D = 256, a user functor outside its
+  registered dims) is refused on the card when ``sample()`` starts
   (:func:`card_refusal`); on the CPU every jump runs.
 * **plain**: anything else that ``torch.func.vmap`` can batch: it runs
   batched on the device. The gradient jumps run the kernels' plain
   versions, which run only on the CPU: on the card a kernel wrapper
   launches its kernel or raises. So on the card this route is refused for a
-  model with gradients (ROADMAP A15 brings user models to the kernels);
-  without gradients it runs there, since SCAM, AM and DE reach no kernel.
+  model with gradients (a user's model reaches the kernels by registering
+  its functor); without gradients it runs there, since SCAM, AM and DE
+  reach no kernel.
 * **host**: the plain route where a callable cannot be batched (numpy):
   it runs on the host, one call a point, in float64. A CUDA graph cannot
   hold a host call, so ``run_block`` runs this route eagerly on the card.
@@ -60,7 +64,7 @@ from .io.chainfile import ChainWriter
 from .io.checkpoint import load_checkpoint, save_checkpoint
 from .kernel import BlockOutput, build_step
 from .ladder import ladder_betas, temperature_ladder
-from .ops import common
+from .ops import common, user
 from .state import clone_generator, init_state, map_state
 
 _FUNCTOR_METHODS = ("lnlikefn", "lnpriorfn", "lnlikefn_grad", "lnpriorfn_grad")
@@ -268,15 +272,21 @@ class PTSampler:
             route = f"kernel (functor {model.cuda_functor!r})"
             if self.device.type == "cpu":
                 route += ", its plain versions on the CPU"
+            else:  # a user functor's libraries: built and loaded before any capture
+                user.prepare(model, self.device)
         else:
             if have_grads and self.device.type == "cuda":
                 raise NotImplementedError(
-                    "on the card the gradient jumps run only through the CUDA kernels, whose "
-                    "device functors (csrc/models.cuh) take the bound methods lnlikefn, "
-                    "lnpriorfn, lnlikefn_grad and lnpriorfn_grad of a model with a "
-                    "cuda_functor and no extra arguments; these callables have none. Pass "
+                    "on the card the gradient jumps run only through the CUDA kernels. They "
+                    "take the bound methods lnlikefn, lnpriorfn, lnlikefn_grad and "
+                    "lnpriorfn_grad, with no extra arguments, of a model object that also "
+                    "gives the batched lnlike, lnprior and value_grad and names its device "
+                    "functor in cuda_functor: a built-in one (csrc/models.cuh) or one "
+                    "registered with ptmcmcsampler_torch.register_functor (the model's value "
+                    "and gradient of one chain in CUDA C++, its constants from cuda_params; "
+                    "README). These callables are not such methods. Pass "
                     'device="cpu", or leave out logl_grad/logp_grad to sample on the card '
-                    "without gradient jumps (user models on the card: ROADMAP A15)")
+                    "without gradient jumps")
             self.route = "plain"
             route = f"plain PyTorch on {self.device}"
             self._model = self._wrap_callables(

@@ -15,12 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from ptmcmcsampler_torch import SamplerConfig, build_default_jumps, build_step, init_state
 from ptmcmcsampler_torch.config import KIND_CHEES, KIND_HMC, KIND_NUTS
 from ptmcmcsampler_torch.models import (
     CorrelatedGaussian, CurvedLikelihood, HierarchicalGaussian, IntervalTransformedGaussian,
 )
-from ptmcmcsampler_torch.ops import build, common
+from ptmcmcsampler_torch.ops import build, common, user
 from ptmcmcsampler_torch.ops.chees import (
     chees_step, chees_step_plain, chees_trajectories, chees_trajectories_plain,
 )
@@ -588,7 +589,7 @@ def test_sampler_refuses_gradients_without_functor_on_the_card(cuda, tmp_path):
     """Torch lambdas with gradients have no kernel to run on the card: the
     constructor refuses them, naming the CPU, instead of running plain
     versions there."""
-    with pytest.raises(NotImplementedError, match=r'device="cpu".*A15'):
+    with pytest.raises(NotImplementedError, match=r'register_functor.*device="cpu"'):
         _sampler("lambda", str(tmp_path))
 
 
@@ -816,18 +817,15 @@ def _structured(chol, factor):
     return chol, torch.linalg.solve_triangular(chol, eye, upper=False).contiguous()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("factor", ["diagonal", "lower"])
-@pytest.mark.parametrize("name", sorted(WIDE_MODELS))
-def test_wide_entries_with_structured_factors_match_plain_bitwise(cuda, name, factor):
-    """Every wide entry with a diagonal factor (tag "diagonal") and a lower
-    triangular one (tag "dense") equals its plain version, which keeps the
-    same terms, bit for bit, on a ragged batch: the ChEES step and
-    trajectory entries, the NUTS tree and the fused HMC step with its
-    trajectory entry."""
-    model = WIDE_MODELS[name]()
+def _entries_equal_plain(dev, model, factor):
+    """Every wide entry of ``model``'s functor with a factor of the kind
+    ``factor`` ("diagonal": tag "diagonal"; "lower": tag "dense") on a
+    ragged batch, each held to its plain version bit for bit: the ChEES
+    step and trajectory entries, the NUTS tree, the fused HMC step, its
+    draws and its trajectory entry. Returns the kernels' outputs and the
+    fused step's arguments."""
     c = 300
-    args = list(_wide_step_inputs(cuda, model, c=c))
+    args = list(_wide_step_inputs(dev, model, c=c))
     args[8], args[9] = _structured(args[8], factor)
     structure = common.factor_structure(args[8].cpu(), args[9].cpu())
     assert structure == {"diagonal": "diagonal", "lower": "dense"}[factor]
@@ -840,9 +838,10 @@ def test_wide_entries_with_structured_factors_match_plain_bitwise(cuda, name, fa
     nsteps = torch.clamp(torch.ceil(u * torch.maximum(tlen, eps_tc) / eps_tc), 1,
                          max_steps).to(torch.int32)
     traj = (out[1], r0, betas, eps_tc, nsteps, chol, model, structure)
-    for a, b in zip(chees_trajectories(*traj), chees_trajectories_plain(*traj)):
+    tout = chees_trajectories(*traj)
+    for a, b in zip(tout, chees_trajectories_plain(*traj)):
         assert _same(a, b)
-    q0, r0, betas, eps, expo, dirs, accu, key, _, r_eps = _wide_tree_inputs(cuda, model, c, 4)
+    q0, r0, betas, eps, expo, dirs, accu, key, _, r_eps = _wide_tree_inputs(dev, model, c, 4)
     tree = nuts_trees(q0, r0, betas, eps, expo, dirs, accu, key, chol, model, r_eps=r_eps,
                       structure=structure)
     ref = nuts_trees_plain(q0, r0, betas, eps, expo, dirs, accu,
@@ -851,7 +850,7 @@ def test_wide_entries_with_structured_factors_match_plain_bitwise(cuda, name, fa
                           tree, ref):
         assert _same(a, b), what
     t, d, _ = x.shape
-    hkey = torch.tensor([0x1234567, 0x89ABCDE], dtype=torch.int64, device=cuda)
+    hkey = torch.tensor([0x1234567, 0x89ABCDE], dtype=torch.int64, device=dev)
     hargs = (x, betas, hkey, chol, chol_inv, 0.08, HMC_NMIN, HMC_NMAX, model, structure)
     x1, qxy = hmc_step(*hargs)
     p0, hsteps = hmc_kernel_draws(hkey, t, d, c, HMC_NMIN, HMC_NMAX, model)
@@ -862,8 +861,80 @@ def test_wide_entries_with_structured_factors_match_plain_bitwise(cuda, name, fa
     q1, qxyk = hmc_trajectories(*htraj)
     q1p, qxykp = hmc_trajectories_plain(*htraj)
     assert _same(q1, q1p) and _same(qxyk, qxykp)
+    return (*out, *tout, *tree, x1, qxy, p0, hsteps, q1, qxyk), args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", ["diagonal", "lower"])
+@pytest.mark.parametrize("name", sorted(WIDE_MODELS))
+def test_wide_entries_with_structured_factors_match_plain_bitwise(cuda, name, factor):
+    """Every wide entry with a diagonal factor (tag "diagonal") and a lower
+    triangular one (tag "dense") equals its plain version, which keeps the
+    same terms, bit for bit, on a ragged batch: the ChEES step and
+    trajectory entries, the NUTS tree and the fused HMC step with its
+    trajectory entry."""
+    model = WIDE_MODELS[name]()
+    _, args = _entries_equal_plain(cuda, model, factor)
     with pytest.raises(ValueError, match="structure"):
         chees_step(*args, model, "banded")
+
+
+# ---- A user's functor, registered (ops/user.py) ----
+
+USER_MODELS = {"hierarchy": chip_smoke.UserHierarchy,
+               "ref_gaussian": chip_smoke.UserRefGaussian}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", ["diagonal", "lower"])
+@pytest.mark.parametrize("name", sorted(USER_MODELS))
+def test_user_entries_match_plain_bitwise(cuda, name, factor):
+    """Every entry built with a registered user functor (chip_smoke.py's
+    two user models) equals its plain version, the model's batched
+    value_grad, bit for bit; the user hierarchy's outputs equal the built-in
+    hierarchical_gaussian entries' on the same inputs."""
+    model = USER_MODELS[name]()
+    user.prepare(model, cuda)
+    before = {w: w.launches for w in (chees_step, nuts_trees, hmc_step)}
+    out, _ = _entries_equal_plain(cuda, model, factor)
+    assert all(w.launches == n + 1 for w, n in before.items())
+    if name == "hierarchy":
+        builtin, _ = _entries_equal_plain(cuda, HierarchicalGaussian(), factor)
+        for i, (a, b) in enumerate(zip(out, builtin)):
+            assert _same(a, b), i
+
+
+@pytest.mark.cuda
+def test_sampler_runs_a_user_functor_on_the_card(cuda, tmp_path):
+    """PTSampler takes a user model's bound methods on the card (the kernel
+    route, its libraries built at construction): ChEES, NUTS and HMC launch
+    the user entries once per iteration of their kind; a D outside the
+    functor's dims is refused when sample() starts."""
+    from ptmcmcsampler_torch import PTSampler
+
+    m = chip_smoke.UserRefGaussian()
+    make = lambda m, out: PTSampler(  # noqa: E731
+        m.ndim, m.lnlikefn, m.lnpriorfn, np.eye(m.ndim), logl_grad=m.lnlikefn_grad,
+        logp_grad=m.lnpriorfn_grad, ntemps=2, nchains=64, seed=3, outDir=out, verbose=False)
+    s = make(m, str(tmp_path / "run"))
+    assert s.route == "kernel" and s._model.cuda_functor == "user_ref_gaussian"
+    wrappers = {"chees_step": chees_step, "nuts_trees": nuts_trees, "hmc_step": hmc_step}
+    for w in wrappers.values():
+        w.launches = 0
+    s.sample(np.full(m.ndim, 0.1), 60, burn=20, Tskip=5, isave=20, covUpdate=20, thin=1,
+             SCAMweight=10, AMweight=10, DEweight=10, CHEESweight=10, NUTSweight=10,
+             HMCweight=10, MALAweight=0, HMCstepsize=0.2, HMCsteps=20)
+    kinds = [j.kind for j in s.config.jumps]
+    for kind, name in ((KIND_CHEES, "chees_step"), (KIND_NUTS, "nuts_trees"),
+                       (KIND_HMC, "hmc_step")):
+        iters = int(s.state.counters.jump_proposed[kinds.index(kind), 0, 0])
+        assert iters > 0
+        assert s.block_stats.kernel_launches(name, wrappers[name].launches) == iters
+    big = chip_smoke.UserRefGaussian(ndim=100)
+    s = make(big, str(tmp_path / "big"))
+    with pytest.raises(NotImplementedError, match=r'got 100.*device="cpu"'):
+        s.sample(np.zeros(100), 20, burn=10, isave=10, NUTSweight=10)
+    assert s.state is None
 
 
 def _wide_sampler(outdir, nchains=64):

@@ -243,7 +243,7 @@ def test_card_refuses_gradients_without_a_functor(tmp_path, monkeypatch, kind, k
                                                   refused):
     """On the card a kernel wrapper launches its kernel or raises, so a model
     with gradients but no functor route is refused there at construction,
-    naming the CPU and the ROADMAP item; the bound methods of a model with
+    naming the CPU and how to register a functor; the bound methods of a model with
     a functor take the kernel route. The constructor allocates nothing on
     the device on either branch, so a stand-in device suffices here."""
     from ptmcmcsampler_torch import sampler as sampler_module
@@ -258,7 +258,7 @@ def test_card_refuses_gradients_without_a_functor(tmp_path, monkeypatch, kind, k
     make = lambda: PTSampler(2, fns[0], fns[1], np.eye(2), logl_grad=fns[2],  # noqa: E731
                              logp_grad=fns[3], outDir=str(tmp_path), verbose=False, **kwargs)
     if refused:
-        with pytest.raises(NotImplementedError, match=r'device="cpu".*A15'):
+        with pytest.raises(NotImplementedError, match=r'register_functor.*device="cpu"'):
             make()
     else:
         s = make()
