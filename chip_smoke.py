@@ -193,9 +193,9 @@ Phases, in order; any failure exits non-zero:
    8 x 1024 chains, SCAM/AM/DE/ChEES/NUTS/HMC, 2000 iterations, files in a
    temporary directory; ``chees_step``, ``nuts_trees`` and ``hmc_step``
    each once per iteration of their kind, the chain files' rows, the gate
-   on the rows past iteration 1000. Then a 300-D ``CorrelatedGaussian``
-   (beyond the wide layout's 256) must be refused when ``sample()`` starts,
-   naming ``device="cpu"``. One JSON line.
+   on the rows past iteration 1000. Then a 1025-D ``CorrelatedGaussian``
+   (beyond the wide layout's 1024) must be refused when ``sample()``
+   starts, naming ``device="cpu"``. One JSON line.
 9a. The user paths: path 1's and path 2's cycles (as 7 and 8) on
    ``UserHierarchy`` (bench.py's hierarchical workload through the user
    functor) and on ``UserRefGaussian``, at 8 x 16384 chains, cut to
@@ -208,8 +208,29 @@ Phases, in order; any failure exits non-zero:
    the same seed (the result printed); the reference's test_nuts.py
    scenario with UserRefGaussian (SCAM/AM/DE/NUTS/HMC, HMCsteps 20,
    HMCstepsize 0.2, 8 x 1024): launches and the gate against N(0, I); a
-   100-D UserRefGaussian, beyond its functor's dims (2, 64), refused when
-   ``sample()`` starts. One JSON line ``"phase": "user_sampler"``.
+   100-D UserRefGaussian, beyond its functor's dims (2, 64), and a 1025-D
+   UserHierarchy, beyond its dims (2, 1024) and the layout's, refused when
+   ``sample()`` starts, naming ``device="cpu"``. One JSON line
+   ``"phase": "user_sampler"``.
+9c. Past D = 256 (groups of 8 chains to 512-D, of 4 to 1024-D, two tile
+   stages past 788-D): every wide entry (``chees_step``,
+   ``chees_trajectories``, ``nuts_trees`` at depth 4, ``hmc_step``, its
+   draws, ``hmc_trajectories``) against its plain version, the kernels at T
+   x C chains with the identity and a dense factor and at T x (C - 100)
+   with the identity, the plain versions on ``wide_columns`` (LARGE_CHECK),
+   no lane differing in any bit, for the hierarchy at 270, 512, 513 and
+   1024-D,
+   the correlated Gaussian at 300-D, and UserHierarchy at 270 and 1024-D
+   (also equal to the built-in entries):
+   one ``"phase": "large_vs_plain"`` line each. Then paths 1 and 2 (as 7
+   and 8) on bench.py's hierarchy with 269 and 1023 groups
+   (``hierarchical270``, the whole-array pulsar-timing class, and
+   ``hierarchical1024``) at 8 x 16384 chains, cut to LARGE_ITERS and
+   LARGE_NUTS_ITERS (the cuts in each line): launches once per iteration
+   of their kind, finite states, the gate (it must pass at 270-D; at
+   1024-D it is printed), and their kernel items; then 9 on the 270-D
+   hierarchy (``"phase": "wide_sampler"``, ``"workload":
+   "hierarchical270"``).
 10. Kernels line: each kernel's launches on its path, error against the
    plain version, device time (CUDA events, stream held, inputs from its
    path's final state), the time of a wrapper call, the plain version's time
@@ -492,8 +513,9 @@ __device__ static float value_grad(const float* x, int stride, int D, float beta
 # 0.5 log(2 pi) in f32, as the device source writes it.
 HALF_LOG_2PI_F32 = np.float32(0.9189385)
 # The dims each user functor is registered for: the hierarchy at any D the
-# wide layout takes; the Gaussian up to 64, so that a 100-D one is refused.
-USER_DIMS = {"hierarchy": (2, 256), "ref_gaussian": (2, 64)}
+# wide layout takes (to 1024); the Gaussian up to 64, so that a 100-D one is
+# refused.
+USER_DIMS = {"hierarchy": (2, 1024), "ref_gaussian": (2, 64)}
 
 
 class UserHierarchy:
@@ -815,10 +837,54 @@ def phase_chees_vs_plain(model):
     return max_err
 
 
+# Past D = 256 (ROADMAP B7): the wide layout's groups of 8 chains (to 512-D)
+# and of 4 (to 1024-D, its limit; two tile stages past 788-D). Both paths run
+# bench.py's hierarchy with more groups at 8 x 16384 chains: 269 groups
+# (270-D, the whole-array pulsar-timing class: 67 pulsars with a red-noise
+# and a DM-noise power law each and a common process, 2 x 67 x 2 + 2
+# parameters) and 1023 (1024-D). name -> groups.
+LARGE_NGROUPS = {"hierarchical270": 269, "hierarchical1024": 1023}
+# name -> (burn-in, timed) iterations of path 1 and of path 2, cut from
+# bench.py's 3000 + 12000 to fit the script's limit (the cuts are in each
+# workload's JSON line).
+# A NUTS call takes about 0.16 s at 270-D and 2.9 s at 1024-D on an H100
+# (trees of 33 and 55 leaves on average, groups of 8 and 4 chains run to
+# their deepest tree), so path 2 at 1024-D is cut furthest.
+LARGE_ITERS = {"hierarchical270": (1000, 2000), "hierarchical1024": (200, 300)}
+LARGE_NUTS_ITERS = {"hierarchical270": (400, 600), "hierarchical1024": (60, 100)}
+# The plain versions' chains a rung in the large workloads' kernel items
+# (their ordered sums over D are D launches a product); the NUTS plain
+# version, which runs to the deepest tree of its chains, on (rungs,
+# chains a rung) of LARGE_PLAIN_NUTS: about 75 ms a leaf at 1024-D.
+LARGE_PLAIN_COLUMNS = {"hierarchical270": 64, "hierarchical1024": 8}
+LARGE_PLAIN_NUTS = {"hierarchical270": (T, 16), "hierarchical1024": (1, 2)}
+# The workloads whose NUTS item has no capped batch timing (every tree of
+# the batch to the depth cap: about a minute at 1024-D); the capped group
+# alone is timed.
+NO_CAPPED_BATCH = ("hierarchical1024",)
+# The workloads whose gate is printed and not enforced: the 1024-D paths'
+# cut runs are too short for the gate (launches and finite states are
+# still checked).
+GATE_PRINTED_ONLY = ("hierarchical1024",)
+# The kernel-vs-plain checks past 256 (phase_entries_vs_plain's settings):
+# the kernels at T x C chains, the plain versions on wide_columns, with the
+# identity and a dense factor, then the identity on a ragged batch; ChEES
+# lengths up to 8 steps, NUTS at depth 4, HMC lengths in [HMC_NMIN, 12): the
+# plain versions' ordered sums take D launches a product (about 3 s a ChEES
+# step's worth of checks at 1024-D), so their lengths are cut, not the
+# chains.
+LARGE_CHECK = {"factors": ("identity", "dense"), "depths": (4,), "steps": 8, "nmax": 12,
+               "ragged": "identity", "time_entries": False}
+# The wide sampler phase on the 270-D hierarchy: its burn-in and DE wait
+# are bench.py's share of the run, as on the 50-D model.
+LARGE_SAMPLER = "hierarchical270"
+
 def wide_workload(name):
     """bench.py's model and start for a wide workload (bench.py:126-142);
     for ``user_hierarchical`` and ``user_ref_gaussian`` the user models'
-    (the hierarchy's is bench.py's, the Gaussian's the reference's)."""
+    (the hierarchy's is bench.py's, the Gaussian's the reference's); for
+    ``hierarchical270`` and ``hierarchical1024`` bench.py's hierarchy with
+    LARGE_NGROUPS groups, from bench.py's start (zeros)."""
     from ptmcmcsampler_torch.models import (
         CorrelatedGaussian, HierarchicalGaussian, IntervalTransformedGaussian,
     )
@@ -831,6 +897,9 @@ def wide_workload(name):
     if name == "user_ref_gaussian":
         model = UserRefGaussian()
         return model, np.full(model.ndim, 0.1)
+    if name in LARGE_NGROUPS:
+        model = HierarchicalGaussian(ngroups=LARGE_NGROUPS[name])
+        return model, np.zeros(model.ndim)
     if name == "hierarchical":
         model = HierarchicalGaussian()
         return model, np.zeros(model.ndim)
@@ -839,7 +908,8 @@ def wide_workload(name):
 
 
 # The structure tag of each kind of factor wide_inputs makes.
-FACTOR_TAGS = {"dense": "dense", "lower": "dense", "diagonal": "diagonal"}
+FACTOR_TAGS = {"dense": "dense", "lower": "dense", "diagonal": "diagonal",
+               "identity": "diagonal"}
 
 
 def wide_inputs(gen, dev, model, c, max_steps, eps_base=WIDE_EPS, eps0=HMC_EPS,
@@ -849,7 +919,8 @@ def wide_inputs(gen, dev, model, c, max_steps, eps_base=WIDE_EPS, eps0=HMC_EPS,
     posterior covariance (the correlated model's own; the others'
     ``posterior_moments``) of the kind ``factor``: "dense" randomly mixed,
     "lower" the lower factor with the same ``chol^T chol`` as the mixed one
-    (and its triangular inverse), "diagonal" the marginal scales, each of
+    (and its triangular inverse), "diagonal" the marginal scales,
+    "identity" the identity, each of
     the structure tag FACTOR_TAGS gives; positions around
     the posterior's centre (the
     correlated model's clamped into its box, but 1 in 17 moved outside it);
@@ -885,6 +956,9 @@ def wide_inputs(gen, dev, model, c, max_steps, eps_base=WIDE_EPS, eps0=HMC_EPS,
         scale = torch.sqrt(torch.diagonal(cov))
         chol = torch.diag(scale).float().contiguous()
         chol_inv = torch.diag(1.0 / scale).float().contiguous()
+    elif factor == "identity":  # the factor bench.py's paths keep (mass_adapt off)
+        chol = torch.eye(d, device=dev)
+        chol_inv = torch.eye(d, device=dev)
     from ptmcmcsampler_torch.ops.common import factor_structure
 
     if factor_structure(chol.cpu(), chol_inv.cpu()) != FACTOR_TAGS[factor]:
@@ -908,7 +982,7 @@ def diagonal_eps(model, factor, eps):
     model whitened by its marginal scales alone (a diagonal factor) has a
     whitened Hessian up to about 4e4, so a leapfrog step above 0.01 is
     unstable there; it takes WIDE_TREE_EPS_BOX."""
-    if factor == "diagonal" and not hasattr(model, "posterior_moments"):
+    if factor in ("diagonal", "identity") and not hasattr(model, "posterior_moments"):
         return min(eps, WIDE_TREE_EPS_BOX)
     return eps
 
@@ -2156,12 +2230,14 @@ def phase_sampler(model, card, path1_iters_per_sec, wrappers):
 
 def wide_counts(name, d, iters=None):
     """``(block, burn, timed, cuts, stride)`` of a wide workload: bench.py's
-    block cap (history ``[block, T, D, C]`` near 1.5 GB, bench.py:158-161),
+    block cap (history ``[block, T, D, C]`` near 1.5 GB, bench.py:158-161;
+    at least 50 iterations, as bench.py, up to 256-D, and 10 past it, where
+    50 would hold up to 27 GB),
     ``iters`` (WIDE_ITERS by default) rounded to the block as bench.py
     rounds its counts, the cuts
     against bench.py's counts, and bench.py's ESS stride (cold chains kept
     near 4 GB, bench.py:243)."""
-    block = max(50, min(BLOCK, int(1.5e9 // (T * C * d * 4))))
+    block = max(50 if d <= 256 else 10, min(BLOCK, int(1.5e9 // (T * C * d * 4))))
 
     def rounded(n):
         return max(block, n // block * block)
@@ -2208,7 +2284,7 @@ def phase_wide_path(name, card, max_err, chees_ptxas, iters=WIDE_ITERS):
     state, (step, run_block), result, ok = phase_main_path(
         model, card, name, cfg, {KIND_CHEES: chees_step}, absent=(chees_trajectories,), x0=x0,
         burn=burn, timed=timed, block=block, stride=stride,
-        compare_iters=PROFILE_ITERS if d <= 64 else 20)
+        compare_iters=PROFILE_ITERS if d <= 64 else (20 if d <= 512 else 10))
     state, prof = phase_profile(state, advance_kind(run_block, cfg, KIND_CHEES), name,
                                 iters=PROFILE_ITERS if name == "hierarchical" else 20,
                                 iterations=f"{KIND_CHEES} only, graphs")
@@ -2223,9 +2299,10 @@ def phase_wide_path(name, card, max_err, chees_ptxas, iters=WIDE_ITERS):
     launches = result["launches"][KIND_CHEES]
     item = wide_kernel_entry(name, model, state, cfg, launches, max_err, chees_ptxas)
     result["chees_kernel_ms"] = item["fused_ms"]
+    result["gate_enforced"] = name not in GATE_PRINTED_ONLY
     del state, step
     torch.cuda.empty_cache()
-    print_result(result, ok)
+    print_result(result, ok or not result["gate_enforced"])
     return item
 
 
@@ -2302,8 +2379,9 @@ def wide_kernel_entry(name, model, state, cfg, launches, max_err, chees_ptxas):
     ptxas report of the functor's kernels."""
     from ptmcmcsampler_torch.ops.chees import (
         chees_step, chees_step_plain, chees_trajectories, chees_trajectories_plain,
-        lane_efficiency, wide_group,
+        lane_efficiency,
     )
+    from ptmcmcsampler_torch.ops.common import wide_group
 
     d, functor = model.ndim, model.cuda_functor
     nb = wide_group(d)
@@ -2328,7 +2406,7 @@ def wide_kernel_entry(name, model, state, cfg, launches, max_err, chees_ptxas):
     wrapper_ms = cuda_ms(lambda: chees_trajectories(*args), reps)
     fused_ms = cuda_ms(lambda: chees_step(*fused), reps, hold_stream=True)
     fused_wrapper_ms = cuda_ms(lambda: chees_step(*fused), reps)
-    pc = WIDE_PLAIN_COLUMNS.get(name, C)
+    pc = LARGE_PLAIN_COLUMNS.get(name, WIDE_PLAIN_COLUMNS.get(name, C))
     sub = [a[..., :pc].contiguous() if torch.is_tensor(a) and a.dim() > 1 and a.shape[-1] == C
            else a for a in args]
     plain_ms = once_ms(lambda: chees_trajectories_plain(*sub))
@@ -2402,24 +2480,25 @@ def wide_kernel_entry(name, model, state, cfg, launches, max_err, chees_ptxas):
     }
 
 
-def phase_wide_sampler(card, wrappers):
-    """``PTSampler`` with ``HierarchicalGaussian``'s bound methods on the
+def phase_wide_sampler(card, wrappers, name="hierarchical"):
+    """``PTSampler`` with the bound methods of the hierarchy of the wide
+    workload ``name`` (bench.py's 50-D one, or LARGE_SAMPLER's 270-D) on the
     card (the kernel route): 8 x 1024 chains, SCAM/AM/DE/ChEES/NUTS/HMC,
     WIDE_SAMPLER_ITERS iterations, files in a temporary directory.
     ``chees_step``, ``nuts_trees`` and ``hmc_step`` must each launch once per
     iteration of their kind and the trajectory entries never; the chain
     files must have their rows; the moment gate must pass on the rows past
-    iteration 1000. Then a 300-D ``CorrelatedGaussian`` (beyond the wide
-    layout's 256) must be refused when ``sample()`` starts, naming
+    iteration 1000. Then a 1025-D ``CorrelatedGaussian`` (beyond the wide
+    layout's 1024) must be refused when ``sample()`` starts, naming
     ``device="cpu"``, before any iteration or launch. Returns ``(result,
     launches by wrapper)``."""
     from ptmcmcsampler_torch import PTSampler
     from ptmcmcsampler_torch.config import KIND_CHEES, KIND_HMC, KIND_NUTS
     from ptmcmcsampler_torch.diagnostics import moment_gate
-    from ptmcmcsampler_torch.models import CorrelatedGaussian, HierarchicalGaussian
+    from ptmcmcsampler_torch.models import CorrelatedGaussian
 
     dev = torch.device(DEVICE)
-    model = HierarchicalGaussian()
+    model = wide_workload(name)[0]
     d = model.ndim
     root = tempfile.mkdtemp(prefix="chip_smoke_wide_sampler_")
 
@@ -2448,7 +2527,7 @@ def phase_wide_sampler(card, wrappers):
         sidecar = os.path.getsize(os.path.join(outdir, "chain_all_1.0.bin"))
         target, _ = model.posterior_moments()
         ok, max_z, ess = moment_gate(s.chains[:, 1000 // thin + 1:], target)
-        log(f"wide sampler: route {s.route}, iterations {iters}, launches {launches}, "
+        log(f"wide sampler {name}: route {s.route}, iterations {iters}, launches {launches}, "
             f"{WIDE_SAMPLER_ITERS} iterations in {wall:.1f}s, gate ok {ok} max z {max_z:.3f}")
         checks = {
             "route": (s.route, "kernel"),
@@ -2474,7 +2553,7 @@ def phase_wide_sampler(card, wrappers):
 
         for w in wrappers.values():
             w.launches = 0
-        big = CorrelatedGaussian(ndim=300)
+        big = CorrelatedGaussian(ndim=1025)
         try:
             with contextlib.redirect_stdout(sys.stderr):
                 s = make(big, os.path.join(root, "refused"))
@@ -2482,21 +2561,22 @@ def phase_wide_sampler(card, wrappers):
         except NotImplementedError as e:
             refusal = str(e)
         else:
-            raise SystemExit("wide sampler: the 300-D model on the card was not refused")
-        log(f"wide sampler: 300-D CorrelatedGaussian refused: {refusal}")
-        if ("got 300" not in refusal or 'device="cpu"' not in refusal or s.state is not None
+            raise SystemExit("wide sampler: the 1025-D model on the card was not refused")
+        log(f"wide sampler: 1025-D CorrelatedGaussian refused: {refusal}")
+        if ("got 1025" not in refusal or 'device="cpu"' not in refusal or s.state is not None
                 or any(w.launches for w in wrappers.values())):
             raise SystemExit(f"wide sampler: the refusal is not the expected one: {refusal}")
-        name, power = [v.strip() for v in card.split(",", 1)]
+        card_name, power = [v.strip() for v in card.split(",", 1)]
         result = {
-            "phase": "wide_sampler", "model": "HierarchicalGaussian", "ndim": d,
+            "phase": "wide_sampler", "model": "HierarchicalGaussian", "workload": name,
+            "ndim": d,
             "chains": [T, WIDE_SAMPLER_C], "iters": WIDE_SAMPLER_ITERS,
             "iters_per_sec": WIDE_SAMPLER_ITERS / wall, "wall_sec": wall,
             "iterations_by_kind": iters, "launches": launches, "cold_acceptance": acc,
             "moments_ok": ok, "moments_max_z": max_z, "ess_min_dim": float(ess.min()),
             "rows": int(text.shape[0]), "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
             "graphs": graphs,
-            "refused_300d": refusal, "card": name, "power_limit": power,
+            "refused_1025d": refusal, "card": card_name, "power_limit": power,
         }
         return result, launches
     finally:
@@ -2690,7 +2770,7 @@ def phase_wide_nuts_path(name, card, err, ptxas, iters=WIDE_NUTS_ITERS):
     profiler; then the NUTS and HMC kernels' items. Prints the workload's
     JSON line; returns ``(nuts_item, hmc_item)``."""
     from ptmcmcsampler_torch.config import KIND_HMC, KIND_NUTS
-    from ptmcmcsampler_torch.ops.chees import wide_group
+    from ptmcmcsampler_torch.ops.common import wide_group
     from ptmcmcsampler_torch.ops.hmc import hmc_step, hmc_trajectories
     from ptmcmcsampler_torch.ops.nuts import nuts_trees
     from ptmcmcsampler_torch.proposals.nuts import draw_nuts
@@ -2702,7 +2782,7 @@ def phase_wide_nuts_path(name, card, err, ptxas, iters=WIDE_NUTS_ITERS):
     state, (step, run_block), result, ok = phase_main_path(
         model, card, f"nuts/{name}", cfg, {KIND_NUTS: nuts_trees, KIND_HMC: hmc_step},
         absent=(hmc_trajectories,), x0=x0, burn=burn, timed=timed, block=block, stride=stride,
-        compare_iters=PROFILE_ITERS if d <= 64 else 20)
+        compare_iters=PROFILE_ITERS if d <= 64 else (20 if d <= 512 else 10))
     dev = state.x.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(96)
@@ -2715,7 +2795,8 @@ def phase_wide_nuts_path(name, card, err, ptxas, iters=WIDE_NUTS_ITERS):
     efficiency = group_lane_efficiency(nalpha, wide_group(d))
     del trees
     state, prof = phase_profile(state, advance_kind(run_block, cfg, KIND_NUTS), f"nuts/{name}",
-                                iters=5 if d > 64 else 20, iterations=f"{KIND_NUTS} only, graphs")
+                                iters=20 if d <= 64 else (5 if d <= 512 else 2),
+                                iterations=f"{KIND_NUTS} only, graphs")
     del run_block
     result.update(
         workload=name, block=block, burn_iters=burn, timed_iters=timed, gate_stride=stride,
@@ -2731,25 +2812,23 @@ def phase_wide_nuts_path(name, card, err, ptxas, iters=WIDE_NUTS_ITERS):
                               ptxas["hmc_trajectory"])
     result["nuts_kernel_ms"] = nuts_item["ms"]
     result["hmc_kernel_ms"] = hmc_item["fused_ms"]
+    result["gate_enforced"] = name not in GATE_PRINTED_ONLY
     del state, step, q0, r0, expo, dirs, accu, r_eps, tree_args
     torch.cuda.empty_cache()
-    print_result(result, ok)
+    print_result(result, ok or not result["gate_enforced"])
     return nuts_item, hmc_item
 
 
 def wide_layout(d, ptxas, dev, chains_per_block=None):
-    """A wide kernel's layout: groups of wide_group(d) chains in blocks of
-    256 threads, ``chains_per_block`` chains a block (the ChEES kernel's
-    256; by default one group, as the NUTS and HMC kernels run), and from
-    the ptxas report the blocks an SM and the waves at T x C chains."""
-    from ptmcmcsampler_torch.ops.chees import wide_group
-    from ptmcmcsampler_torch.ops.common import wide_smem_bytes
-
-    nb = wide_group(d)
+    """A wide kernel's layout as the kernels compute it (``kernel_layout``):
+    groups of chains in blocks of 256 threads, ``chains_per_block`` chains a
+    block (the ChEES kernel's 256; by default one group, as the NUTS and HMC
+    kernels run), the tile stages and shared bytes, and from the ptxas
+    report the blocks an SM and the waves at T x C chains."""
+    layout = kernel_layout(d)
+    nb, dyn_smem = layout["group_chains"], layout["dynamic_smem_bytes"]
     per_block = chains_per_block or nb
-    dyn_smem = wide_smem_bytes(d, nb)
-    layout = {"group_chains": nb, "chains_per_block": per_block, "threads_per_block": 256,
-              "dynamic_smem_bytes": dyn_smem}
+    layout.update(chains_per_block=per_block, threads_per_block=256)
     if ptxas:
         worst = max(ptxas.values(), key=lambda v: v["registers"])
         regs_warp = -(-worst["registers"] * 32 // 256) * 256
@@ -2773,12 +2852,13 @@ def whitening_library_ms(chol, d, reps):
 def wide_nuts_entry(name, model, state, tree_args, r_eps, launches, max_err, ptxas, efficiency):
     """The wide NUTS kernel timed on the path's final state (its adapted step
     sizes), the plain version on the first WIDE_PLAIN_COLUMNS_NUTS chains a
-    rung, one leapfrog step's whitening products as ``torch.matmul``; the
-    bound counts this call's leaves (each an evaluation, the leapfrog, the
-    kinetic energy, on average one U-turn check and a Philox uniform) and
-    doublings; then the capped timings: every tree at the depth cap, over
-    the batch and over one group alone."""
-    from ptmcmcsampler_torch.ops.chees import wide_group
+    rung (past 256-D on LARGE_PLAIN_NUTS's rungs and chains), one leapfrog
+    step's whitening products as ``torch.matmul``; the bound counts this
+    call's leaves (each an evaluation, the leapfrog, the kinetic energy, on
+    average one U-turn check and a Philox uniform) and doublings; then the
+    capped timings: every tree at the depth cap, over the batch and over one
+    group alone."""
+    from ptmcmcsampler_torch.ops.common import wide_group
     from ptmcmcsampler_torch.ops.nuts import (
         nuts_trees, nuts_trees_plain, nuts_uniforms, wide_scratch_floats,
     )
@@ -2788,16 +2868,18 @@ def wide_nuts_entry(name, model, state, tree_args, r_eps, launches, max_err, ptx
     nb = wide_group(d)
     dev = state.x.device
     chol, structure = state.adapt.chol, state.adapt.structure
-    reps = 5 if d <= 64 else 2
+    reps = 5 if d <= 64 else (2 if d <= 512 else 1)
     kernel_ms = cuda_ms(lambda: nuts_trees(*tree_args, r_eps=r_eps, structure=structure), reps,
                         hold_stream=True)
     wrapper_ms = cuda_ms(lambda: nuts_trees(*tree_args, r_eps=r_eps, structure=structure), reps)
-    pc = min(C, WIDE_PLAIN_COLUMNS_NUTS)
-    sub = [a[..., :pc].contiguous() if torch.is_tensor(a) and a.dim() > 1 and a.shape[-1] == C
-           else a for a in tree_args]
-    resu = nuts_uniforms(tree_args[7], NUTS_DEPTH, T, C)[..., :pc].contiguous()
-    plain_ms = once_ms(lambda: nuts_trees_plain(*sub[:7], resu, chol, model,
-                                                r_eps[..., :pc].contiguous(), structure))
+    rt, pc = LARGE_PLAIN_NUTS.get(name, (T, min(C, WIDE_PLAIN_COLUMNS_NUTS)))
+    q0, r0, betas, eps, expo, dirs, accu = tree_args[:7]
+    sub = [a[:rt, ..., :pc].contiguous() for a in (q0, r0)] + [betas[:rt]] + [
+        a[:rt, :pc].contiguous() for a in (eps, expo)] + [
+        a[:, :rt, :pc].contiguous() for a in (dirs, accu)]
+    resu = nuts_uniforms(tree_args[7], NUTS_DEPTH, T, C)[:, :rt, :pc].contiguous()
+    plain_ms = once_ms(lambda: nuts_trees_plain(*sub, resu, chol, model,
+                                                r_eps[:rt, :, :pc].contiguous(), structure))
     del sub, resu
     out = nuts_trees(*tree_args, r_eps=r_eps, structure=structure)
     nalpha, alive = out[4], out[5]
@@ -2826,6 +2908,8 @@ def wide_nuts_entry(name, model, state, tree_args, r_eps, launches, max_err, ptx
     x0 = torch.tensor(wide_workload(name)[1], dtype=torch.float32, device=dev)
     q_start = (state.adapt.chol_inv.T @ x0)[None, :, None]
     for label, t, c in (("batch", T, C), ("group", 1, nb)):
+        if label == "batch" and name in NO_CAPPED_BATCH:
+            continue
         r0c, expoc, dirsc, accuc, keyc, repsc = draw_nuts(
             torch.Generator(device=dev).manual_seed(95), t, d, c, NUTS_DEPTH, dev)
         a = (q_start.expand(t, d, c).contiguous(), r0c, state.betas[:t].contiguous(),
@@ -2845,11 +2929,11 @@ def wide_nuts_entry(name, model, state, tree_args, r_eps, launches, max_err, ptx
     leaf_ops = (per_eval + 14 * d + 100) * T * C
     extra = {
         "workload": name, "ndim": d, "functor": functor, "factor_structure": structure,
-        "capped_us_per_leaf": capped["capped_batch_us_per_leaf"],
+        "capped_us_per_leaf": capped.get("capped_batch_us_per_leaf", "not measured"),
         "ordered_f32_share": leaf_ops / (1e-6 * capped["capped_batch_us_per_leaf"])
-        / ORDERED_F32_OPS_PER_S,
+        / ORDERED_F32_OPS_PER_S if "capped_batch_us_per_leaf" in capped else "not measured",
         "launches_by_path": {name: launches},
-        "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "plain_chains": [T, pc],
+        "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "plain_chains": [rt, pc],
         "library_what": "one leapfrog step's two whitening products, torch.matmul "
                         "[D, D] x [T, D, C] twice",
         **tree_stats(nalpha, alive), "group_lane_efficiency": efficiency,
@@ -2863,7 +2947,7 @@ def wide_nuts_entry(name, model, state, tree_args, r_eps, launches, max_err, ptx
         "ptxas": ptx or "not measured (built before)", **wide_layout(d, ptx, dev),
     }
     log(f"wide NUTS {name}: kernel {kernel_ms:.3f} ms (bound {bound_ms:.4f}, {bound_by}), "
-        f"plain {plain_ms:.1f} ms at {T} x {pc}, two matmuls {library_ms:.4f} ms; {extra}")
+        f"plain {plain_ms:.1f} ms at {rt} x {pc}, two matmuls {library_ms:.4f} ms; {extra}")
     return {"name": f"nuts_tree_{functor}", "route": "cuda",
             "source": "ptmcmcsampler_torch/csrc/nuts_tree.cu",
             "replaces": "ptmcmcsampler_tpu/ops/nuts_pallas.py:74", "launches": launches,
@@ -2901,7 +2985,7 @@ def wide_hmc_entry(name, model, state, launches, max_err, ptxas):
     fused_wrapper_ms = cuda_ms(lambda: hmc_step(*fused), reps)
     draws_ms = cuda_ms(lambda: hmc_kernel_draws(key, T, d, C, HMC_NMIN, HMC_NMAX, model), reps,
                        hold_stream=True)
-    pc = min(C, WIDE_PLAIN_COLUMNS_NUTS)
+    pc = min(C, LARGE_PLAIN_COLUMNS.get(name, WIDE_PLAIN_COLUMNS_NUTS))
     cut = [a[..., :pc].contiguous() if torch.is_tensor(a) and a.dim() > 1 and a.shape[-1] == C
            else a for a in args]
     plain_ms = once_ms(lambda: hmc_trajectories_plain(*cut))
@@ -2959,22 +3043,55 @@ def wide_hmc_entry(name, model, state, launches, max_err, ptxas):
             "bound_by": bound_by, "library_ms": library_ms, **extra}
 
 
-# ---- User functors (ops/user.py): a user's model in the three kernels ----
+def max_abs_diff(out, ref):
+    """The largest ``|a - b|`` over the elements of outputs ``out`` and
+    ``ref`` where both are finite (0.0 where every such element is equal)."""
+    worst = 0.0
+    for a, b in zip(out, ref):
+        both = torch.isfinite(a) & torch.isfinite(b)
+        if bool(both.any()):
+            worst = max(worst, float((a.double() - b.double()).abs()[both].max()))
+    return worst
 
-def phase_user_vs_plain(model, builtin=None):
-    """Every entry of ``model``'s registered functor (chees_step,
-    chees_trajectories, nuts_trees, hmc_step, hmc_trajectories and the HMC
-    draws) against its plain version, the model's batched ``value_grad``, on
-    ``wide_inputs``/``wide_tree_inputs`` draws at T x C chains, the plain
-    versions on ``wide_columns``, with a dense and a diagonal factor: no lane
-    may differ in any bit; the step's end points must equal the trajectory
-    entry's; the kernel's draws must equal ``hmc_draws``' lengths and lie
-    within DRAW_ULP_TOL ulp of its momenta. With ``builtin`` (the built-in
-    model of the same function) every output of every entry must equal the
-    built-in entry's on the same inputs, bit for bit, and each entry is
-    timed against it in turns (user, built-in, built-in, user; CUDA events,
-    stream held): the cost of the per-chain adapter. Returns ``(errors by
-    kernel, timings)``."""
+
+def kernel_layout(d):
+    """The wide layout the kernels compute at dimension ``d`` (models.cuh,
+    read through the ChEES library's host entry ``wide_layout``): chains a
+    group, tile stages, dynamic shared bytes a block."""
+    import ctypes
+
+    from ptmcmcsampler_torch.ops import build
+
+    fn = build.load("chees_trajectory").wide_layout
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_void_p]
+    out = (ctypes.c_longlong * 3)()
+    if fn(d, out) != 0:
+        raise SystemExit(f"wide_layout refused D = {d}")
+    return {"group_chains": out[0], "tile_stages": out[1], "dynamic_smem_bytes": out[2]}
+
+
+# ---- Every entry of a wide functor against its plain version ----
+
+def phase_entries_vs_plain(model, builtin=None, factors=("dense", "diagonal"),
+                           depths=(4, NUTS_DEPTH), steps=32, nmax=HMC_NMAX, ragged=None,
+                           time_entries=True):
+    """Every entry of ``model``'s functor (chees_step, chees_trajectories,
+    nuts_trees, hmc_step, hmc_trajectories and the HMC draws) against its
+    plain version, the model's batched ``value_grad``, on
+    ``wide_inputs``/``wide_tree_inputs`` draws: the kernels at the main
+    path's T x C chains, the plain versions on ``wide_columns``, with each
+    factor of ``factors`` (``wide_inputs``' kinds), ChEES lengths up to
+    ``steps`` steps, NUTS at each depth of ``depths``, HMC lengths in
+    [HMC_NMIN, ``nmax``); then, with ``ragged`` (a factor), the same at T x
+    (C - 100) chains, a ragged last block and group. No lane may differ in
+    any bit; the step's end points must equal the trajectory entry's; the
+    kernel's draws must equal ``hmc_draws``' lengths and lie within
+    DRAW_ULP_TOL ulp of its momenta. With ``builtin`` (the built-in model of
+    the same function) every output of every entry must equal the built-in
+    entry's on the same inputs, bit for bit, and with ``time_entries`` each
+    entry is timed against it in turns (user, built-in, built-in, user; CUDA
+    events, stream held): the cost of the per-chain adapter. Returns
+    ``(largest |kernel - plain| by kernel, timings)``."""
     from ptmcmcsampler_torch.ops import common
     from ptmcmcsampler_torch.ops.chees import (
         chees_step, chees_step_plain, chees_trajectories, chees_trajectories_plain,
@@ -2989,114 +3106,127 @@ def phase_user_vs_plain(model, builtin=None):
     gen = torch.Generator(device=dev)
     gen.manual_seed(6161)
     d, functor = model.ndim, model.cuda_functor
-    cols = wide_columns(C, dev)
     err = {"chees": 0.0, "nuts": 0.0, "hmc": 0.0}
     timings = {}
+    cases = [(factor, C) for factor in factors] + ([(ragged, C - 100)] if ragged else [])
 
-    def check(label, kernel, out, ref, other=None):
-        """0 lanes of ``out`` differ from the plain ``ref`` on the columns,
-        nor from the built-in entry's ``other`` anywhere."""
-        n = lanes_differ(take_columns(out, C, cols), ref)
-        m = lanes_differ(out, other) if other is not None else 0
-        log(f"user {functor} (D={d}) {label}: {n} lanes differ from the plain version"
-            + (f", {m} from the built-in entry" if other is not None else ""))
-        if n or m:
-            raise SystemExit(f"user {functor} {label}: lanes differ")
-        err[kernel] = max(err[kernel], 0.0)
-
-    def timed(label, fn, reps):
-        """Both models' entry ``fn(m)`` in turns; ms of each."""
-        if builtin is None:
-            ms = {"user_ms": cuda_ms(lambda: fn(model), reps, hold_stream=True),
-                  "builtin_ms": None}
-        else:
-            a = cuda_ms(lambda: fn(model), reps, hold_stream=True)
-            b = cuda_ms(lambda: fn(builtin), reps, hold_stream=True)
-            b2 = cuda_ms(lambda: fn(builtin), reps, hold_stream=True)
-            a2 = cuda_ms(lambda: fn(model), reps, hold_stream=True)
-            ms = {"user_ms": (a + a2) / 2, "builtin_ms": (b + b2) / 2,
-                  "ratio": (a + a2) / (b + b2)}
-        timings[label] = ms
-        log(f"user {functor} {label}: {ms}")
-
-    for factor in ("dense", "diagonal"):
+    for factor, c in cases:
         structure = FACTOR_TAGS[factor]
-        args = wide_inputs(gen, dev, model, C, 32, WIDE_EPS, HMC_EPS, factor)
+        cols = wide_columns(c, dev)
+        batch = "" if c == C else f" ragged {T} x {c}"
+
+        def check(label, kernel, out, ref, other=None):
+            """0 lanes of ``out`` differ from the plain ``ref`` on the
+            columns, nor from the built-in entry's ``other`` anywhere."""
+            sub = take_columns(out, c, cols)
+            n = lanes_differ(sub, ref)
+            m = lanes_differ(out, other) if other is not None else 0
+            log(f"entries {functor} (D={d}){batch} {label}: {n} lanes differ from the plain "
+                f"version" + (f", {m} from the built-in entry" if other is not None else ""))
+            if n or m:
+                raise SystemExit(f"entries {functor} (D={d}){batch} {label}: lanes differ")
+            err[kernel] = max(err[kernel], max_abs_diff(sub, ref))
+
+        def timed(label, fn, reps):
+            """Both models' entry ``fn(m)`` in turns; ms of each."""
+            if not time_entries or c != C:
+                return
+            if builtin is None:
+                ms = {"user_ms": cuda_ms(lambda: fn(model), reps, hold_stream=True),
+                      "builtin_ms": None}
+            else:
+                a = cuda_ms(lambda: fn(model), reps, hold_stream=True)
+                b = cuda_ms(lambda: fn(builtin), reps, hold_stream=True)
+                b2 = cuda_ms(lambda: fn(builtin), reps, hold_stream=True)
+                a2 = cuda_ms(lambda: fn(model), reps, hold_stream=True)
+                ms = {"user_ms": (a + a2) / 2, "builtin_ms": (b + b2) / 2,
+                      "ratio": (a + a2) / (b + b2)}
+            timings[label] = ms
+            log(f"user {functor} {label}: {ms}")
+
+        args = wide_inputs(gen, dev, model, c, steps, diagonal_eps(model, factor, WIDE_EPS),
+                           diagonal_eps(model, factor, HMC_EPS), factor)
         _, r0, u, betas, eps, tlen, eps0, max_steps, chol, chol_inv = args
         out = chees_step(*args, model, structure)
-        ref = chees_step_plain(*take_columns(args, C, cols), model, structure)
+        ref = chees_step_plain(*take_columns(args, c, cols), model, structure)
         other = chees_step(*args, builtin, structure) if builtin else None
         check(f"{factor} chees_step", "chees", out, ref, other)
         eps_tc, nsteps = step_lengths(u, eps, tlen, eps0, max_steps)
         traj = (out[1], r0, betas, eps_tc, nsteps, chol)
         tout = chees_trajectories(*traj, model, structure)
-        tref = chees_trajectories_plain(*take_columns(traj, C, cols), model, structure)
+        tref = chees_trajectories_plain(*take_columns(traj, c, cols), model, structure)
         tother = chees_trajectories(*traj, builtin, structure) if builtin else None
         check(f"{factor} chees_trajectories", "chees", tout, tref, tother)
         if not (torch.equal(tout[0], out[2]) and torch.equal(tout[1], out[3])):
-            raise SystemExit(f"user {functor} {factor}: the step's end points differ from the "
-                             "trajectory entry's")
+            raise SystemExit(f"entries {functor} {factor}: the step's end points differ from "
+                             "the trajectory entry's")
         timed(f"{factor} chees_step", lambda m: chees_step(*args, m, structure), 20)
         timed(f"{factor} chees_trajectories",
               lambda m: chees_trajectories(*traj, m, structure), 20)
         del out, ref, other, tout, tref, tother
 
-        for depth in (4, NUTS_DEPTH):
-            targs, r_eps = wide_tree_inputs(gen, dev, model, C, depth, factor)
+        for depth in depths:
+            targs, r_eps = wide_tree_inputs(gen, dev, model, c, depth, factor)
             out = nuts_trees(*targs, model, r_eps=r_eps, structure=structure)
-            resu = nuts_uniforms(targs[7], depth, T, C)
+            resu = nuts_uniforms(targs[7], depth, T, c)
             resu = resu if cols is None else resu.index_select(-1, cols).contiguous()
-            sub = take_columns(targs, C, cols)
+            sub = take_columns(targs, c, cols)
             ref = nuts_trees_plain(*sub[:7], resu, sub[8], model,
-                                   take_columns([r_eps], C, cols)[0], structure)
+                                   take_columns([r_eps], c, cols)[0], structure)
             other = nuts_trees(*targs, builtin, r_eps=r_eps, structure=structure) \
                 if builtin else None
             check(f"{factor} nuts_trees depth {depth}", "nuts", out, ref, other)
+            if not bool((out[6] > 0).all()) or not bool(torch.isfinite(out[0]).all()):
+                raise SystemExit(f"entries {functor} {factor}: a step size <= 0 or a "
+                                 "non-finite proposal")
             timed(f"{factor} nuts_trees depth {depth}",
                   lambda m: nuts_trees(*targs, m, r_eps=r_eps, structure=structure), 3)
             del out, ref, other, sub, resu, targs, r_eps
 
         x = args[0]
+        heps = diagonal_eps(model, factor, HMC_EPS)
         key = torch.randint(0, 2**32, (2,), generator=gen, device=dev, dtype=torch.int64)
-        hargs = (x, betas, key, chol, chol_inv, HMC_EPS, HMC_NMIN, HMC_NMAX)
+        hargs = (x, betas, key, chol, chol_inv, heps, HMC_NMIN, nmax)
         x1, qxy = hmc_step(*hargs, model, structure)
-        p0, hsteps = hmc_kernel_draws(key, T, d, C, HMC_NMIN, HMC_NMAX, model)
-        p0t, hstepst = hmc_draws(key, T, d, C, HMC_NMIN, HMC_NMAX)
+        p0, hsteps = hmc_kernel_draws(key, T, d, c, HMC_NMIN, nmax, model)
+        p0t, hstepst = hmc_draws(key, T, d, c, HMC_NMIN, nmax)
         max_ulp = int(ulps(p0, p0t).max())
         if not torch.equal(hsteps, hstepst) or max_ulp > DRAW_ULP_TOL:
-            raise SystemExit(f"user {functor} {factor}: the kernel's draws differ from "
+            raise SystemExit(f"entries {functor} {factor}: the kernel's draws differ from "
                              f"hmc_draws (p0 within {max_ulp} ulp)")
-        sub = take_columns((x, p0, hsteps), C, cols)
-        ref = hmc_step_plain(sub[0], betas, (sub[1], sub[2]), chol, chol_inv, HMC_EPS,
-                             HMC_NMIN, HMC_NMAX, model, structure)
+        sub = take_columns((x, p0, hsteps), c, cols)
+        ref = hmc_step_plain(sub[0], betas, (sub[1], sub[2]), chol, chol_inv, heps,
+                             HMC_NMIN, nmax, model, structure)
         other = hmc_step(*hargs, builtin, structure) if builtin else None
         check(f"{factor} hmc_step", "hmc", (x1, qxy), ref, other)
         if builtin is not None:  # the same draw code: the built-in's draws, bit for bit
-            bp0, bsteps = hmc_kernel_draws(key, T, d, C, HMC_NMIN, HMC_NMAX, builtin)
+            bp0, bsteps = hmc_kernel_draws(key, T, d, c, HMC_NMIN, nmax, builtin)
             m = lanes_differ((p0, hsteps), (bp0, bsteps))
-            log(f"user {functor} {factor} hmc draws: within {max_ulp} ulp of hmc_draws, "
+            log(f"entries {functor} {factor} hmc draws: within {max_ulp} ulp of hmc_draws, "
                 f"lengths equal; {m} lanes differ from the built-in entry's")
             if m:
-                raise SystemExit(f"user {functor} {factor}: hmc draws differ from the "
+                raise SystemExit(f"entries {functor} {factor}: hmc draws differ from the "
                                  "built-in's")
         q0 = common.matvec(chol_inv.T, x, structure)
-        htraj = (q0, p0, betas, hsteps, chol, HMC_EPS)
+        htraj = (q0, p0, betas, hsteps, chol, heps)
         q1, qxyk = hmc_trajectories(*htraj, model, structure)
-        tref = hmc_trajectories_plain(*take_columns(htraj, C, cols), model, structure)
+        tref = hmc_trajectories_plain(*take_columns(htraj, c, cols), model, structure)
         tother = hmc_trajectories(*htraj, builtin, structure) if builtin else None
         check(f"{factor} hmc_trajectories", "hmc", (q1, qxyk), tref, tother)
         if lanes_differ((common.matvec(chol.T, q1, structure), qxyk), (x1, qxy)):
-            raise SystemExit(f"user {functor} {factor}: the HMC step's end points differ from "
-                             "the trajectory entry's")
+            raise SystemExit(f"entries {functor} {factor}: the HMC step's end points differ "
+                             "from the trajectory entry's")
         timed(f"{factor} hmc_step", lambda m: hmc_step(*hargs, m, structure), 20)
         timed(f"{factor} hmc_trajectories",
               lambda m: hmc_trajectories(*htraj, m, structure), 20)
         timed(f"{factor} hmc draws",
-              lambda m: hmc_kernel_draws(key, T, d, C, HMC_NMIN, HMC_NMAX, m), 20)
+              lambda m: hmc_kernel_draws(key, T, d, c, HMC_NMIN, nmax, m), 20)
         del args, x1, qxy, p0, hsteps, p0t, hstepst, ref, other, q0, q1, qxyk, tref, tother, sub
     torch.cuda.empty_cache()
     return err, timings
 
+
+# ---- User functors (ops/user.py): a user's model in the three kernels ----
 
 def user_item(item, timings):
     """A user functor's kernel item from a path phase: its source is the
@@ -3248,17 +3378,68 @@ def phase_user_sampler(card, wrappers):
         if ("got 100" not in refusal or 'device="cpu"' not in refusal or s.state is not None
                 or any(w.launches for w in wrappers.values())):
             raise SystemExit(f"user sampler: the refusal is not the expected one: {refusal}")
+        big = UserHierarchy(ngroups=1024)  # 1025-D, beyond its dims and the layout's 1024
+        s, _, _, _ = run(big, os.path.join(root, "refused1025"), 0, WIDE_SAMPLER_KW)
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                s.sample(np.zeros(big.ndim), 100, **WIDE_SAMPLER_KW)
+        except NotImplementedError as e:
+            refusal_1025 = str(e)
+        else:
+            raise SystemExit("user sampler: the 1025-D user hierarchy was not refused")
+        log(f"user sampler: 1025-D UserHierarchy refused: {refusal_1025}")
+        if ("got 1025" not in refusal_1025 or 'device="cpu"' not in refusal_1025
+                or s.state is not None or any(w.launches for w in wrappers.values())):
+            raise SystemExit(f"user sampler: the refusal is not the expected one: "
+                             f"{refusal_1025}")
         name, power = [v.strip() for v in card.split(",", 1)]
         result = {
             "phase": "user_sampler", "chains": [T, WIDE_SAMPLER_C],
             "user_hierarchy": {"iters": WIDE_SAMPLER_ITERS, **hier_result, **files},
             "user_ref_gaussian": {"iters": USER_REF_ITERS, "settings": USER_REF_KW,
                                   **ref_result},
-            "refused_100d": refusal, "card": name, "power_limit": power,
+            "refused_100d": refusal, "refused_1025d": refusal_1025, "card": name,
+            "power_limit": power,
         }
         return result, launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---- Past D = 256: groups of 8 and 4 chains (ROADMAP B7) ----
+
+def large_checks():
+    """``(label, model, built-in or None)`` of the checks past D = 256: the
+    hierarchy at the group boundaries 270, 512, 513 and 1024-D, the
+    correlated Gaussian at 300-D (its icov product runs through wide_matvec
+    inside the model), and the user hierarchy at 270 and 1024-D against the
+    built-in entries. (``tests/test_torch_cuda.py`` holds all three built-in
+    functors at 270, 512, 513 and 1024-D.)"""
+    from ptmcmcsampler_torch.models import CorrelatedGaussian, HierarchicalGaussian
+
+    checks = [(f"hierarchical{g + 1}", HierarchicalGaussian(ngroups=g), None)
+              for g in (269, 511, 512, 1023)]
+    checks += [("correlated300", CorrelatedGaussian(ndim=300, seed=1), None)]
+    checks += [(f"user_hierarchical{g + 1}", UserHierarchy(ngroups=g),
+                HierarchicalGaussian(ngroups=g)) for g in (269, 1023)]
+    return checks
+
+
+def large_check_line(card, label, model, builtin, err, seconds):
+    """The JSON line of ``phase_entries_vs_plain`` with LARGE_CHECK on a
+    model of ``large_checks``: its layout as the kernels compute it, the
+    batches, lengths and factors checked, and the largest |kernel - plain|
+    of each kernel."""
+    name, power = [v.strip() for v in card.split(",", 1)]
+    return {
+        "phase": "large_vs_plain", "model": label, "ndim": model.ndim,
+        "functor": model.cuda_functor, "against_builtin": builtin is not None,
+        **kernel_layout(model.ndim), "chains": [T, C], "ragged_chains": [T, C - 100],
+        "plain_columns": WIDE_PLAIN_COLUMNS_NUTS, "factors": LARGE_CHECK["factors"],
+        "ragged_factor": LARGE_CHECK["ragged"], "chees_max_steps": LARGE_CHECK["steps"],
+        "nuts_depths": LARGE_CHECK["depths"], "hmc_nsteps": [HMC_NMIN, LARGE_CHECK["nmax"]],
+        "max_abs_err": err, "seconds": seconds, "card": name, "power_limit": power,
+    }
 
 
 def main():
@@ -3311,7 +3492,7 @@ def main():
     user_err, user_timings = {}, {}
     for name, m in users.items():
         builtin = wide_workload("hierarchical")[0] if name == "user_hierarchical" else None
-        user_err[name], user_timings[name] = phase_user_vs_plain(m, builtin)
+        user_err[name], user_timings[name] = phase_entries_vs_plain(m, builtin)
 
     path1 = {KIND_CHEES: chees_step}
     path2 = {KIND_NUTS: nuts_trees, KIND_HMC: hmc_step}
@@ -3391,6 +3572,30 @@ def main():
                     user_sampler_launches[f"{wrapper} (user_ref_gaussian)"]
             if item["workload"].startswith("user_"):
                 item["build_sec_all_libraries"] = build_sec
+
+    # Past D = 256: every entry against its plain version at the group
+    # boundaries, both paths on the 270-D and 1024-D hierarchies, then
+    # PTSampler on the 270-D one.
+    large_err = {}
+    for label, m, b in large_checks():
+        t0 = time.time()
+        large_err[label], _ = phase_entries_vs_plain(m, b, **LARGE_CHECK)
+        print(json.dumps(large_check_line(card, label, m, b, large_err[label],
+                                          time.time() - t0)), flush=True)
+    for name in LARGE_ITERS:
+        wide.append(phase_wide_path(name, card, large_err[name]["chees"], chees_ptxas,
+                                    LARGE_ITERS))
+    for name in LARGE_NUTS_ITERS:
+        items = phase_wide_nuts_path(name, card, large_err[name], wide2_ptxas, LARGE_NUTS_ITERS)
+        wide_nuts += (items[0],)
+        wide_hmc += (items[1],)
+    result, large_sampler_launches = phase_wide_sampler(card, wrappers, LARGE_SAMPLER)
+    print(json.dumps(result), flush=True)
+    for items, wrapper in ((wide, "chees_step"), (wide_nuts, "nuts_trees"),
+                           (wide_hmc, "hmc_step")):
+        for item in items:
+            if item["workload"] == LARGE_SAMPLER:
+                item["launches_by_path"]["sampler"] = large_sampler_launches[wrapper]
     kernels[0]["wide"] = wide
     kernels[1]["wide"] = list(wide_nuts)
     kernels[2]["wide"] = list(wide_hmc)

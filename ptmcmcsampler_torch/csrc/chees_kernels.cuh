@@ -248,7 +248,7 @@ __global__ void __launch_bounds__(kThreads, 2) chees_wide_kernel(const WideParam
   float* gw = p + nv;  // the whitened gradient; the model's scratch in eval
   float* xb = gw + nv;
   float* g = xb + nv;
-  float* tile = g + nv;  // [kWideStages][wide_stage_floats(D)]
+  float* tile = g + nv;  // [wide_stages(D, NB)][wide_stage_floats(D)]
   const long long N = (long long)P.T * P.C;
   const long long first = (long long)blockIdx.x * kThreads;
   const int tid = threadIdx.x;
@@ -274,7 +274,7 @@ __global__ void __launch_bounds__(kThreads, 2) chees_wide_kernel(const WideParam
     group_by_length(min(max(ns, 0), kBins - 1), s_count, s_warp, s_perm);
   }
 
-  const ptmc::Wide w{D, NB, P.prm, xb, g, gw, tile, s_beta, s_need, s_logp};
+  const ptmc::Wide w{D, NB, 0, P.prm, xb, g, gw, tile, s_beta, s_need, s_logp};
   const int st = P.structure;
   const bool diag = st == ptmc::kDiagonal;
   // chol(d, d), for a diagonal factor's products folded into the half steps.
@@ -312,7 +312,7 @@ __global__ void __launch_bounds__(kThreads, 2) chees_wide_kernel(const WideParam
     __syncthreads();
     float k0 = 0.0f;
     if constexpr (kStep) {
-      ptmc::wide_matvec<false>(P.chol_inv, xb, q, D, NB, tile, st);  // q0 = chol_inv^T x
+      ptmc::wide_matvec<false>(P.chol_inv, xb, q, D, NB, tile, 0, st);  // q0 = chol_inv^T x
       for (int idx = tid; idx < nv; idx += kThreads) {
         const long long o = offset(idx);
         if (o >= 0) P.q0[o] = q[idx];
@@ -342,9 +342,9 @@ __global__ void __launch_bounds__(kThreads, 2) chees_wide_kernel(const WideParam
       }
       if (i >= 0 && tid < NB) s_need[tid] = i == s_ns[tid] - 1;
       __syncthreads();
-      if (!diag) ptmc::wide_matvec<false>(P.chol, q, xb, D, NB, tile, st);  // x = chol^T q
+      if (!diag) ptmc::wide_matvec<false>(P.chol, q, xb, D, NB, tile, 0, st);  // x = chol^T q
       Model::eval(w);
-      if (!diag) ptmc::wide_matvec<true>(P.chol, g, gw, D, NB, tile, st);  // gw = chol g
+      if (!diag) ptmc::wide_matvec<true>(P.chol, g, gw, D, NB, tile, 0, st);  // gw = chol g
       if (i < 0 && tid < NB) logp0 = s_logp[tid];
       for (int idx = tid; idx < nv; idx += kThreads) {
         const int c = (idx & (NB - 1));
@@ -403,9 +403,9 @@ int launch_wide(const WideParams& params, void* stream) {
 
 // The wide entries: the arguments of the curved ones, plus prm (the model's
 // constants, model.cuda_params), structure (ptmc::WideStructure of chol and
-// chol_inv: 0 dense, 1 diagonal) and D (1 <= D <= 256). They launch
+// chol_inv: 0 dense, 1 diagonal) and D (1 <= D <= 1024). They launch
 // 256 threads a block and ptmc::wide_smem_bytes(D, NB) of dynamic shared
-// memory (NB = wide_group(D)).
+// memory (NB = wide_group(D)), at most ptmc::kWideSmemLimit.
 #define PTMC_CHEES_WIDE_ENTRIES(NAME, MODEL)                                                  \
   extern "C" int chees_trajectory_##NAME(                                                     \
       const float* q0, const float* p0, const float* beta, const float* eps,                  \

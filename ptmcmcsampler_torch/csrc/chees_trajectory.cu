@@ -61,8 +61,9 @@
 // The wide entries, chees_trajectory_<functor> and chees_step_<functor> for
 // the functors correlated_gaussian, interval_gaussian and
 // hierarchical_gaussian (models.cuh), run the same two computations at any
-// D up to kWideMaxD = 256 (a runtime argument): bench.py's gaussian (40-D),
-// hierarchical (50-D) and gaussian200 workloads. There a chain's vectors do
+// D up to kWideMaxD = 1024 (a runtime argument): bench.py's gaussian (40-D),
+// hierarchical (50-D) and gaussian200 workloads, and hierarchies of 270 and
+// 1024 dimensions. There a chain's vectors do
 // not fit in registers (5 D floats: q, p, the whitened gradient, x = chol^T q
 // and the model gradient; chol alone is D^2), and a step is matrix work: the
 // two whitening products are 4 D^2 operations a chain, the correlated
@@ -70,15 +71,17 @@
 // read and written once. So the f32 issue rate binds (--fmad=false: a
 // multiply and an add are two instructions), not bytes. Layout: a block
 // still takes 256 chains and orders them by length as above, then runs them
-// as 256 / NB groups of NB consecutive ones in that order (NB = 64, 32 or
-// 16 as D <= 64, 128 or 256: two blocks fit an SM), a group's vectors in
-// shared memory as [d][NB]. Each
+// as 256 / NB groups of NB consecutive ones in that order (NB = 64, 32,
+// 16, 8 or 4 as D <= 64, 128, 256, 512 or 1024, so that the block's 256
+// threads of 4 rows and 4 chains cover D; two blocks fit an SM to about
+// 280-D), a group's vectors in shared memory as [d][NB]. Each
 // product over D is a small matrix product over the group: thread (rb, cq)
 // keeps rows 4 rb .. 4 rb + 3 (those below D) of chains 4 cq .. 4 cq + 3 in
 // registers and sums over k in order, one rounding per product and per sum,
 // so it rounds as the plain version's ordered sum (models.cuh wide_matvec).
 // chol, its inverse and the correlated model's S stream through shared
-// memory in tiles of 16 rows copied by cp.async, three stages in flight,
+// memory in tiles of 16 rows copied by cp.async, three stages in flight
+// (two past D = 788, where three do not fit beside the vectors),
 // each value shared by the group's chains; the model's other constants are
 // read through L1. The factor's structure, worked out on the host where
 // the factor is made (ops/common.py factor_structure), is a launch
@@ -166,3 +169,16 @@ extern "C" int chees_step_curved(const float* x, const float* r0, const float* u
 PTMC_CHEES_WIDE_ENTRIES(correlated_gaussian, ptmc::WideCorrelatedGaussian)
 PTMC_CHEES_WIDE_ENTRIES(interval_gaussian, ptmc::WideIntervalGaussian)
 PTMC_CHEES_WIDE_ENTRIES(hierarchical_gaussian, ptmc::WideHierarchicalGaussian)
+
+// The wide layout at dimension D as every wide entry computes it (models.cuh),
+// for holding ops/common.py's mirror to it on the card: out[0] = NB
+// (wide_group), out[1] = tile stages (wide_stages), out[2] = dynamic shared
+// bytes (wide_smem_bytes). A host function: it launches nothing.
+extern "C" int wide_layout(int D, long long* out) {
+  if (D < 1 || D > ptmc::kWideMaxD) return (int)cudaErrorInvalidValue;
+  const int nb = ptmc::wide_group(D);
+  out[0] = nb;
+  out[1] = ptmc::wide_stages(D, nb);
+  out[2] = (long long)ptmc::wide_smem_bytes(D, nb);
+  return (int)cudaSuccess;
+}

@@ -238,7 +238,7 @@ __global__ void __launch_bounds__(kThreads, 2) hmc_wide_kernel(const WideParams 
   float* gw = p + nv;  // whitened gradient; the model's scratch
   float* xb = gw + nv;
   float* g = xb + nv;
-  float* tile = g + nv;  // [kWideStages][wide_stage_floats(D)]
+  float* tile = g + nv;  // [wide_stages(D, NB)][wide_stage_floats(D)]
   const long long N = (long long)P.T * P.C;
   const long long n0 = (long long)blockIdx.x * NB;
   const int tid = threadIdx.x;
@@ -267,7 +267,8 @@ __global__ void __launch_bounds__(kThreads, 2) hmc_wide_kernel(const WideParams 
   }
   __syncthreads();
   if constexpr (kStep) {
-    ptmc::wide_matvec<false>(P.chol_inv, xb, z, D, NB, tile, P.structure);  // q0 = chol_inv^T x
+    // q0 = chol_inv^T x
+    ptmc::wide_matvec<false>(P.chol_inv, xb, z, D, NB, tile, 0, P.structure);
     const uint2 key = make_uint2((uint32_t)__ldg(P.key), (uint32_t)__ldg(P.key + 1));
     const uint32_t span = (uint32_t)(P.nmax - P.nmin);
     for (int item = tid; item < draw_calls(D) * NB; item += kThreads) {
@@ -278,7 +279,7 @@ __global__ void __launch_bounds__(kThreads, 2) hmc_wide_kernel(const WideParams 
     __syncthreads();
   }
 
-  const ptmc::Wide w{D, NB, P.prm, xb, g, gw, tile, s_beta, s_take, s_logp};
+  const ptmc::Wide w{D, NB, 0, P.prm, xb, g, gw, tile, s_beta, s_take, s_logp};
   ptmc::wide_evaluate<Model>(P.chol, z, gw, w, P.structure);
   const float e = P.eps;
   const float he = 0.5f * e;
@@ -362,7 +363,7 @@ int launch_wide(const WideParams& P, void* stream) {
 // and hierarchical_gaussian: the arguments of the curved ones, plus prm (the
 // model's constants, model.cuda_params), structure (ptmc::WideStructure of
 // chol and chol_inv: 0 dense, 1 diagonal; the step and trajectory
-// entries) and D (1 <= D <= 256). The step and trajectory entries launch
+// entries) and D (1 <= D <= 1024). The step and trajectory entries launch
 // blocks of 256 threads, one group of NB = wide_group(D) chains a block,
 // with ptmc::wide_smem_bytes(D, NB) of dynamic shared memory; the draws
 // entry one chain a thread.

@@ -77,12 +77,12 @@
 // The wide entries, hmc_trajectory_<functor>, hmc_step_<functor> and
 // hmc_draws_<functor> for the functors correlated_gaussian, interval_gaussian
 // and hierarchical_gaussian (models.cuh), run the same computations at any D
-// up to kWideMaxD = 256 (a runtime argument): bench.py's gaussian (40-D),
+// up to kWideMaxD = 1024 (a runtime argument): bench.py's gaussian (40-D),
 // hierarchical (50-D) and gaussian200 workloads. A chain's vectors do not fit
 // in registers there and a step is matrix work (the two whitening products,
 // and the correlated model's S (x - mu)), so the f32 issue rate binds, as in
 // the wide ChEES kernel (chees_trajectory.cu), whose layout this is: a
-// group of NB = wide_group(D) chains (64, 32 or 16) keeps q, p, the whitened
+// group of NB = wide_group(D) chains (64 down to 4) keeps q, p, the whitened
 // gradient, x = chol^T q and the model's gradient in shared memory as
 // [d][NB], each product over D a small matrix product over the group
 // (models.cuh wide_matvec, chol and chol_inv streamed in 16-row tiles by

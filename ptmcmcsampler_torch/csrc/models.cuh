@@ -121,15 +121,19 @@ __device__ __forceinline__ void load_chol(const float* __restrict__ chol_in,
 // ---------------------------------------------------------------------------
 // The wide layout (D up to kWideMaxD, a runtime value), for the models whose
 // vectors do not fit in registers. A block of kWideThreads threads evaluates
-// NB chains at once (NB = 16, 32 or 64, wide_group); each per-chain vector
-// lies in shared memory as [d][NB], element (d, c) at d*NB + c.
+// NB chains at once (NB = 64, 32, 16, 8 or 4, wide_group); each per-chain
+// vector lies in shared memory as [d][NB], element (d, c) at d*NB + c.
 
 constexpr int kWideThreads = 256;
-constexpr int kWideMaxD = 256;
+constexpr int kWideMaxD = 1024;
 constexpr int kWideJ = 4;                     // rows a thread keeps per chain in wide_matvec
 constexpr int kWideKT = 16;                   // rows of A a tile of wide_matvec
-constexpr int kWideStages = 3;                // tiles in flight (cp.async ring)
+constexpr int kWideStages = 3;                // tiles in flight (cp.async ring), where they fit
 constexpr int kWideTileStride = kWideKT + 1;  // a kRowDot tile's row stride, padded
+// The dynamic shared memory a wide kernel may ask for: the H100's 227 KiB a
+// block (232,448 B, static arrays included) less 8 KiB kept for the kernels'
+// static arrays (at most 6,448 B, the ChEES kernel's, by ptxas).
+constexpr int kWideSmemLimit = 232448 - 8192;
 
 // The structure of a whitening factor (ops/common.py STRUCTURES), a launch
 // argument of every wide entry. kDense: every term of its products;
@@ -138,9 +142,15 @@ constexpr int kWideTileStride = kWideKT + 1;  // a kRowDot tile's row stride, pa
 enum WideStructure : int { kDense = 0, kDiagonal = 1 };
 
 // Chains a group of the wide layout takes at dimension D (a power of two):
-// as many as keep each thread at kWideJ rows and two blocks on an SM.
-__host__ __device__ __forceinline__ int wide_group(int D) {
+// as many as keep each thread at kWideJ rows, so that the block's
+// kWideThreads / (NB / 4) row blocks of kWideJ cover D (wide_matvec): 4096 /
+// NB rows, two blocks an SM up to D = 256. wide_group_to256 is its value
+// at D <= 256 alone (64, 32 or 16), for a kernel instantiated for that range.
+__host__ __device__ __forceinline__ int wide_group_to256(int D) {
   return D <= 64 ? 64 : (D <= 128 ? 32 : 16);
+}
+__host__ __device__ __forceinline__ int wide_group(int D) {
+  return D <= 256 ? wide_group_to256(D) : (D <= 512 ? 8 : 4);
 }
 
 // Floats of one tile stage: kWideKT rows of D, or D rows of kWideTileStride
@@ -150,9 +160,25 @@ __host__ __device__ __forceinline__ int wide_stage_floats(int D) {
   return (((D + kWideJ - 1) & ~(kWideJ - 1)) * kWideTileStride + 3) & ~3;
 }
 
+// Dynamic shared memory of five [D][NB] vectors and `stages` tile stages.
+__host__ __device__ __forceinline__ size_t wide_smem_bytes_at(int D, int NB, int stages) {
+  return sizeof(float) * (5 * (size_t)D * NB + stages * (size_t)wide_stage_floats(D));
+}
+
+// Tile stages of wide_matvec's ring at (D, NB): kWideStages where they fit
+// in kWideSmemLimit (to D = 788 at NB = 4), else two (to kWideMaxD).
+__host__ __device__ __forceinline__ int wide_stages(int D, int NB) {
+  return wide_smem_bytes_at(D, NB, kWideStages) <= (size_t)kWideSmemLimit ? kWideStages : 2;
+}
+
 // Dynamic shared memory of a wide kernel: five [D][NB] vectors and the tiles.
 __host__ __device__ __forceinline__ size_t wide_smem_bytes(int D, int NB) {
-  return sizeof(float) * (5 * (size_t)D * NB + kWideStages * (size_t)wide_stage_floats(D));
+  return wide_smem_bytes_at(D, NB, wide_stages(D, NB));
+}
+
+// The ring stage of tile t with ns = kWideStages or 2 stages: t mod ns.
+__device__ __forceinline__ int wide_ring(int t, int ns) {
+  return ns == kWideStages ? t % kWideStages : t & 1;
 }
 
 // Row d of element idx = d*NB + c of a group's vector (NB a power of two).
@@ -273,12 +299,16 @@ __device__ __forceinline__ void wide_tile_run(const float* a, const float* v, in
 // Dense: thread tid computes rows r0 = (tid / (NB/4)) * kWideJ .. r0 +
 // kWideJ - 1 (those below D; threads with r0 >= D only copy) for chains 4cq
 // .. 4cq + 3, cq = tid % (NB/4). The tiles of A stream through a ring of
-// kWideStages stages by cp.async, kWideStages - 1 ahead, one barrier a
-// tile. Every thread of the block calls it with in complete; it returns
-// after a barrier, with stages free again.
+// ns = wide_stages(D, NB) stages by cp.async, ns - 1 ahead, one barrier a
+// tile. nst is ns where the caller fixes it at compile time (so that the
+// three-stage ring compiles to constants), else 0: then ns is worked out
+// here, at each product, which costs the kernels at their register cap
+// less than a count kept in a register (PERF.md). Every thread of the
+// block calls it with in complete; it returns after a barrier, with stages
+// free again.
 template <bool kRowDot>
 __device__ __forceinline__ void wide_matvec(const float* __restrict__ A, const float* in,
-                                            float* out, int D, int NB, float* stages,
+                                            float* out, int D, int NB, float* stages, int nst,
                                             int structure) {
   const int tid = threadIdx.x;
   if (structure == kDiagonal) {
@@ -295,22 +325,29 @@ __device__ __forceinline__ void wide_matvec(const float* __restrict__ A, const f
   const int at = kRowDot ? r0 * kWideTileStride : r0;
   const int ntiles = (D + kWideKT - 1) / kWideKT;
   const int sf = wide_stage_floats(D);
+  const int ns = nst ? nst : wide_stages(D, NB);
   float acc[kWideJ][4];
 #pragma unroll
   for (int j = 0; j < kWideJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
 
 #pragma unroll
   for (int s = 0; s < kWideStages - 1; ++s) {
-    if (s < ntiles) wide_issue_tile<kRowDot>(A, D, s * kWideKT, stages + s * sf);
-    cp_async_commit();
+    if (s < ns - 1) {
+      if (s < ntiles) wide_issue_tile<kRowDot>(A, D, s * kWideKT, stages + s * sf);
+      cp_async_commit();
+    }
   }
   for (int t = 0; t < ntiles; ++t) {
-    cp_async_wait<kWideStages - 2>();  // this thread's copies of tile t have landed
-    __syncthreads();                   // everyone's, and tile t - 1 is no longer read
-    const int tn = t + kWideStages - 1;
-    if (tn < ntiles) wide_issue_tile<kRowDot>(A, D, tn * kWideKT, stages + (tn % kWideStages) * sf);
+    // This thread's copies of tile t have landed: ns - 2 groups may pend.
+    if (ns == kWideStages)
+      cp_async_wait<kWideStages - 2>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();  // everyone's, and tile t - 1 is no longer read
+    const int tn = t + ns - 1;
+    if (tn < ntiles) wide_issue_tile<kRowDot>(A, D, tn * kWideKT, stages + wide_ring(tn, ns) * sf);
     cp_async_commit();
-    const float* a = stages + (t % kWideStages) * sf + at;
+    const float* a = stages + wide_ring(t, ns) * sf + at;
     const float* v = inq + t * kWideKT * NB;
     const int kn = min(kWideKT, D - t * kWideKT);
     // No continue: every thread reaches the next barrier.
@@ -354,11 +391,12 @@ __device__ __forceinline__ float wide_log_hamiltonian(float logp, const float* p
 struct Wide {
   int D;
   int NB;
+  int stages;                     // wide_matvec's nst: its tile stages, or 0
   const float* __restrict__ prm;  // the model's constants (model.cuda_params)
   const float* x;                 // the points, left unchanged
   float* g;                       // out: the tempered gradient
   float* tmp;                     // scratch
-  float* tile;                    // wide_matvec's tile stages, [kWideStages][wide_stage_floats]
+  float* tile;                    // the tile stages, [wide_stages(D, NB)][wide_stage_floats(D)]
   const float* beta;
   const int* need;  // chains whose tempered value eval writes to logp
   float* logp;
@@ -380,7 +418,7 @@ struct WideCorrelatedGaussian {
     for (int idx = threadIdx.x; idx < D * NB; idx += kWideThreads)
       w.tmp[idx] = w.x[idx] - __ldg(mu + wide_row(idx, NB));  // diff
     __syncthreads();
-    wide_matvec<false>(w.prm + 3 * D, w.tmp, w.g, D, NB, w.tile, kDense);  // sd = S diff
+    wide_matvec<false>(w.prm + 3 * D, w.tmp, w.g, D, NB, w.tile, w.stages, kDense);  // sd = S diff
     const int c = threadIdx.x;
     if (c < NB && w.need[c]) {
       float acc = w.tmp[c] * w.g[c];
@@ -515,9 +553,9 @@ struct WidePerChain {
 template <class Model>
 __device__ __forceinline__ void wide_evaluate(const float* __restrict__ chol, const float* z,
                                               float* gw, const Wide& w, int structure) {
-  wide_matvec<false>(chol, z, const_cast<float*>(w.x), w.D, w.NB, w.tile, structure);
+  wide_matvec<false>(chol, z, const_cast<float*>(w.x), w.D, w.NB, w.tile, w.stages, structure);
   Model::eval(w);
-  wide_matvec<true>(chol, w.g, gw, w.D, w.NB, w.tile, structure);
+  wide_matvec<true>(chol, w.g, gw, w.D, w.NB, w.tile, w.stages, structure);
 }
 
 }  // namespace ptmc

@@ -336,7 +336,12 @@ struct WideParams {
   int max_depth;
 };
 
-template <class Model>
+// kPast256: an instantiation for D > 256 (groups of 8 or 4, wide_stages
+// tile stages) and one for D <= 256 (groups of 64, 32 or 16 and three
+// stages, both from constants, as before groups of 8 and 4 existed); the
+// launcher picks. The kernel sits at its register cap, and the wider
+// ranges of NB and of the stage count moved its spills (PERF.md).
+template <class Model, bool kPast256>
 __global__ void __launch_bounds__(kWideThreads, 2) nuts_wide_kernel(const WideParams P) {
   extern __shared__ __align__(16) float s_vec[];
   __shared__ long long s_base[kWideMaxNB];  // chain n's element (t, 0, c), -1 past T*C
@@ -349,7 +354,8 @@ __global__ void __launch_bounds__(kWideThreads, 2) nuts_wide_kernel(const WidePa
   __shared__ int s_flag[kWideMaxNB];   // the leaf taken by the reservoir; the subtree accepted
 
   const int D = P.D;
-  const int NB = ptmc::wide_group(D);
+  const int NB = kPast256 ? ptmc::wide_group(D) : ptmc::wide_group_to256(D);
+  const int nst = kPast256 ? 0 : ptmc::kWideStages;  // wide_matvec's
   const int nv = D * NB;
   float* z = s_vec;    // whitened position
   float* r = z + nv;   // momentum
@@ -387,7 +393,7 @@ __global__ void __launch_bounds__(kWideThreads, 2) nuts_wide_kernel(const WidePa
     const long long m = n0 + (idx - d * NB);
     return m < N ? d * N + m : -1;
   };
-  const ptmc::Wide w{D, NB, P.prm, xb, g, gw, tile, s_beta, s_act, s_logp};
+  const ptmc::Wide w{D, NB, nst, P.prm, xb, g, gw, tile, s_beta, s_act, s_logp};
 
   // The start: q_prop = z0; both frontiers = (z0, r0, gw0).
   for (int idx = tid; idx < nv; idx += kWideThreads) {
@@ -679,7 +685,7 @@ int launch_wide(const WideParams& P, void* stream) {
   }
   const int nb = ptmc::wide_group(P.D);
   const size_t smem = ptmc::wide_smem_bytes(P.D, nb);
-  auto kernel = nuts_wide_kernel<Model>;
+  auto kernel = P.D > 256 ? nuts_wide_kernel<Model, true> : nuts_wide_kernel<Model, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -694,7 +700,7 @@ int launch_wide(const WideParams& P, void* stream) {
 // model's constants, model.cuda_params), scratch (device memory of
 // (7 + 2 * max_depth) * D * T * C floats, which the call overwrites),
 // structure (ptmc::WideStructure of chol: 0 dense, 1 diagonal) and
-// D (1 <= D <= 256). They launch blocks of 256 threads, one group of NB =
+// D (1 <= D <= 1024). They launch blocks of 256 threads, one group of NB =
 // wide_group(D) chains a block, with ptmc::wide_smem_bytes(D, NB) of dynamic
 // shared memory.
 #define PTMC_NUTS_WIDE_ENTRY(NAME, MODEL)                                                     \

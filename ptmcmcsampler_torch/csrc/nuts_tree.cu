@@ -81,13 +81,13 @@
 //
 // The wide entries, nuts_tree_<functor> for the functors correlated_gaussian,
 // interval_gaussian and hierarchical_gaussian (models.cuh), build the same
-// trees at any D up to kWideMaxD = 256 (a runtime argument): bench.py's
+// trees at any D up to kWideMaxD = 1024 (a runtime argument): bench.py's
 // gaussian (40-D), hierarchical (50-D) and gaussian200 workloads. There a leaf
 // is matrix work: the two whitening products (D^2 operations each for a
 // triangular factor) and the model's (the correlated Gaussian's S (x - mu),
 // 2 D^2), against a tree's inputs and outputs of about 8 D bytes a chain. So
 // the f32 issue rate binds, and the design is the wide ChEES kernel's
-// (chees_trajectory.cu): a group of NB = wide_group(D) chains (64, 32 or 16)
+// (chees_trajectory.cu): a group of NB = wide_group(D) chains (64 down to 4)
 // keeps its working vectors in shared memory as [d][NB] (z, r, the whitened
 // gradient, x = chol^T z and the model's gradient, 5 D NB floats, plus
 // wide_matvec's three tile stages of chol: 104.8 KB a block at 200-D, two

@@ -20,10 +20,10 @@ one launch for all of it.
   registers; the wide models (``correlated_gaussian``,
   ``interval_gaussian``, ``hierarchical_gaussian``, any D up to
   ``common.WIDE_MAX_D``, and a registered user functor at its dims, from its
-  own library: ``ops/user.py``) run the wide layout, groups of ``wide_group(D)``
-  chains with their vectors in shared memory, and take the model's
-  constants (``model.cuda_params``). Both order each block's 256 chains by
-  length.
+  own library: ``ops/user.py``) run the wide layout, groups of
+  ``common.wide_group(D)`` chains (64 down to 4) with their vectors in
+  shared memory, and take the model's constants (``model.cuda_params``).
+  Both order each block's 256 chains by length.
 * On a CPU tensor it runs its plain version, the same function written as a
   loop of masked PyTorch steps in the kernel's operation order. The tests
   hold it to the JAX package, and ``chip_smoke.py`` holds the kernel to it
@@ -46,12 +46,6 @@ from . import common
 BLOCK = 256
 WARP = 32
 SORT_BINS = 256
-
-
-def wide_group(ndim):
-    """Chains a group of the wide layout runs together at dimension ``ndim``
-    (``wide_group`` in csrc/models.cuh)."""
-    return 64 if ndim <= 64 else (32 if ndim <= 128 else 16)
 
 
 def _trajectories_plain(q0, p0, beta, eps, nsteps, chol, model, structure):
@@ -232,7 +226,7 @@ def lane_efficiency(nsteps, grouped=True, lanes=WARP):
     """Share of the lane-steps a batch issues that do work: ``sum(nsteps) /
     (lanes * sum over units of the unit's largest nsteps)``, a unit being
     ``lanes`` consecutive threads (a warp of the curved kernel, or a group
-    of the wide layout, ``lanes=wide_group(D)``, which steps together).
+    of the wide layout, ``lanes=common.wide_group(D)``, which steps together).
 
     ``nsteps [T, C]`` in the kernel's lane order: chain ``n = t*C + c`` in
     block ``n // 256``, lanes past ``T*C`` at length 0. ``grouped`` orders

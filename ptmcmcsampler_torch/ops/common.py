@@ -16,20 +16,46 @@ import torch
 from . import build
 
 # Most dimensions of the wide layout (csrc/models.cuh kWideMaxD), and its
-# products: rows a thread keeps, rows a tile, stages in flight.
-WIDE_MAX_D = 256
+# products: rows a thread keeps, rows a tile, stages in flight where they fit.
+WIDE_MAX_D = 1024
 WIDE_J, WIDE_KT, WIDE_STAGES = 4, 16, 3
+# The dynamic shared memory a wide kernel may ask for (kWideSmemLimit): the
+# H100's 227 KiB a block (232,448 B, static arrays included) less 8 KiB kept
+# for the kernels' static arrays.
+WIDE_SMEM_LIMIT = 232448 - 8192
+
+
+def wide_group(ndim):
+    """Chains a group of the wide layout runs together at dimension ``ndim``
+    (csrc/models.cuh wide_group): 64, 32, 16, 8 or 4 as ``ndim`` <= 64, 128,
+    256, 512 or 1024, so that a block's 256 threads of WIDE_J rows and 4
+    chains cover the dimension."""
+    for most, group in ((64, 64), (128, 32), (256, 16), (512, 8)):
+        if ndim <= most:
+            return group
+    return 4
+
+
+def _smem_bytes(ndim, group, stages):
+    """Five ``[D][group]`` vectors and ``stages`` tile stages of D rounded up
+    to WIDE_J rows of WIDE_KT + 1 floats (a row-dot tile's padded stride),
+    rounded up to 16 bytes."""
+    rows = -(-ndim // WIDE_J) * WIDE_J
+    stage = (rows * (WIDE_KT + 1) + 3) & ~3
+    return 4 * (5 * ndim * group + stages * stage)
+
+
+def wide_stages(ndim, group):
+    """Tile stages of the wide products' ring (csrc/models.cuh wide_stages):
+    WIDE_STAGES where they fit in WIDE_SMEM_LIMIT, else two."""
+    return WIDE_STAGES if _smem_bytes(ndim, group, WIDE_STAGES) <= WIDE_SMEM_LIMIT else 2
 
 
 def wide_smem_bytes(ndim, group):
     """Dynamic shared memory of a wide kernel's block at dimension ``ndim``
-    and group size ``group`` (csrc/models.cuh wide_smem_bytes): five
-    ``[D][group]`` vectors and WIDE_STAGES tile stages of D rounded up to
-    WIDE_J rows of WIDE_KT + 1 floats (a row-dot tile's padded stride),
-    rounded up to 16 bytes."""
-    rows = -(-ndim // WIDE_J) * WIDE_J
-    stage = (rows * (WIDE_KT + 1) + 3) & ~3
-    return 4 * (5 * ndim * group + WIDE_STAGES * stage)
+    and group size ``group`` (csrc/models.cuh wide_smem_bytes): the five
+    vectors and ``wide_stages`` tile stages."""
+    return _smem_bytes(ndim, group, wide_stages(ndim, group))
 
 
 # The device functors of csrc/models.cuh, by the name a model gives in

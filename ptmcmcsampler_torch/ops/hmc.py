@@ -31,8 +31,9 @@ it, and no momentum or length array exists on the path.
   wide models (``correlated_gaussian``, ``interval_gaussian``,
   ``hierarchical_gaussian``, any D up to ``common.WIDE_MAX_D``, and a
   registered user functor at its dims: ``ops/user.py``) run the wide
-  layout, a group of ``wide_group(D)`` chains a block with their vectors in
-  shared memory, and take the model's constants (``model.cuda_params``).
+  layout, a group of ``common.wide_group(D)`` chains a block (64 down to 4) with
+  their vectors in shared memory, and take the model's constants
+  (``model.cuda_params``).
 * On a CPU tensor it runs its plain version: the same function as masked
   PyTorch steps in the kernel's operation order, the fused step's whitening
   and back-mapping as ordered sums (``common.matvec``). The tests hold the

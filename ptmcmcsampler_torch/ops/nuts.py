@@ -19,8 +19,8 @@ algorithm is written out in ``csrc/nuts_tree.cu``.
   building its own tree; the wide models (``correlated_gaussian``,
   ``interval_gaussian``, ``hierarchical_gaussian``, any D up to
   ``common.WIDE_MAX_D``, and a registered user functor at its dims:
-  ``ops/user.py``) run the wide layout, a group of ``wide_group(D)``
-  chains a block stepping through the plain version's masked schedule
+  ``ops/user.py``) run the wide layout, a group of ``common.wide_group(D)``
+  chains a block (64 down to 4) stepping through the plain version's masked schedule
   together, with the model's constants (``model.cuda_params``) and a global
   scratch for the frontiers, checkpoints and subtree proposals, allocated
   here from PyTorch's caching allocator at every call.

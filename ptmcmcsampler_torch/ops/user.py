@@ -28,10 +28,13 @@ libraries are keyed like the built-in ones (``ops/build.py``) and built by
 missing ``nvcc`` or a failed build raises, naming the functor.
 
 A registered functor runs in the wide layout at any D in ``dims``, within
-``[1, common.WIDE_MAX_D]``. A kernel is bitwise equal to its plain version
-(the model's batched ``value_grad``) only where the two compute in the same
-order: the kernels are built ``--fmad=false``, and a sum over D must be
-ordered in both (``common.rsum``).
+``[1, common.WIDE_MAX_D]`` (1024). At D > 256 a group holds 8 or 4 chains,
+so only that many of a block's 256 threads run the functor's per-chain
+loop: right, and slow for a model whose value is dear. A kernel is
+bitwise equal to its plain version (the model's batched ``value_grad``)
+only where the two compute in the same order: the kernels are built
+``--fmad=false``, and a sum over D must be ordered in both
+(``common.rsum``).
 """
 
 from __future__ import annotations
@@ -69,7 +72,7 @@ def register_functor(name, source, dims=(1, common.WIDE_MAX_D)):
     ``name`` is a C identifier other than a built-in functor's; ``source``
     defines ``value_grad`` with the signature in the module docstring;
     ``dims = (lo, hi)`` the dimensions it takes, ``1 <= lo <= hi <=
-    WIDE_MAX_D``. The same name again with the same source and dims is a
+    WIDE_MAX_D`` (1024). The same name again with the same source and dims is a
     no-op; with others it raises. Builds nothing (see :func:`prepare`).
     """
     if not isinstance(name, str) or not _IDENT.match(name):

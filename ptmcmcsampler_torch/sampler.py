@@ -19,7 +19,7 @@ reach ``build_step``, which wants a batched model, by one of three routes:
   objects) or a user's, registered with ``register_functor``
   (``ops/user.py``), whose libraries are built when the sampler is made on
   the card. A jump whose kernel does not take the functor at the model's
-  dimension (a wide functor beyond D = 256, a user functor outside its
+  dimension (a wide functor beyond D = 1024, a user functor outside its
   registered dims) is refused on the card when ``sample()`` starts
   (:func:`card_refusal`); on the CPU every jump runs.
 * **plain**: anything else that ``torch.func.vmap`` can batch: it runs

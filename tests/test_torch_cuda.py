@@ -709,13 +709,13 @@ def test_wide_wrappers_raise(cuda):
         chees_step(*args, ShortConstants())
     one = [a[:, :1].contiguous() if torch.is_tensor(a) and a.dim() == 3 else a for a in args]
     one[8] = one[9] = torch.ones((1, 1), device=cuda)
-    with pytest.raises(ValueError, match="2 <= D <= 256"):
+    with pytest.raises(ValueError, match="2 <= D <= 1024"):
         chees_step(*one, model)
-    wide = IntervalTransformedGaussian(ndim=257)
+    wide = IntervalTransformedGaussian(ndim=1025)
     wargs = list(_wide_step_inputs(cuda, wide, c=8))
-    with pytest.raises(ValueError, match="got 257"):
+    with pytest.raises(ValueError, match="got 1025"):
         chees_step(*wargs, wide)
-    with pytest.raises(ValueError, match="got 257"):
+    with pytest.raises(ValueError, match="got 1025"):
         hmc_step(wargs[0], wargs[3], torch.zeros(2, dtype=torch.int64, device=cuda), wargs[8],
                  wargs[9], 0.08, HMC_NMIN, HMC_NMAX, wide)
     with pytest.raises(ValueError, match="no constants"):
@@ -879,6 +879,51 @@ def test_wide_entries_with_structured_factors_match_plain_bitwise(cuda, name, fa
         chees_step(*args, model, "banded")
 
 
+# ---- The wide entries past D = 256: groups of 8 (D <= 512) and 4 ----
+
+LARGE_MODELS = {
+    **{f"hierarchical{d}": (lambda d=d: HierarchicalGaussian(ngroups=d - 1))
+       for d in (270, 512, 513, 1024)},
+    **{f"interval{d}": (lambda d=d: IntervalTransformedGaussian(ndim=d))
+       for d in (270, 512, 513, 1024)},
+    **{f"correlated{d}": (lambda d=d: CorrelatedGaussian(ndim=d, seed=1))
+       for d in (300, 513, 1024)},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", ["diagonal", "lower"])
+@pytest.mark.parametrize("name", sorted(LARGE_MODELS))
+def test_wide_entries_past_256_match_plain_bitwise(cuda, name, factor):
+    """Every wide entry past D = 256 (groups of 8 to 512, of 4 to 1024, two
+    tile stages past 788) equals its plain version bit for bit, with a
+    diagonal and a lower triangular factor, on a ragged batch: the ChEES
+    step and trajectory entries, the NUTS tree, the fused HMC step, its
+    draws and its trajectory entry."""
+    model = LARGE_MODELS[name]()
+    before = {w: w.launches for w in (chees_step, nuts_trees, hmc_step)}
+    _entries_equal_plain(cuda, model, factor)
+    assert all(w.launches == n + 1 for w, n in before.items())
+
+
+@pytest.mark.cuda
+def test_kernels_wide_layout_equals_the_python_mirror(cuda):
+    """The layout every wide entry computes (models.cuh, read through the
+    ``wide_layout`` host entry) equals ops/common.py's at every D to 1024,
+    and D = 0 and 1025 are refused."""
+    import ctypes
+
+    fn = build.load("chees_trajectory").wide_layout
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_void_p]
+    out = (ctypes.c_longlong * 3)()
+    for d in range(1, common.WIDE_MAX_D + 1):
+        assert fn(d, out) == 0
+        nb = common.wide_group(d)
+        want = (nb, common.wide_stages(d, nb), common.wide_smem_bytes(d, nb))
+        assert tuple(out) == want, d
+    assert fn(0, out) != 0 and fn(common.WIDE_MAX_D + 1, out) != 0
+
+
 # ---- A user's functor, registered (ops/user.py) ----
 
 USER_MODELS = {"hierarchy": chip_smoke.UserHierarchy,
@@ -902,6 +947,21 @@ def test_user_entries_match_plain_bitwise(cuda, name, factor):
         builtin, _ = _entries_equal_plain(cuda, HierarchicalGaussian(), factor)
         for i, (a, b) in enumerate(zip(out, builtin)):
             assert _same(a, b), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", ["diagonal", "lower"])
+@pytest.mark.parametrize("ngroups", [269, 1023])
+def test_user_entries_past_256_match_plain_bitwise(cuda, ngroups, factor):
+    """The user hierarchy (registered to D = 1024) at 270-D and 1024-D, where
+    8 and 4 of a block's threads run its per-chain loop: every entry equals
+    its plain version and the built-in entries, bit for bit."""
+    model = chip_smoke.UserHierarchy(ngroups=ngroups)
+    user.prepare(model, cuda)
+    out, _ = _entries_equal_plain(cuda, model, factor)
+    builtin, _ = _entries_equal_plain(cuda, HierarchicalGaussian(ngroups=ngroups), factor)
+    for i, (a, b) in enumerate(zip(out, builtin)):
+        assert _same(a, b), i
 
 
 @pytest.mark.cuda
@@ -950,8 +1010,8 @@ def _wide_sampler(outdir, nchains=64):
 @pytest.mark.parametrize("weights", [dict(NUTSweight=20), dict(HMCweight=20)])
 def test_sampler_refuses_wide_nuts_and_hmc_on_the_card(cuda, tmp_path, weights):
     """NUTS or HMC on a wide model on the card launches its wide kernel once
-    per iteration of its kind; a 300-D model (beyond the wide layout's 256)
-    is refused before any iteration runs, naming the CPU."""
+    per iteration of its kind; a 1025-D model (beyond the wide layout's
+    1024) is refused before any iteration runs, naming the CPU."""
     s = _wide_sampler(str(tmp_path))
     assert s.route == "kernel"
     kw = {**_SAMPLE, "CHEESweight": 0, "NUTSweight": 0, "HMCweight": 0, **weights}
@@ -967,11 +1027,11 @@ def test_sampler_refuses_wide_nuts_and_hmc_on_the_card(cuda, tmp_path, weights):
 
     from ptmcmcsampler_torch import PTSampler
 
-    m = CorrelatedGaussian(ndim=300)
+    m = CorrelatedGaussian(ndim=1025)
     big = PTSampler(m.ndim, m.lnlikefn, m.lnpriorfn, np.eye(m.ndim), logl_grad=m.lnlikefn_grad,
                     logp_grad=m.lnpriorfn_grad, ntemps=2, nchains=16, seed=3,
                     outDir=str(tmp_path / "big"), verbose=False)
-    with pytest.raises(NotImplementedError, match="got 300") as e:
+    with pytest.raises(NotImplementedError, match="got 1025") as e:
         big.sample(np.full(m.ndim, 5.0), 120, **kw)
     assert 'device="cpu"' in str(e.value) and big.state is None
 

@@ -172,11 +172,13 @@ def test_cuda_params_layout(name):
     ("curved", "chees", 2, True), ("curved", "nuts", 2, True), ("curved", "chees", 3, False),
     ("hierarchical_gaussian", "chees", 50, True), ("hierarchical_gaussian", "chees", 1, False),
     ("hierarchical_gaussian", "nuts", 50, True), ("interval_gaussian", "hmc", 40, True),
-    ("correlated_gaussian", "chees", 200, True), ("correlated_gaussian", "chees", 257, False),
+    ("correlated_gaussian", "chees", 200, True), ("correlated_gaussian", "chees", 1025, False),
     (None, "chees", 2, False), ("nosuch", "chees", 2, False),
     ("correlated_gaussian", "nuts", 200, True), ("correlated_gaussian", "hmc", 256, True),
-    ("correlated_gaussian", "nuts", 300, False), ("interval_gaussian", "hmc", 257, False),
-    ("hierarchical_gaussian", "nuts", 1, False), ("hierarchical_gaussian", "hmc", 257, False),
+    ("correlated_gaussian", "nuts", 1025, False), ("interval_gaussian", "hmc", 1025, False),
+    ("hierarchical_gaussian", "nuts", 1, False), ("hierarchical_gaussian", "hmc", 1025, False),
+    ("correlated_gaussian", "chees", 257, True), ("correlated_gaussian", "nuts", 300, True),
+    ("interval_gaussian", "hmc", 512, True), ("hierarchical_gaussian", "hmc", 1024, True),
     (None, "nuts", 50, False), ("nosuch", "hmc", 40, False),
 ])
 def test_functor_table(functor, kernel, ndim, ok):

@@ -78,37 +78,39 @@ _KINDS = {
 @pytest.mark.parametrize("functor,ndim", [("curved", 2), ("hierarchical_gaussian", 50),
                                           ("interval_gaussian", 40),
                                           ("correlated_gaussian", 200),
-                                          ("correlated_gaussian", 300), (None, 50)])
+                                          ("correlated_gaussian", 300),
+                                          ("hierarchical_gaussian", 1024),
+                                          ("correlated_gaussian", 1025), (None, 50)])
 @pytest.mark.parametrize("device_type", ["cuda", "cpu"])
 def test_card_refusal_decision(kinds, functor, ndim, device_type):
     """On the card every kernel kind (ChEES, NUTS, HMC) runs on the curved
-    functor and on the wide ones up to D = 256; a D beyond the wide layout
-    (300) and a model without a functor are refused for any kernel kind;
+    functor and on the wide ones up to D = 1024; a D beyond the wide layout
+    (1025) and a model without a functor are refused for any kernel kind;
     MALA, plain PyTorch, runs; the CPU refuses nothing."""
     jumps = build_default_jumps(SCAMweight=10, have_grads=True, **_KINDS[kinds])
     why = card_refusal(device_type, functor, jumps, ndim)
-    refused = device_type == "cuda" and (ndim == 300 or functor is None) and kinds != "mala"
+    refused = device_type == "cuda" and (ndim == 1025 or functor is None) and kinds != "mala"
     assert (why is not None) == refused
     if refused:
-        assert ("got 300" if functor else "no CUDA device functor") in why
+        assert ("got 1025" if functor else "no CUDA device functor") in why
 
 
 def test_sample_refuses_before_any_iteration(tmp_path, monkeypatch):
-    """The refusal of a model the card's kernels do not take (a 300-D
-    CorrelatedGaussian: the wide layout stops at 256) is raised when
+    """The refusal of a model the card's kernels do not take (a 1025-D
+    CorrelatedGaussian: the wide layout stops at 1024) is raised when
     sample() starts, naming the D and the CPU, before a state exists or a
     file is written. The device check is made as on the card (the decision
     is the card's; nothing is allocated)."""
     from ptmcmcsampler_torch import sampler as sampler_module
 
-    m = CorrelatedGaussian(ndim=300)
+    m = CorrelatedGaussian(ndim=1025)
     s = PTSampler(m.ndim, m.lnlikefn, m.lnpriorfn, np.eye(m.ndim), logl_grad=m.lnlikefn_grad,
                   logp_grad=m.lnpriorfn_grad, ntemps=2, nchains=8, outDir=str(tmp_path),
                   verbose=False, device="cpu")
     real = sampler_module.card_refusal
     monkeypatch.setattr(sampler_module, "card_refusal",
                         lambda _dev, *args: real("cuda", *args))
-    with pytest.raises(NotImplementedError, match="got 300") as e:
+    with pytest.raises(NotImplementedError, match="got 1025") as e:
         s.sample(np.clip(m.mu, 0.1, 9.9), 100, **SAMPLE_KW)
     assert 'device="cpu"' in str(e.value) and s.state is None
     assert not (tmp_path / "chain_1.0.txt").exists()
