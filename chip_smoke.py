@@ -192,8 +192,9 @@ Phases, in order; any failure exits non-zero:
 9. ``PTSampler`` with ``HierarchicalGaussian``'s bound methods on the card:
    8 x 1024 chains, SCAM/AM/DE/ChEES/NUTS/HMC, 2000 iterations, files in a
    temporary directory; ``chees_step``, ``nuts_trees`` and ``hmc_step``
-   each once per iteration of their kind, the chain files' rows, the gate
-   on the rows past iteration 1000. Then a 1025-D ``CorrelatedGaussian``
+   each once per iteration of their kind, every jump run, the chain files'
+   rows, ``jumps.txt`` and the jump series, the gate on the rows past
+   iteration 1000. Then a 1025-D ``CorrelatedGaussian``
    (beyond the wide layout's 1024) must be refused when ``sample()``
    starts, naming ``device="cpu"``. One JSON line.
 9a. The user paths: path 1's and path 2's cycles (as 7 and 8) on
@@ -231,6 +232,27 @@ Phases, in order; any failure exits non-zero:
    1024-D it is printed), and their kernel items; then 9 on the 270-D
    hierarchy (``"phase": "wide_sampler"``, ``"workload":
    "hierarchical270"``).
+9d. BASELINE config 4 (examples/hierarchical_gaussian.py: SCAM/AM/DE at
+   20 each, DE after burn-in, a torch-native small-Gaussian custom jump at
+   5, the prior draw at 2) plus ChEES at 20 and an auxiliary jump
+   (``HierarchyReflection``, which reads ``it``), on bench.py's 50-D
+   hierarchy at 8 x 16384 chains, tskip 5, cov_update 1000 (CUSTOM_ITERS:
+   3000 + 12000) through ``build_step``/``run_block``: first the graphs
+   against the eager step loop as in 3 (bit for bit, ``"phase":
+   "graphs"``, ``"path": "custom_jumps"``), then the path as in 7 with the
+   gate, ``chees_step`` once per ChEES iteration and no eager iteration
+   but the warm-ups (the user's jumps run inside the graphs). One line
+   ``"phase": "custom_jumps"`` with each jump's proposals and acceptances,
+   the prior draw's acceptance rate, the graphs' counts and eager
+   iterations by reason, and peak device memory.
+9e. The same cycle through ``PTSampler`` (the jumps registered with
+   ``addProposalToCycle``, ``addPriorDrawToCycle``, ``addAuxilaryJump``)
+   as in 9, its checks with config 4's weights: launches, protocols, no
+   "host jump" iteration, ``jumps.txt`` and the jump series, the gate; then the
+   reference protocol's numpy custom jump and numpy prior draw at 8 x 128
+   chains, 300 iterations: exactly their own iterations run eagerly
+   ("host jump"), the other keys replay. One line ``"phase":
+   "custom_sampler"``.
 10. Kernels line: each kernel's launches on its path, error against the
    plain version, device time (CUDA events, stream held, inputs from its
    path's final state), the time of a wrapper call, the plain version's time
@@ -249,7 +271,9 @@ Phases, in order; any failure exits non-zero:
    trajectories after one), and full-length timings: every chain started
    outside the prior box so it runs its drawn length, over the whole batch
    and over one warp's chains, in microseconds a step. The ChEES entry's
-   ``launches_by_path`` adds its launches in the sampler phase. Its
+   ``launches_by_path`` adds its launches in the sampler phase (and the
+   hierarchical item's, in 9d and 9e: ``custom_jumps``,
+   ``custom_sampler``). Its
    ``wide`` list has one item a wide functor, with every key of a kernel
    entry: the path's factor structure tag (``factor_structure``; the
    identity's "diagonal" on bench.py's paths), the capped microseconds a
@@ -618,6 +642,55 @@ class UserRefGaussian:
 
     def posterior_moments(self):
         return np.zeros(self.ndim), np.eye(self.ndim)
+
+
+# ---- BASELINE config 4: the user's jumps (examples/hierarchical_gaussian.py) ----
+
+def small_gauss_jump(rng, x, it, beta):
+    """The example's custom jump, torch-native: a small isotropic Gaussian
+    step drawn with the sampler's generator (symmetric: log_qxy 0)."""
+    return x + 0.05 * torch.randn(x.shape, generator=rng, device=x.device), x.new_zeros(())
+
+
+def numpy_small_gauss_jump(x, it, beta):
+    """The same jump in the reference's numpy protocol (run on the host)."""
+    return x + 0.05 * np.random.standard_normal(len(x)), 0.0
+
+
+def numpy_draw_prior(model):
+    """``draw(np_rng)``: the hierarchy's exact prior draw in numpy (host)."""
+    def draw(np_rng):
+        mu = model.s_mu * np_rng.standard_normal()
+        return np.concatenate([[mu], mu + model.s_t * np_rng.standard_normal(model.ngroups)])
+    return draw
+
+
+class HierarchyReflection:
+    """An auxiliary jump for ``HierarchicalGaussian`` that leaves the prior
+    and every tempered target of the ladder unchanged: on odd iterations
+    (it reads ``it``) it reflects the proposal's group effects across the
+    hyperplane orthogonal to a unit vector v with v . 1 = v . y = 0, so it
+    fixes mu, the prior's ``theta - mu 1`` norm, the data terms and every
+    tempered mean. A reflection has |det| = 1: log_qxy = 0. Composed with
+    the prior draw or the isotropic small Gaussian, whose laws it keeps,
+    the proposal keeps its Hastings term exactly. SCAM and AM step on the
+    adapted covariance, DE on differences of the chain history and ChEES on
+    the adapted factor: these keep their Hastings terms only as far as those
+    are symmetric under the reflection (as the target's covariance is), so
+    the composed kernel is approximately reversible, and the moment gate
+    holds the result."""
+
+    def __init__(self, model, device):
+        g = model.ngroups
+        basis, _ = np.linalg.qr(np.stack([np.ones(g), model.y], axis=1))
+        v = np.cos(1.3 * np.arange(g))  # any vector outside span(1, y)
+        v = v - basis @ (basis.T @ v)
+        v = np.concatenate([[0.0], v / np.linalg.norm(v)])
+        self.v = torch.tensor(v, dtype=torch.float32, device=device)
+
+    def __call__(self, rng, x, q, it, beta):
+        flip = (it % 2).to(q.dtype)
+        return q - (2.0 * flip * torch.dot(self.v, q)) * self.v, q.new_zeros(())
 
 
 def log(msg):
@@ -1384,12 +1457,14 @@ def phase_main_path(model, card, path, cfg, wrappers, absent=(), x0=(-0.1, -0.5)
     peak_mem_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
     kinds = [j.kind for j in cfg.jumps]
+    kind_iters = {}
     for kind, n in launches.items():
-        iters = int(state.counters.jump_proposed[kinds.index(kind), 0, 0])
+        iters = kind_iters[kind] = int(state.counters.jump_proposed[kinds.index(kind), 0, 0])
         log(f"{path}: {kind} kernel launches {n} (through the graphs), {kind} iterations {iters}")
         if n == 0 or n != iters:
             raise SystemExit(
                 f"path {path} did not launch the {kind} kernel once per {kind} iteration")
+    jumps = jump_counts(cfg, state)  # over the burn-in and timed iterations
     for w in absent:
         if w.launches:
             raise SystemExit(f"path {path} launched {w.__name__} {w.launches} times")
@@ -1448,6 +1523,8 @@ def phase_main_path(model, card, path, cfg, wrappers, absent=(), x0=(-0.1, -0.5)
         "diagnostics_sec": diag_sec,
         "cold_acceptance": dict(zip(cfg.jump_names(), acc)),
         "launches": launches,
+        "iterations_by_kind": kind_iters,
+        "jumps": jumps,
         "graphs": graphs,
         "peak_mem_gb": peak_mem_gb,
         # A block of the graphs and of the eager loop on the same kinds.
@@ -1972,8 +2049,20 @@ def time_drains(sampler, seconds, sync=False):
 
 
 def iterations(sampler, kind):
+    """The iterations of jump ``kind`` (0 where the cycle has none)."""
     kinds = [j.kind for j in sampler.config.jumps]
+    if kind not in kinds:
+        return 0
     return int(sampler.state.counters.jump_proposed[kinds.index(kind), 0, 0])
+
+
+def jump_counts(cfg, state):
+    """Each jump's proposals and acceptances over the cold chains."""
+    ctr = state.counters
+    prop = ctr.jump_proposed[:, 0].sum(-1).tolist()
+    acc = ctr.jump_accepted[:, 0].sum(-1).tolist()
+    return {name: {"proposed": p, "accepted": a, "rate": a / p if p else None}
+            for name, p, a in zip(cfg.jump_names(), prop, acc)}
 
 
 def drain_stats(seconds, wall):
@@ -2480,18 +2569,24 @@ def wide_kernel_entry(name, model, state, cfg, launches, max_err, chees_ptxas):
     }
 
 
-def phase_wide_sampler(card, wrappers, name="hierarchical"):
+def phase_wide_sampler(card, wrappers, name="hierarchical", register=None,
+                       sample_kw=WIDE_SAMPLER_KW, phase="wide_sampler"):
     """``PTSampler`` with the bound methods of the hierarchy of the wide
     workload ``name`` (bench.py's 50-D one, or LARGE_SAMPLER's 270-D) on the
-    card (the kernel route): 8 x 1024 chains, SCAM/AM/DE/ChEES/NUTS/HMC,
-    WIDE_SAMPLER_ITERS iterations, files in a temporary directory.
-    ``chees_step``, ``nuts_trees`` and ``hmc_step`` must each launch once per
-    iteration of their kind and the trajectory entries never; the chain
-    files must have their rows; the moment gate must pass on the rows past
-    iteration 1000. Then a 1025-D ``CorrelatedGaussian`` (beyond the wide
-    layout's 1024) must be refused when ``sample()`` starts, naming
-    ``device="cpu"``, before any iteration or launch. Returns ``(result,
-    launches by wrapper)``."""
+    card (the kernel route): 8 x 1024 chains, the cycle of ``sample_kw``
+    (SCAM/AM/DE/ChEES/NUTS/HMC by default) and the user's jumps that
+    ``register(sampler, model)`` adds (config 4's, in 9e), WIDE_SAMPLER_ITERS
+    iterations, files in a temporary directory. ``chees_step``,
+    ``nuts_trees`` and ``hmc_step`` must each launch once per iteration of
+    their kind and the trajectory entries never; every jump must run, the
+    user's torch-native and inside the graphs (no "host jump" iteration);
+    the chain files must have their rows, ``jumps.txt`` a row a jump and
+    each ``<name>_jump.txt`` a value a save; the moment gate must pass on
+    the rows past iteration 1000. Then a 1025-D ``CorrelatedGaussian``
+    (beyond the wide layout's 1024) must be refused when ``sample()``
+    starts, naming ``device="cpu"``, before any iteration or launch.
+    Returns ``(result, launches by wrapper)``; the result's ``"phase"`` is
+    ``phase``."""
     from ptmcmcsampler_torch import PTSampler
     from ptmcmcsampler_torch.config import KIND_CHEES, KIND_HMC, KIND_NUTS
     from ptmcmcsampler_torch.diagnostics import moment_gate
@@ -2515,19 +2610,29 @@ def phase_wide_sampler(card, wrappers, name="hierarchical"):
         outdir = os.path.join(root, "chains")
         with contextlib.redirect_stdout(sys.stderr):
             s = make(model, outdir)
+            if register is not None:
+                register(s, model)
             t0 = time.time()
-            s.sample(np.zeros(d), WIDE_SAMPLER_ITERS, **WIDE_SAMPLER_KW)
+            s.sample(np.zeros(d), WIDE_SAMPLER_ITERS, **sample_kw)
             torch.cuda.synchronize()
             wall = time.time() - t0
         launches = counted_launches(s.block_stats, wrappers)
         iters = {kind: iterations(s, kind) for kind in (KIND_CHEES, KIND_NUTS, KIND_HMC)}
-        thin = WIDE_SAMPLER_KW["thin"]
+        thin = sample_kw["thin"]
         rows = 1 + WIDE_SAMPLER_ITERS // thin
         text = np.loadtxt(os.path.join(outdir, "chain_1.0.txt"), ndmin=2)
         sidecar = os.path.getsize(os.path.join(outdir, "chain_all_1.0.bin"))
         target, _ = model.posterior_moments()
         ok, max_z, ess = moment_gate(s.chains[:, 1000 // thin + 1:], target)
-        log(f"wide sampler {name}: route {s.route}, iterations {iters}, launches {launches}, "
+        names = s.config.jump_names()
+        with open(os.path.join(outdir, "jumps.txt")) as f:
+            jumps_rows = [line.split()[0] for line in f]
+        series = {len(np.loadtxt(os.path.join(outdir, f"{n}_jump.txt"), ndmin=1))
+                  for n in names}
+        counts = jump_counts(s.config, s.state)
+        protocols = {j.name: j.protocol for j in s._custom_jumps + s._aux_jumps}
+        graphs = s.block_stats.summary()
+        log(f"{phase} {name}: route {s.route}, jumps {counts}, launches {launches}, "
             f"{WIDE_SAMPLER_ITERS} iterations in {wall:.1f}s, gate ok {ok} max z {max_z:.3f}")
         checks = {
             "route": (s.route, "kernel"),
@@ -2540,15 +2645,15 @@ def phase_wide_sampler(card, wrappers, name="hierarchical"):
             "chain_all_1.0.bin bytes": (sidecar, rows * WIDE_SAMPLER_C * d * 4),
             "finite state": (bool(torch.isfinite(s.state.x).all()), True),
             "moment gate": (ok, True),
-            "ChEES, NUTS and HMC iterations > 0": (min(iters.values()) > 0, True),
+            "every jump ran": (all(c["proposed"] for c in counts.values()), True),
+            "the user's jumps torch-native": (set(protocols.values()) <= {"torch"}, True),
+            "host jump iterations": (graphs["eager"]["host jump"], 0),
+            "jumps.txt rows": (jumps_rows, list(names)),
+            "jump series": (series, {WIDE_SAMPLER_ITERS // sample_kw["isave"]}),
         }
         for what, (got, want) in checks.items():
             if got != want:
-                raise SystemExit(f"wide sampler: {what} is {got}, expected {want}")
-        acc = dict(zip(s.config.jump_names(), (
-            s.state.counters.jump_accepted[:, 0].sum(-1).double()
-            / s.state.counters.jump_proposed[:, 0].sum(-1).clamp(min=1).double()).tolist()))
-        graphs = s.block_stats.summary()
+                raise SystemExit(f"{phase}: {what} is {got}, expected {want}")
         del s
 
         for w in wrappers.values():
@@ -2561,19 +2666,19 @@ def phase_wide_sampler(card, wrappers, name="hierarchical"):
         except NotImplementedError as e:
             refusal = str(e)
         else:
-            raise SystemExit("wide sampler: the 1025-D model on the card was not refused")
-        log(f"wide sampler: 1025-D CorrelatedGaussian refused: {refusal}")
+            raise SystemExit(f"{phase}: the 1025-D model on the card was not refused")
+        log(f"{phase}: 1025-D CorrelatedGaussian refused: {refusal}")
         if ("got 1025" not in refusal or 'device="cpu"' not in refusal or s.state is not None
                 or any(w.launches for w in wrappers.values())):
-            raise SystemExit(f"wide sampler: the refusal is not the expected one: {refusal}")
+            raise SystemExit(f"{phase}: the refusal is not the expected one: {refusal}")
         card_name, power = [v.strip() for v in card.split(",", 1)]
         result = {
-            "phase": "wide_sampler", "model": "HierarchicalGaussian", "workload": name,
+            "phase": phase, "model": "HierarchicalGaussian", "workload": name,
             "ndim": d,
             "chains": [T, WIDE_SAMPLER_C], "iters": WIDE_SAMPLER_ITERS,
             "iters_per_sec": WIDE_SAMPLER_ITERS / wall, "wall_sec": wall,
-            "iterations_by_kind": iters, "launches": launches, "cold_acceptance": acc,
-            "moments_ok": ok, "moments_max_z": max_z, "ess_min_dim": float(ess.min()),
+            "iterations_by_kind": iters, "launches": launches, "jumps": counts,
+            "protocols": protocols, "moments_ok": ok, "moments_max_z": max_z, "ess_min_dim": float(ess.min()),
             "rows": int(text.shape[0]), "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
             "graphs": graphs,
             "refused_1025d": refusal, "card": card_name, "power_limit": power,
@@ -3442,6 +3547,132 @@ def large_check_line(card, label, model, builtin, err, seconds):
     }
 
 
+# ---- BASELINE config 4 on the card: the user's jumps beside the ChEES kernel ----
+
+# examples/hierarchical_gaussian.py's cycle (SCAM/AM/DE at 20 each, DE after
+# burn-in, a small-Gaussian custom jump at 5, the prior draw at 2) plus ChEES
+# at 20 and the auxiliary HierarchyReflection, on bench.py's 50-D hierarchy.
+CUSTOM_WEIGHTS = dict(SCAMweight=20, AMweight=20, DEweight=20, CHEESweight=20)
+CUSTOM_ITERS = {"custom_jumps": (3000, 12000)}
+CUSTOM_SAMPLER_KW = dict(burn=500, Tskip=5, isave=500, covUpdate=500, thin=10,
+                         NUTSweight=0, HMCweight=0, MALAweight=0, HMCstepsize=HMC_EPS,
+                         **CUSTOM_WEIGHTS)
+# The reference protocol's numpy jumps through PTSampler, at a small width.
+HOST_JUMPS_C, HOST_JUMPS_ITERS = 128, 300
+
+
+def custom_config(model, burn, cov_update=1000):
+    """Path 1's wide configuration with config 4's cycle and the user's jumps
+    (torch-native, so each runs inside the step's graphs)."""
+    from ptmcmcsampler_torch import SamplerConfig, build_default_jumps
+    from ptmcmcsampler_torch.config import KIND_CUSTOM, KIND_PRIOR, JumpSpec
+
+    d = model.ndim
+    return SamplerConfig(
+        ndim=d, ntemps=T, nchains=C, groups=(tuple(range(d)),),
+        jumps=build_default_jumps(burn=burn // 2, have_grads=True, **CUSTOM_WEIGHTS) + (
+            JumpSpec("SmallGauss", KIND_CUSTOM, 5, fn=small_gauss_jump),
+            JumpSpec("DrawFromPrior", KIND_PRIOR, 2, fn=model.draw_prior)),
+        aux_jumps=(JumpSpec("Reflect", KIND_CUSTOM, 1,
+                            fn=HierarchyReflection(model, torch.device(DEVICE))),),
+        tskip=5, cov_update=cov_update, burn=burn // 2, thin=1, de_size=2000,
+        hmc_stepsize=HMC_EPS,
+    )
+
+
+def phase_custom_jumps(card):
+    """9d. BASELINE config 4 with ChEES on bench.py's 50-D hierarchy at 8 x
+    16384 through ``build_step``/``run_block``: first the graphs against the
+    eager step loop, bit for bit (as 3); then the path at CUSTOM_ITERS. The
+    custom jump, the prior draw and the auxiliary jump run inside the graphs
+    (no eager iteration but the warm-ups), ``chees_step`` launches once per
+    ChEES iteration, the gate passes. Prints the path's line (``"phase":
+    "custom_jumps"``); returns the ChEES launches."""
+    from ptmcmcsampler_torch.config import KIND_CHEES
+    from ptmcmcsampler_torch.ops.chees import chees_step, chees_trajectories
+
+    model, x0 = wide_workload("hierarchical")
+    d = model.ndim
+    cut = custom_config(model, 2 * GRAPHS_BURN, cov_update=GRAPHS_COV_UPDATE)
+    graphs = phase_graphs(model, card, "custom_jumps", cut, {KIND_CHEES: chees_step}, x0)
+    torch.cuda.empty_cache()
+    block, burn, timed, cuts, stride = wide_counts("custom_jumps", d, CUSTOM_ITERS)
+    cfg = custom_config(model, burn)
+    state, (step, run_block), result, ok = phase_main_path(
+        model, card, "custom_jumps", cfg, {KIND_CHEES: chees_step},
+        absent=(chees_trajectories,), x0=x0, burn=burn, timed=timed, block=block,
+        stride=stride, compare_iters=20)
+    eager = result["graphs"]["eager"]
+    counts = result["jumps"]
+    launches = result["launches"][KIND_CHEES]
+    result.update(
+        phase="custom_jumps", workload="hierarchical", block=block, burn_iters=burn,
+        timed_iters=timed, gate_stride=stride, cuts=cuts,
+        aux_jumps=[j.name for j in cfg.aux_jumps], chees_launches=launches,
+        chees_iterations=result["iterations_by_kind"][KIND_CHEES],
+        prior_draw_acceptance=counts["DrawFromPrior"]["rate"],
+        graphs_bitwise_equal=graphs["bitwise_equal"],
+    )
+    del state, step, run_block
+    torch.cuda.empty_cache()
+    print_result(result, ok)
+    if eager["host jump"] or eager["no capture"] or not all(
+            c["proposed"] for c in counts.values()):
+        raise SystemExit(f"custom_jumps: eager iterations {eager}, jumps {counts}")
+    return launches
+
+
+def register_config4(s, model):
+    """Config 4's user jumps, torch-native, on the ``PTSampler`` ``s``."""
+    s.addProposalToCycle(small_gauss_jump, 5, name="SmallGauss")
+    s.addPriorDrawToCycle(model.draw_prior, 2)
+    s.addAuxilaryJump(HierarchyReflection(model, torch.device(DEVICE)), name="Reflect")
+
+
+def phase_host_jumps():
+    """The reference protocol's numpy custom jump and numpy prior draw
+    through ``PTSampler`` on the 50-D hierarchy at 8 x HOST_JUMPS_C chains,
+    HOST_JUMPS_ITERS iterations: exactly their own iterations run eagerly
+    ("host jump"), every other key replays. Returns the run's numbers."""
+    from ptmcmcsampler_torch import PTSampler
+
+    model = wide_workload("hierarchical")[0]
+    d = model.ndim
+    root = tempfile.mkdtemp(prefix="chip_smoke_host_jumps_")
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            s = PTSampler(d, model.lnlikefn, model.lnpriorfn, np.eye(d),
+                          logl_grad=model.lnlikefn_grad, logp_grad=model.lnpriorfn_grad,
+                          ntemps=T, nchains=HOST_JUMPS_C, outDir=root, seed=7)
+            s.addProposalToCycle(numpy_small_gauss_jump, 5, name="SmallGauss")
+            s.addPriorDrawToCycle(numpy_draw_prior(model), 2)
+            t0 = time.time()
+            s.sample(np.zeros(d), HOST_JUMPS_ITERS, **dict(CUSTOM_SAMPLER_KW, burn=100,
+                                                          isave=100, covUpdate=100))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        graphs = s.block_stats.summary()
+        names = s.config.jump_names()
+        prop = s.state.counters.jump_proposed[:, 0, 0].tolist()
+        own = prop[names.index("SmallGauss")] + prop[names.index("DrawFromPrior")]
+        result = {
+            "chains": [T, HOST_JUMPS_C], "iters": HOST_JUMPS_ITERS,
+            "iters_per_sec": HOST_JUMPS_ITERS / wall,
+            "protocols": {j.name: j.protocol for j in s._custom_jumps},
+            "host_jump_iterations": own, "jumps": jump_counts(s.config, s.state),
+            "graphs": graphs,
+        }
+        log(f"host protocol: {result}")
+        if (result["protocols"] != {"SmallGauss": "host", "DrawFromPrior": "host"}
+                or graphs["eager"]["host jump"] != own or not own
+                or not graphs["replays"] or not torch.isfinite(s.state.x).all()):
+            raise SystemExit(f"custom_sampler: the host protocol's run is not as expected: "
+                             f"{result}")
+        return result
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3596,6 +3827,18 @@ def main():
         for item in items:
             if item["workload"] == LARGE_SAMPLER:
                 item["launches_by_path"]["sampler"] = large_sampler_launches[wrapper]
+
+    # BASELINE config 4: the user's jumps in the graphs beside the ChEES
+    # kernel, through run_block and PTSampler.
+    custom_launches = {"custom_jumps": phase_custom_jumps(card)}
+    result, launches = phase_wide_sampler(card, wrappers, register=register_config4,
+                                          sample_kw=CUSTOM_SAMPLER_KW, phase="custom_sampler")
+    result["host_protocol"] = phase_host_jumps()
+    print(json.dumps(result), flush=True)
+    custom_launches["custom_sampler"] = launches["chees_step"]
+    for item in wide:
+        if item["workload"] == "hierarchical":
+            item["launches_by_path"].update(custom_launches)
     kernels[0]["wide"] = wide
     kernels[1]["wide"] = list(wide_nuts)
     kernels[2]["wide"] = list(wide_hmc)

@@ -4,9 +4,10 @@ Everything here is host-side and constant for one sampler: shapes, cadences,
 the jump-cycle layout and the parameter groups. The dynamic quantities live
 in :mod:`ptmcmcsampler_torch.state`. All state is float32.
 
-The port covers the shared-select cycle of SCAM/AM/DE and the gradient
-jumps ChEES, NUTS, HMC and MALA, the hottest-first sweep swap and the
-blocked DE pair law. ``__post_init__`` raises on every setting the port does
+The port covers the shared-select cycle of SCAM/AM/DE, the gradient
+jumps ChEES, NUTS, HMC and MALA, the user's custom, prior-draw and
+auxiliary jumps, the hottest-first sweep swap and the blocked DE pair law.
+``__post_init__`` raises on every setting the port does
 not run yet, naming the ROADMAP item that will add it, so nothing silently
 takes another path. The JAX package's TPU dispatch knobs (``use_pallas``,
 ``nuts_impl``, ``pallas_nuts_block_n``, ``nuts_pass1_depth``) choose among
@@ -16,7 +17,7 @@ TPU code paths with the same results and have no counterpart here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 
@@ -30,7 +31,13 @@ KIND_CHEES = "chees"
 KIND_CUSTOM = "custom"
 KIND_PRIOR = "prior_draw"
 
-PORTED_KINDS = (KIND_SCAM, KIND_AM, KIND_DE, KIND_CHEES, KIND_NUTS, KIND_HMC, KIND_MALA)
+PORTED_KINDS = (KIND_SCAM, KIND_AM, KIND_DE, KIND_CHEES, KIND_NUTS, KIND_HMC, KIND_MALA,
+                KIND_CUSTOM, KIND_PRIOR)
+
+#: How a custom, prior-draw or auxiliary jump's callable runs: "torch", batched
+#: over the chains by ``torch.func.vmap`` on the device (inside the step's CUDA
+#: graphs on the card), or "host", one numpy call a chain (eagerly).
+PROTOCOLS = ("torch", "host")
 
 #: Deepest NUTS tree the CUDA tree kernel builds (2**10 - 1 = 1023 leaves),
 #: as the JAX package's fused tree kernel.
@@ -43,14 +50,18 @@ class JumpSpec:
 
     A proposal with weight ``w`` is drawn with probability ``w / sum(weights)``
     among the active proposals; ``activate_after`` delays activation until a
-    given iteration (the DE jump enters after burn-in). The custom-jump
-    fields of the JAX package come with the custom jumps (ROADMAP A11).
+    given iteration (the DE jump enters after burn-in). A custom, prior-draw
+    or auxiliary jump carries the user's callable ``fn`` and its
+    ``protocol`` (:data:`PROTOCOLS`; ``proposals/custom.py`` has the
+    signatures).
     """
 
     name: str
     kind: str
     weight: float
     activate_after: int = 0
+    fn: Optional[Callable] = None
+    protocol: str = "torch"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,8 +132,6 @@ class SamplerConfig:
             raise ValueError(f"unknown adapt_from {self.adapt_from!r}")
         if self.adapt_ladder:
             raise NotImplementedError("adapt_ladder is not ported yet (ROADMAP A11)")
-        if self.aux_jumps:
-            raise NotImplementedError("auxiliary jumps are not ported yet (ROADMAP A11)")
         if self.nuts_max_depth > NUTS_MAX_KERNEL_DEPTH:
             raise NotImplementedError(
                 f"nuts_max_depth={self.nuts_max_depth} > {NUTS_MAX_KERNEL_DEPTH} "
@@ -135,12 +144,13 @@ class SamplerConfig:
         if self.nuts_trajectory:
             raise NotImplementedError("NUTS trajectory capture is not ported yet (ROADMAP A11)")
         for j in self.jumps:
-            if j.kind in (KIND_CUSTOM, KIND_PRIOR):
-                raise NotImplementedError(
-                    f"jump kind {j.kind!r} ({j.name}) is not ported yet (ROADMAP A11)"
-                )
             if j.kind not in PORTED_KINDS:
                 raise ValueError(f"unknown jump kind {j.kind!r}")
+        for j in self.jumps + self.aux_jumps:
+            user = j.kind in (KIND_CUSTOM, KIND_PRIOR)
+            if user and (j.fn is None or j.protocol not in PROTOCOLS):
+                raise ValueError(f"jump {j.name!r} needs a callable and a protocol in "
+                                 f"{PROTOCOLS}")
 
     @property
     def njumps(self):

@@ -20,7 +20,12 @@ first iteration runs eagerly on a side stream (PyTorch's warm-up rule, which
 also builds any kernel library outside a capture); its next use captures the
 graph, and every later one replays it. The factor refresh and the thinned
 rows run eagerly between replays. On the CPU, and for models whose callables
-run on the host, ``run_block`` runs the same body eagerly.
+run on the host, ``run_block`` runs the same body eagerly; so do the
+iterations of a user's jump that runs on the host (a numpy custom jump or
+prior draw: its own iterations; a numpy auxiliary jump: every iteration),
+while every other key keeps its graph. The user's custom and auxiliary jumps
+read the iteration number from a 0-d tensor on the device that the runner
+writes before each iteration, outside the graphs.
 """
 
 from __future__ import annotations
@@ -32,9 +37,10 @@ from typing import NamedTuple
 import torch
 
 from . import adaptation, swaps, utils
-from .config import KIND_CHEES, KIND_DE, KIND_NUTS, SamplerConfig
+from .config import KIND_CHEES, KIND_CUSTOM, KIND_DE, KIND_NUTS, SamplerConfig
 from .ops import chees as ops_chees, hmc as ops_hmc, nuts as ops_nuts, user
 from .proposals.base import ProposalContext
+from .proposals.custom import make_aux_chain
 from .proposals.cycle import build_jump_branches, draw_kinds
 from .state import SS_FIELDS, SamplerState, copy_into, map_state
 
@@ -52,7 +58,7 @@ class BlockOutput(NamedTuple):
     swaps_proposed: torch.Tensor  # [rows, T]
 
 
-def make_context(state: SamplerState) -> ProposalContext:
+def make_context(state: SamplerState, iteration=None) -> ProposalContext:
     return ProposalContext(
         group_u=state.adapt.group_u,
         group_s=state.adapt.group_s,
@@ -61,6 +67,7 @@ def make_context(state: SamplerState) -> ProposalContext:
         structure=state.adapt.structure,
         de_buf=state.de.buf,
         de_valid=adaptation.de_valid_rows(state.de),
+        iteration=iteration,
     )
 
 
@@ -190,7 +197,9 @@ class BlockStats:
         self.capture_sec = 0.0
         self.captured_calls = {}  # wrapper -> calls made under capture
         self.replays = {}  # graph key -> replays
-        self.eager = {"warm-up": 0, "no capture": 0}  # eager iterations by reason
+        # Eager iterations by reason: a key's first use, no graphs (the CPU,
+        # a model on the host), a user's jump on the host.
+        self.eager = {"warm-up": 0, "no capture": 0, "host jump": 0}
         self.refreshes = 0  # factor refreshes, run eagerly after their iteration
 
     @property
@@ -235,10 +244,29 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
         user.prepare(model, device)
     t, c = config.ntemps, config.nchains
     branches = build_jump_branches(config, model, device)
+    aux_chain = make_aux_chain(config)
+    # The iteration number on the device (ctx.iteration) where a user's
+    # custom or auxiliary jump reads it: written before every iteration,
+    # outside the graphs, so that a replay reads the true one.
+    iteration = None
+    if config.aux_jumps or any(j.kind == KIND_CUSTOM for j in config.jumps):
+        iteration = torch.zeros((), dtype=torch.int64, device=device)
+    # The jumps that run on the host (their iterations run eagerly; all of
+    # them for an auxiliary jump on the host).
+    host_kinds = {i for i, j in enumerate(config.jumps) if j.protocol == "host"}
+    if any(j.protocol == "host" for j in config.aux_jumps):
+        host_kinds = set(range(config.njumps))
+
+    def set_iteration(it):
+        if iteration is not None:
+            iteration.fill_(it)
 
     def mh_step(state: SamplerState, it, kind):
         ss = {f: getattr(state.stepsize, f) for f in SS_FIELDS}
-        q, qxy, new_ss = branches[kind](state.rng, state.x, state.betas, it, make_context(state), ss)
+        ctx = make_context(state, iteration)
+        q, qxy, new_ss = branches[kind](state.rng, state.x, state.betas, it, ctx, ss)
+        if aux_chain is not None:
+            q, qxy = aux_chain(state.rng, state.x, q, qxy, state.betas, it, ctx)
 
         # Prior first; the likelihood is evaluated on a prior-feasible
         # surrogate so -inf-prior proposals never feed it NaNs.
@@ -308,6 +336,7 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
         it = state.it + 1
         if kind is None:
             kind = draw_kinds(config, state.it, 1, state.host_rng)[0]
+        set_iteration(it)
         return refresh(config, advance(state, it, kind), it)
 
     stats = BlockStats()
@@ -325,10 +354,12 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
         try:
             graph = held["card"].capture(lambda: body(static, it, kind), static)
         except RuntimeError as e:
+            aux = "".join(f", auxiliary jump {j.name}" for j in config.aux_jumps)
             raise RuntimeError(
-                f"run_block: capturing the {config.jumps[kind].name} step of model "
+                f"run_block: capturing the {config.jumps[kind].name} step{aux} of model "
                 f"{type(model).__name__} (iteration {it}, key {key}) failed: {e}. A step on "
-                "the card must not read the device from the host") from e
+                "the card must not read the device from the host (a user's jump that has "
+                "to is written as a numpy callable, which runs eagerly)") from e
         stats.capture_sec += time.perf_counter() - t0
         stats.captured += 1
         calls = {n: k - before[n] for n, k in _wrapper_calls().items() if k != before[n]}
@@ -341,7 +372,11 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
         """Iteration ``it``: replay its key's graph, or run it eagerly."""
         key = step_key(config, static, it, kind)
         filled = adaptation.de_filled_after(static.de, c)
-        if key in graphs or (on_card and key in warmed):
+        set_iteration(it)  # read by the graphs at their replay
+        if on_card and kind in host_kinds:
+            body(static, it, kind)
+            stats.eager["host jump"] += 1
+        elif key in graphs or (on_card and key in warmed):
             if key not in graphs:
                 graphs[key] = capture_graph(static, it, kind, key)
             graphs[key].replay()

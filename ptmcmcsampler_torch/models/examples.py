@@ -346,8 +346,8 @@ class HierarchicalGaussian(_Wide):
     Parameter vector x = (mu, theta_1..theta_ngroups); closed-form posterior
     moments. The prior is the hierarchical one, with its gradient. Each
     division by a sigma is a product with its f32 reciprocal, on the CPU and
-    the card alike. ``draw_prior`` of the JAX model feeds the prior-draw jump,
-    which is not ported (ROADMAP A11), and is left out.
+    the card alike. The prior is exactly samplable (:meth:`draw_prior`),
+    which is what the prior-draw jump needs.
     """
 
     cuda_functor = "hierarchical_gaussian"
@@ -415,6 +415,16 @@ class HierarchicalGaussian(_Wide):
     def cuda_params_len(self):
         """Length of ``_param_values``, which the kernel wrappers check."""
         return 3 + self.ngroups
+
+    def draw_prior(self, rng):
+        """Exact ancestral sample ``[D]`` from the hierarchical prior, drawn
+        with the generator ``rng`` on its device (the prior-draw jump's
+        torch-native ``draw(rng)``): ``mu = s_mu z0``, ``theta = mu + s_t z``,
+        each sigma the f32 value the reciprocals above invert."""
+        s_mu, s_t = (float(np.float32(s)) for s in (self.s_mu, self.s_t))
+        mu = s_mu * torch.randn((), generator=rng, device=rng.device)
+        th = mu + s_t * torch.randn((self.ngroups,), generator=rng, device=rng.device)
+        return torch.cat([mu[None], th])
 
     def posterior_moments(self):
         """Closed-form posterior mean and covariance of (mu, theta)."""

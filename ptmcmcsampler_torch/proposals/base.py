@@ -5,7 +5,8 @@ A proposal branch has the signature
     branch(rng, x[T, D, C], betas[T], it, ctx, ss) -> (q[T, D, C], qxy[T, C], ss)
 
 where ``rng`` is the state's device generator, ``it`` the host iteration
-number and ``ss`` the dict of step-size tensors. Each branch draws its
+number (``ctx.iteration`` holds it on the device where a user's jump reads
+it) and ``ss`` the dict of step-size tensors. Each branch draws its
 randomness with ``rng`` and hands it to a deterministic core, so tests can
 feed the JAX package's own draws to the core.
 """
@@ -31,6 +32,10 @@ class ProposalContext:
     # The factors' structure tag (state.AdaptState.structure); "dense", which
     # every factor satisfies, where a caller builds a context by hand.
     structure: str = "dense"
+    # The iteration number, a 0-d int64 tensor on the device, for the user's
+    # custom and auxiliary jumps (written before every iteration, so a CUDA
+    # graph replays with the true one); None where no such jump reads it.
+    iteration: torch.Tensor = None
 
 
 def safe_temperature(beta):

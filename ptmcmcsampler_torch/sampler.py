@@ -37,14 +37,20 @@ On the card the other two routes replay CUDA graphs of the step
 (``kernel.run_block``). ``sample()`` dispatches block k+1 before it drains
 block k, as the JAX package does, unless ``neff`` is given.
 
+The user's jumps (``addProposalToCycle``, ``addPriorDrawToCycle``,
+``addAuxilaryJump``; protocols in ``proposals/custom.py``) change no route:
+torch callables that ``torch.func.vmap`` batches run on the device, inside
+the graphs on the card, beside the kernels; numpy ones run on the host, and
+``run_block`` runs their iterations eagerly (every iteration, for an
+auxiliary jump), the other iterations replaying their graphs.
+
 Gradient jumps need both ``logl_grad`` and ``logp_grad``; without them they
 are dropped, as in the JAX package.
 
 The JAX package's TPU dispatch keywords (``rng_impl``, ``use_pallas``,
 ``nuts_impl``, ``nuts_pass1_depth``, ``per_chain_mode``) are accepted and
 ignored. Not ported yet, and refused naming the ROADMAP item: ``mesh=`` and
-multi-process runs (A12); custom, auxiliary and prior-draw jumps and
-``trajectoryDir`` (A11).
+multi-process runs (A12); ``trajectoryDir`` and ``adaptLadder`` (A11).
 """
 
 from __future__ import annotations
@@ -59,12 +65,14 @@ import numpy as np
 import torch
 
 from . import diagnostics, utils
-from .config import KIND_CHEES, KIND_HMC, KIND_NUTS, SamplerConfig, build_default_jumps
+from .config import (KIND_CHEES, KIND_CUSTOM, KIND_HMC, KIND_NUTS, KIND_PRIOR, JumpSpec,
+                     SamplerConfig, build_default_jumps)
 from .io.chainfile import ChainWriter
 from .io.checkpoint import load_checkpoint, save_checkpoint
 from .kernel import BlockOutput, build_step
 from .ladder import ladder_betas, temperature_ladder
 from .ops import common, user
+from .proposals import custom
 from .state import clone_generator, init_state, map_state
 
 _FUNCTOR_METHODS = ("lnlikefn", "lnpriorfn", "lnlikefn_grad", "lnpriorfn_grad")
@@ -77,8 +85,9 @@ def card_refusal(device_type, functor, jumps, ndim):
     type ``device_type``, or None if it can. On the card each jump of a
     kernel kind (ChEES, HMC, NUTS) launches its kernel or raises, so a kind
     whose kernel has no entry for the functor at that D is refused before
-    any iteration runs. MALA is plain PyTorch; the CPU runs every kernel's
-    plain version."""
+    any iteration runs. MALA and the user's custom and prior-draw jumps are
+    plain PyTorch (or numpy on the host); the CPU runs every kernel's plain
+    version."""
     if device_type != "cuda":
         return None
     for jump in jumps:
@@ -166,6 +175,16 @@ class _BatchedModel:
         beta = torch.as_tensor(beta, device=x.device)
         beta_d = beta.unsqueeze(-2) if beta.dim() else beta
         return beta * ll + lp, beta_d * gll + glp
+
+
+def _nparams(func):
+    """The number of parameters of ``func``'s signature, 0 if it has none
+    to read (the protocols tell the torch-native jumps by it, as the JAX
+    package does)."""
+    try:
+        return len(inspect.signature(func).parameters)
+    except (TypeError, ValueError):
+        return 0
 
 
 def _functor_model(callables, extra_args):
@@ -317,6 +336,8 @@ class PTSampler:
         # The checkpoint's JAX key leaf; it does not stand for the torch streams.
         self._key_words = np.random.SeedSequence(int(seed)).generate_state(2)
 
+        self._custom_jumps = []
+        self._aux_jumps = []
         self.state = None
         self.block_stats = None
         self.ladder = None
@@ -367,14 +388,76 @@ class PTSampler:
             "for batched sampling." % (what, self.ntemps * self.nchains)
         )
 
+    def _protocol(self, batched, what):
+        """``"torch"`` if ``batched`` (a ``proposals/custom.py`` batch of the
+        user's callable) runs on the device, else ``"host"``, with the
+        warning."""
+        if custom.probe(batched, self.ndim, self.device):
+            return "torch"
+        self._warn_host_callback(what)
+        return "host"
+
     def addProposalToCycle(self, func, weight, name=None):  # noqa: N802 (reference casing)
-        raise NotImplementedError("custom jumps are not ported yet (ROADMAP A11)")
+        """Register a custom jump (reference PTMCMCSampler.py:988-1014).
+
+        Protocols (``proposals/custom.py``):
+          * torch-native: ``func(rng, x, it, beta) -> (q, log_qxy)``, ``rng``
+            the sampler's device generator and ``it`` a 0-d device tensor;
+          * reference: ``func(x, it, beta) -> (q, log_qxy)``, batched on the
+            device if ``torch.func.vmap`` batches it, else run on the host
+            (numpy, float64, one call a chain).
+        """
+        if weight == 0:
+            return
+        name = name or getattr(func, "__name__", f"custom{len(self._custom_jumps)}")
+        if _nparams(func) >= 4:
+            fn, protocol = func, "torch"
+        else:
+            def fn(rng, x, it, beta, _f=func):
+                return _f(x, it, beta)
+
+            protocol = self._protocol(custom.batch_jump(fn), f"custom jump {name!r}")
+            if protocol == "host":
+                fn = func
+        self._custom_jumps.append(JumpSpec(name, KIND_CUSTOM, weight, fn=fn, protocol=protocol))
 
     def addPriorDrawToCycle(self, draw, weight, name="DrawFromPrior"):  # noqa: N802
-        raise NotImplementedError("prior-draw jumps are not ported yet (ROADMAP A11)")
+        """Register a prior-draw (independence) jump: propose ``q ~ prior``.
+
+        ``draw`` is torch-native ``draw(rng) -> q[ndim]`` (``rng`` the
+        sampler's device generator) or a numpy ``draw(np_rng) -> q[ndim]``
+        taking a ``numpy.random.Generator`` (run on the host). The Hastings
+        correction ``logp(x) - logp(q)`` assumes ``draw`` samples the
+        density of the sampler's ``logp`` (up to a constant). BASELINE.json
+        config 4; the reference has no built-in.
+        """
+        if weight == 0:
+            return
+        batched = custom.batch_draw(draw)
+        protocol = self._protocol(lambda rng, x, betas, it: batched(rng, x),
+                                  f"prior draw {name!r}")
+        self._custom_jumps.append(JumpSpec(name, KIND_PRIOR, weight, fn=draw,
+                                           protocol=protocol))
 
     def addAuxilaryJump(self, func, name=None):  # noqa: N802
-        raise NotImplementedError("auxiliary jumps are not ported yet (ROADMAP A11)")
+        """Register an auxiliary jump applied after every proposal (reference
+        PTMCMCSampler.py:1017-1028). Protocols: torch-native ``func(rng, x,
+        q, it, beta) -> (q, log_qxy)``, or the reference's ``func(x, q, it,
+        beta)`` (batched on the device if ``vmap`` batches it, else on the
+        host, which makes every iteration eager)."""
+        name = name or getattr(func, "__name__", f"aux{len(self._aux_jumps)}")
+        if _nparams(func) >= 5:
+            fn, protocol = func, "torch"
+        else:
+            def fn(rng, x, q, it, beta, _f=func):
+                return _f(x, q, it, beta)
+
+            batched = custom.batch_aux(fn)
+            protocol = self._protocol(lambda rng, x, betas, it: batched(rng, x, x, betas, it),
+                                      f"auxiliary jump {name!r}")
+            if protocol == "host":
+                fn = func
+        self._aux_jumps.append(JumpSpec(name, KIND_CUSTOM, 1, fn=fn, protocol=protocol))
 
     def randomizeProposalCycle(self):  # noqa: N802 (reference casing)
         """Drop-in no-op (reference PTMCMCSampler.py:1031-1045): the
@@ -397,13 +480,14 @@ class PTSampler:
             CHEESweight=weights.get("CHEES", 0) if have_grads else 0,
             burn=burn,
             have_grads=have_grads,
-        )
+        ) + tuple(self._custom_jumps)
         return SamplerConfig(
             ndim=self.ndim,
             ntemps=self.ntemps,
             nchains=self.nchains,
             groups=self.groups,
             jumps=jumps,
+            aux_jumps=tuple(self._aux_jumps),
             tskip=tskip,
             cov_update=cov_update,
             burn=burn,

@@ -1071,3 +1071,132 @@ def test_a_step_that_reads_the_host_raises_at_capture(cuda):
                                            r"_HostReadingLikelihood"):
         run_block(_small_state(cfg, model, cuda), 40)
     torch.cuda.synchronize()
+
+
+# ---- The user's custom, prior-draw and auxiliary jumps in the graphs ----
+
+def _it_gauss_jump(rng, x, it, beta):
+    """A symmetric Gaussian step whose size follows the iteration."""
+    scale = 0.05 + 0.01 * (it % 7).to(x.dtype)
+    return x + scale * torch.randn(x.shape, generator=rng, device=x.device), x.new_zeros(())
+
+
+def _numpy_it_jump(x, it, beta):
+    return x + 0.01 * np.sin(it + np.arange(len(x))), 0.0
+
+
+def _custom_cycle(model, dev, custom):
+    """The 50-D hierarchy's path 1 (SCAM/AM/DE/ChEES) with a custom jump,
+    the prior draw and ``chip_smoke.HierarchyReflection`` as the auxiliary
+    jump (each reads ``it`` or draws with the generator)."""
+    from ptmcmcsampler_torch.config import KIND_CUSTOM, KIND_PRIOR, JumpSpec
+
+    base = _small_config()
+    return dataclasses.replace(
+        base, ndim=model.ndim, groups=(tuple(range(model.ndim)),),
+        jumps=base.jumps + (custom, JumpSpec("DrawFromPrior", KIND_PRIOR, 10,
+                                             fn=model.draw_prior)),
+        aux_jumps=(JumpSpec("Reflect", KIND_CUSTOM, 1,
+                            fn=chip_smoke.HierarchyReflection(model, dev)),))
+
+
+def _graphs_against_eager(cfg, model, dev, iters=80):
+    from ptmcmcsampler_torch.proposals.cycle import draw_kinds
+    from ptmcmcsampler_torch.state import state_tensors
+
+    step, run_block = build_step(cfg, model, device=dev)
+    eager, graph = _small_state(cfg, model, dev), _small_state(cfg, model, dev)
+    kinds = draw_kinds(cfg, 0, iters, eager.host_rng)
+    for kind in kinds:
+        eager = step(eager, kind)
+    chees_step.launches = 0
+    graph, _ = run_block(graph, iters, kinds=kinds)
+    torch.cuda.synchronize()
+    te, tg = state_tensors(eager), state_tensors(graph)
+    for path in te:
+        assert torch.equal(_bits(te[path]), _bits(tg[path])), path
+    assert torch.equal(eager.rng.get_state(), graph.rng.get_state())
+    stats = run_block.stats
+    assert _launches(stats, chees_step) == _iterations(cfg, graph, KIND_CHEES) > 0
+    return graph, stats
+
+
+@pytest.mark.cuda
+def test_custom_jumps_in_graphs_equal_the_eager_step_loop(cuda):
+    """A torch-native custom jump that reads ``it``, the prior draw and an
+    auxiliary jump that reads ``it``, captured in the step's graphs beside
+    the ChEES kernel, equal the eager step loop bit for bit: each replay
+    sees the true iteration and draws at the eager loop's offsets."""
+    from ptmcmcsampler_torch.config import KIND_CUSTOM, JumpSpec
+
+    model = HierarchicalGaussian()
+    cfg = _custom_cycle(model, cuda, JumpSpec("ItGauss", KIND_CUSTOM, 10, fn=_it_gauss_jump))
+    graph, stats = _graphs_against_eager(cfg, model, cuda)
+    names = cfg.jump_names()
+    replayed = {key[0] for key in stats.replays}
+    assert {names.index("ItGauss"), names.index("DrawFromPrior")} <= replayed
+    assert stats.eager["host jump"] == 0
+    assert stats.captured == len(stats.recorded) > 0
+
+
+@pytest.mark.cuda
+def test_numpy_jump_runs_eagerly_only_on_its_own_iterations(cuda):
+    from ptmcmcsampler_torch.config import KIND_CUSTOM, JumpSpec
+
+    model = HierarchicalGaussian()
+    cfg = _custom_cycle(model, cuda, JumpSpec("NumpyJump", KIND_CUSTOM, 10, fn=_numpy_it_jump,
+                                              protocol="host"))
+    graph, stats = _graphs_against_eager(cfg, model, cuda)
+    own = cfg.jump_names().index("NumpyJump")
+    assert stats.eager["host jump"] == int(graph.counters.jump_proposed[own, 0, 0]) > 0
+    assert own not in {key[0] for key in stats.replays}
+    assert sum(stats.replays.values()) > 0
+
+
+@pytest.mark.cuda
+def test_a_custom_jump_that_reads_the_host_raises_at_capture(cuda):
+    """A torch-native jump that reads the device from the host runs in its
+    warm-up and raises at its capture, naming the jump: no silent eager
+    fallback."""
+    from ptmcmcsampler_torch.config import KIND_CUSTOM, JumpSpec
+
+    def host_reading_jump(rng, x, it, beta):
+        return x + 0.0 * float(it), x.new_zeros(())
+
+    model = HierarchicalGaussian()
+    cfg = _custom_cycle(model, cuda, JumpSpec("HostReading", KIND_CUSTOM, 10,
+                                              fn=host_reading_jump))
+    _, run_block = build_step(cfg, model, device=cuda)
+    with pytest.raises(RuntimeError, match=r"capturing the HostReading step, auxiliary "
+                                           r"jump Reflect of model HierarchicalGaussian"):
+        run_block(_small_state(cfg, model, cuda), 80)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_sampler_registers_user_jumps_on_the_card(cuda, tmp_path):
+    """``PTSampler`` on the card: the kernel route with a torch-native
+    custom jump, the prior draw and the auxiliary jump (protocol "torch",
+    replayed), and a numpy custom jump and prior draw (protocol "host")."""
+    from ptmcmcsampler_torch import PTSampler
+
+    model = HierarchicalGaussian()
+    s = PTSampler(model.ndim, model.lnlikefn, model.lnpriorfn, np.eye(model.ndim),
+                  logl_grad=model.lnlikefn_grad, logp_grad=model.lnpriorfn_grad, ntemps=2,
+                  nchains=64, seed=3, outDir=str(tmp_path), verbose=False)
+    s.addProposalToCycle(chip_smoke.small_gauss_jump, 5, name="SmallGauss")
+    s.addPriorDrawToCycle(model.draw_prior, 2)
+    s.addAuxilaryJump(chip_smoke.HierarchyReflection(model, cuda), name="Reflect")
+    s.addProposalToCycle(chip_smoke.numpy_small_gauss_jump, 5, name="NumpyGauss")
+    s.addPriorDrawToCycle(chip_smoke.numpy_draw_prior(model), 2, name="NumpyPrior")
+    assert [(j.name, j.protocol) for j in s._custom_jumps + s._aux_jumps] == [
+        ("SmallGauss", "torch"), ("DrawFromPrior", "torch"), ("NumpyGauss", "host"),
+        ("NumpyPrior", "host"), ("Reflect", "torch")]
+    _zero_launches()
+    s.sample(np.zeros(model.ndim), 200, **dict(_SAMPLE, NUTSweight=0, HMCweight=0))
+    assert s.route == "kernel" and torch.isfinite(s.state.x).all()
+    names = s.config.jump_names()
+    prop = s.state.counters.jump_proposed[:, 0, 0].tolist()
+    host = prop[names.index("NumpyGauss")] + prop[names.index("NumpyPrior")]
+    assert s.block_stats.eager["host jump"] == host > 0
+    assert _launches(s.block_stats, chees_step) == _iterations(s.config, s.state, KIND_CHEES)

@@ -1,9 +1,10 @@
 """The port's ``PTSampler`` on the CPU: against the JAX package's on the same
-configuration, the user-callable routes and refusals, JAX checkpoints
-loaded and continued by the port, and mirrors of the JAX package's
-``tests/test_sampler_e2e.py`` (all but its custom-jump and Pallas-reshape
-tests) and ``tests/test_resume_progress.py``, and of the chain-file resume
-tests of ``tests/test_resume_fixes.py``.
+configuration, the user-callable routes and refusals, what the user-jump
+methods register, JAX checkpoints loaded and continued by the port, and
+mirrors of the JAX package's ``tests/test_sampler_e2e.py`` (all but its
+Pallas-reshape test; its custom-jump tests are mirrored in
+``tests/test_torch_custom_jumps.py``) and ``tests/test_resume_progress.py``,
+and of the chain-file resume tests of ``tests/test_resume_fixes.py``.
 
 The pair of runs (curved likelihood, 2 temperatures x 16 chains,
 SCAM/AM/DE/ChEES at 10/10/10/20, 1000 iterations) is held:
@@ -278,9 +279,6 @@ def test_without_grads_no_gradient_jump(tmp_path):
 
 @pytest.mark.parametrize("call, error, item", [
     ("mesh", NotImplementedError, "A12"),
-    ("addProposalToCycle", NotImplementedError, "A11"),
-    ("addAuxilaryJump", NotImplementedError, "A11"),
-    ("addPriorDrawToCycle", NotImplementedError, "A11"),
     ("trajectoryDir", NotImplementedError, "A11"),
     ("dtype", ValueError, "float32"),
     ("adaptLadder", NotImplementedError, "A11"),
@@ -295,12 +293,55 @@ def test_refusals_name_the_item(tmp_path, call, error, item):
             PTSampler(2, ll, lp, np.eye(2), dtype=np.float64, **kw)
         else:
             s = PTSampler(2, ll, lp, np.eye(2), **kw)
-            if call in ("trajectoryDir", "adaptLadder"):
-                arg = {"trajectoryDir": str(tmp_path / "t")} if call == "trajectoryDir" \
-                    else {"adaptLadder": True}
-                s.sample(P0, 10, burn=5, thin=1, isave=5, **arg)
-            else:
-                getattr(s, call)(lambda *a: None, 1)
+            arg = {"trajectoryDir": str(tmp_path / "t")} if call == "trajectoryDir" \
+                else {"adaptLadder": True}
+            s.sample(P0, 10, burn=5, thin=1, isave=5, **arg)
+
+
+# One callable of each user-jump method in each protocol: torch-native, or
+# numpy (run on the host). The reference's signatures without ``rng`` are
+# batched on the device when vmap batches them.
+_USER_JUMPS = {
+    ("addProposalToCycle", "torch"): lambda rng, x, it, beta: (
+        x + 0.1 * torch.randn(x.shape, generator=rng, device=x.device), 0.0),
+    ("addProposalToCycle", "host"): lambda x, it, beta: (
+        x + 0.1 * np.random.standard_normal(len(x)), 0.0),
+    ("addPriorDrawToCycle", "torch"): lambda rng: torch.rand(
+        2, generator=rng, device=rng.device) - 0.5,
+    ("addPriorDrawToCycle", "host"): lambda np_rng: np_rng.uniform(-0.5, 0.5, 2),
+    ("addAuxilaryJump", "torch"): lambda x, q, it, beta: (q.flip(0), 0.0),
+    ("addAuxilaryJump", "host"): lambda x, q, it, beta: (np.asarray(q)[::-1], 0.0),
+}
+
+
+@pytest.mark.parametrize("call, protocol", sorted(_USER_JUMPS))
+def test_user_jump_methods_register_their_jump(tmp_path, call, protocol):
+    """Each method registers one ``JumpSpec`` with the name, kind and
+    protocol its callable implies, in the JAX package's place (custom jumps
+    after the built-in ones, auxiliary jumps in ``aux_jumps``); the model's
+    route does not change."""
+    ll, lp, llg, lpg = _curved_callables("bound")
+    s = PTSampler(2, ll, lp, np.eye(2), logl_grad=llg, logp_grad=lpg, outDir=str(tmp_path),
+                  device="cpu", verbose=False)
+    fn = _USER_JUMPS[call, protocol]
+    if call == "addAuxilaryJump":
+        s.addAuxilaryJump(fn, name="Aux")
+    else:
+        getattr(s, call)(fn, 3, name="Mine")
+        getattr(s, call)(fn, 0, name="Dropped")  # weight 0: not registered
+    weights = dict(SCAM=10, AM=10, DE=10, NUTS=0, MALA=0, HMC=0, CHEES=20)
+    cfg = s._build_config(weights, 100, 5, 100, 1, {})
+    if call == "addAuxilaryJump":
+        (spec,) = cfg.aux_jumps
+        assert (spec.name, spec.kind) == ("Aux", "custom")
+        assert len(cfg.jumps) == 4
+    else:
+        assert cfg.jump_names()[4:] == ("Mine",)
+        spec = cfg.jumps[4]
+        assert (spec.kind, spec.weight) == (
+            "custom" if call == "addProposalToCycle" else "prior_draw", 3)
+    assert spec.protocol == protocol
+    assert s.route == "kernel"
 
 
 def test_defaults_to_the_card(tmp_path):
