@@ -253,6 +253,36 @@ Phases, in order; any failure exits non-zero:
    chains, 300 iterations: exactly their own iterations run eagerly
    ("host jump"), the other keys replay. One line ``"phase":
    "custom_sampler"``.
+9f. BASELINE config 5 on one card (DEO swaps, the adaptive ladder): path
+   1's cycle on bench.py's 50-D hierarchy on LADDER_T x LADDER_C = 64 x
+   2048 chains (path 1's 131072), the default geometric ladder, DEO swaps
+   and the adaptive ladder at PTSampler's defaults over the first half of
+   the burn-in. First the graphs check of 3 on it (``"path":
+   "tall_ladder"``, the ladder's burn at LADDER_GRAPHS_BURN of the 300
+   iterations): bit for bit, and both DEO parities, with and without the
+   ladder's update, captured. Then the path as 7 at LADDER_ITERS (3000 +
+   12000, bench.py's block cap and ESS stride): the gate on the cold
+   chains, ``chees_step`` once per ChEES iteration, no eager iteration but
+   the warm-ups; the ladder must move in its burn, stay strictly
+   descending, keep both ends and not move after its burn; each pair's
+   acceptance over the burn-in and over the timed iterations, the betas
+   before and after. Then the same with the hottest-first sweep, cut to
+   1000 + 3000 (``"path": "tall_ladder_sweep"``, its cut listed), with what
+   the 63-pair sweep adds to a swap event beside DEO.
+9g. The DE pair laws (``"phase": "de_pairs"``): "iid" on path 1's curved
+   workload at 8 x 16384 and "rolled" on the 50-D hierarchy (not on the
+   curved target: it synchronises mode jumps there), each at 3000 + 12000
+   through the graphs as 3 and 7, the gate enforced, DE's cold acceptance
+   beside the blocked law's from path 1's line on the same workload.
+9h. ``PTSampler`` on the 50-D hierarchy at 64 x 256 with ``swap_mode=
+   "deo"`` and ``sample(adaptLadder=True, hotChain=True)``: 2000
+   iterations, a resume to 3000 and an unbroken run of 3000 from the same
+   seed. The checkpoint's betas are the first run's, the ladder moves
+   before and after the resume (it adapts to iteration 2500) and keeps its
+   cold end and the beta = 0 hot chain, the resumed run's betas and files
+   equal the unbroken run's byte for byte, ``chees_step`` once per ChEES
+   iteration in each run; the gate past iteration 1000 is printed. One
+   line ``"phase": "ladder_sampler"``.
 10. Kernels line: each kernel's launches on its path, error against the
    plain version, device time (CUDA events, stream held, inputs from its
    path's final state), the time of a wrapper call, the plain version's time
@@ -272,8 +302,9 @@ Phases, in order; any failure exits non-zero:
    outside the prior box so it runs its drawn length, over the whole batch
    and over one warp's chains, in microseconds a step. The ChEES entry's
    ``launches_by_path`` adds its launches in the sampler phase (and the
-   hierarchical item's, in 9d and 9e: ``custom_jumps``,
-   ``custom_sampler``). Its
+   hierarchical item's, in 9d to 9h: ``custom_jumps``,
+   ``custom_sampler``, ``tall_ladder``, ``tall_ladder_sweep``,
+   ``de_rolled``, ``ladder_sampler``; the curved entry's ``de_iid``). Its
    ``wide`` list has one item a wide functor, with every key of a kernel
    entry: the path's factor structure tag (``factor_structure``; the
    identity's "diagonal" on bench.py's paths), the capped microseconds a
@@ -313,6 +344,7 @@ Phases, in order; any failure exits non-zero:
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import filecmp
 import json
 import os
@@ -1400,9 +1432,14 @@ def new_state(cfg, model, x0, dev, seed=7):
                       device=dev)
 
 
+# Each main path's cold-chain acceptance by jump, by path name (read by the
+# DE pair laws' lines, beside the blocked law's).
+COLD_ACCEPTANCE = {}
+
+
 def phase_main_path(model, card, path, cfg, wrappers, absent=(), x0=(-0.1, -0.5),
                     burn=BURN_ITERS, timed=TIMED_ITERS, block=BLOCK, stride=GATE_STRIDE,
-                    compare_iters=PROFILE_ITERS):
+                    compare_iters=PROFILE_ITERS, on_burned=None):
     """Run ``cfg`` at full width from ``x0``: ``burn`` then ``timed``
     iterations of ``run_block`` (its CUDA graphs) in blocks of ``block``,
     keeping every ``stride``-th cold chain of the timed ones on the card for
@@ -1414,7 +1451,8 @@ def phase_main_path(model, card, path, cfg, wrappers, absent=(), x0=(-0.1, -0.5)
     end finite, and its split R-hat is logged. Then the eager loop the graphs
     replaced against them on the path's final state, on the same jump kinds:
     a block of each (wall and peak memory; the graphs' pool beside it), then
-    ``compare_iters`` iterations of each under the profiler."""
+    ``compare_iters`` iterations of each under the profiler. ``on_burned``,
+    if given, is called with the state after the burn-in iterations."""
     from ptmcmcsampler_torch import build_step
     from ptmcmcsampler_torch.diagnostics import moment_gate, multichain_ess, split_rhat
     from ptmcmcsampler_torch.proposals.cycle import draw_kinds
@@ -1439,6 +1477,8 @@ def phase_main_path(model, card, path, cfg, wrappers, absent=(), x0=(-0.1, -0.5)
         torch.cuda.synchronize()
         if (b + 1) % every(burn // block) == 0:
             log(f"{path}: burn-in block {b + 1} at {time.time() - t0:.1f}s")
+    if on_burned is not None:
+        on_burned(state)
     cold = []
     before = (sum(stats.replays.values()), stats.iterations)
     t1 = time.time()
@@ -1505,6 +1545,7 @@ def phase_main_path(model, card, path, cfg, wrappers, absent=(), x0=(-0.1, -0.5)
     ctr = state.counters
     acc = (ctr.jump_accepted[:, 0].sum(-1).double()
            / ctr.jump_proposed[:, 0].sum(-1).clamp(min=1).double()).tolist()
+    COLD_ACCEPTANCE[path] = dict(zip(cfg.jump_names(), acc))
     name, power = [s.strip() for s in card.split(",", 1)]
     result = {
         "phase": "main_path",
@@ -1521,7 +1562,7 @@ def phase_main_path(model, card, path, cfg, wrappers, absent=(), x0=(-0.1, -0.5)
         "elapsed_sec": elapsed,
         "burn_sec": t1 - t0,
         "diagnostics_sec": diag_sec,
-        "cold_acceptance": dict(zip(cfg.jump_names(), acc)),
+        "cold_acceptance": COLD_ACCEPTANCE[path],
         "launches": launches,
         "iterations_by_kind": kind_iters,
         "jumps": jumps,
@@ -1654,17 +1695,19 @@ def _device_us(event):
 def phase_profile(state, advance, path, iters=PROFILE_ITERS, iterations="all"):
     """Device-busy share, device operations an iteration and the largest
     device times over ``iters`` more iterations of a path, run by
-    ``advance(state, iters)``, with the profiler on (which slows the host)."""
+    ``advance(state, iters)``, with the profiler on. It records the device's
+    activity only: the host's operator events would carry the same device
+    time again, slow the host further and take seconds a profile to
+    aggregate."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         state = advance(state, iters)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.time() - t0)
-    # Device-side events only (kernels, copies, fills): the CPU-side aten
-    # entries carry the same device time again.
+    # Device-side events (kernels, copies, fills).
     device = [
         e for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0
@@ -2317,8 +2360,9 @@ def phase_sampler(model, card, path1_iters_per_sec, wrappers):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def wide_counts(name, d, iters=None):
-    """``(block, burn, timed, cuts, stride)`` of a wide workload: bench.py's
+def wide_counts(name, d, iters=None, c=C):
+    """``(block, burn, timed, cuts, stride)`` of a wide workload at ``T x C``
+    chains or, with ``c``, as many on ``T * C / c`` rungs: bench.py's
     block cap (history ``[block, T, D, C]`` near 1.5 GB, bench.py:158-161;
     at least 50 iterations, as bench.py, up to 256-D, and 10 past it, where
     50 would hold up to 27 GB),
@@ -2336,7 +2380,7 @@ def wide_counts(name, d, iters=None):
             for what, bench, run in (("burn_iters", BURN_ITERS, burn),
                                      ("timed_iters", TIMED_ITERS, timed))
             if run < rounded(bench)}
-    stride = max(1, int(np.ceil(timed * d * C * 4 / 4e9)))
+    stride = max(1, int(np.ceil(timed * d * c * 4 / 4e9)))
     return block, burn, timed, cuts, stride
 
 
@@ -3673,6 +3717,333 @@ def phase_host_jumps():
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---- BASELINE config 5 on one card: DEO swaps, the adaptive ladder, the DE pair laws ----
+
+# bench.py's 50-D hierarchy on a 64-rung ladder (the default geometric one,
+# c = 1 + sqrt(2/50)) of 2048 chains a rung: path 1's 131072 chains.
+# Path 1's cycle and cadences, swap_mode="deo" and the adaptive ladder at
+# PTSampler's defaults (lag 10000, time 100) over the first half of the
+# burn-in, as ChEES adapts. LADDER_ITERS: (burn-in, timed) iterations of
+# these paths and of the DE pair laws' (9g), each cut from bench.py's 3000 +
+# 12000 to keep the script in its time limit (each line lists its cut): at
+# the full counts they took 31, 10, 7 and 16 s on an H100 (PERF.md §5).
+LADDER_T, LADDER_C = 64, 2048
+LADDER_ITERS = {"tall_ladder": (3000, 6000), "tall_ladder_sweep": (1000, 3000),
+                "de_iid": (3000, 6000), "de_rolled": (3000, 6000)}
+# The eager loop against the graphs on these paths' final states: 20
+# iterations of each under the profiler, as on the wide paths past 64-D.
+LADDER_COMPARE_ITERS = 20
+# The graphs check on the ladder: the ladder's burn at 150 of the 300
+# iterations, so both ladder keys and both DEO parities are captured.
+LADDER_GRAPHS_BURN = 150
+# PTSampler on the 64-rung ladder: 2000 iterations, then a resume to 3000,
+# against an unbroken run of 3000; the ladder adapts to iteration 2500, so
+# the resumed run continues the checkpoint's ladder.
+LADDER_SAMPLER_C, LADDER_SAMPLER_ITERS, LADDER_SAMPLER_RESUME = 256, 2000, 3000
+LADDER_SAMPLER_KW = dict(burn=2500, Tskip=5, isave=500, covUpdate=500, thin=10,
+                         SCAMweight=10, AMweight=10, DEweight=10, CHEESweight=20,
+                         NUTSweight=0, HMCweight=0, MALAweight=0, HMCstepsize=HMC_EPS,
+                         hotChain=True, adaptLadder=True)
+
+
+def ladder_config(d, burn, cov_update=1000, **ladder):
+    """Path 1's wide cycle (``wide_config``) on LADDER_T x LADDER_C chains
+    with the ladder's settings ``ladder`` (``swap_mode``, ``adapt_ladder``,
+    ``de_pair``)."""
+    return dataclasses.replace(wide_config(d, burn, cov_update), ntemps=LADDER_T,
+                               nchains=LADDER_C, **ladder)
+
+
+def swap_snapshot(state):
+    """The ladder and the swap counters, copied."""
+    ctr = state.counters
+    return {"betas": state.betas.clone(), "proposed": ctr.swaps_proposed.clone(),
+            "accepted": ctr.swaps_accepted.clone()}
+
+
+def pair_acceptance(a, b):
+    """Each pair's swap acceptance over the cold-to-hot chains between two
+    snapshots (``T - 1`` pairs)."""
+    prop = (b["proposed"] - a["proposed"]).double()
+    acc = (b["accepted"] - a["accepted"]).double().mean(1)
+    return (acc / prop.clamp(min=1))[:-1].tolist()
+
+
+def ladder_checks(label, b0, burned, final):
+    """The ladder moved in burn-in, stays strictly descending, keeps both
+    ends, and stayed as it was after its burn. Returns its numbers."""
+    moved = torch.log(burned / b0).abs()
+    fails = {
+        "moved": bool(torch.equal(burned, b0)),
+        "descending": not bool(torch.all(burned[1:] < burned[:-1])),
+        "ends kept": bool(burned[0] != b0[0] or burned[-1] != b0[-1]),
+        "fixed after its burn": not torch.equal(final, burned),
+    }
+    if any(fails.values()):
+        raise SystemExit(f"{label}: the ladder failed {[k for k, v in fails.items() if v]}: "
+                         f"from {b0.tolist()} to {burned.tolist()}, then {final.tolist()}")
+    return {"betas_initial": b0.tolist(), "betas_adapted": burned.tolist(),
+            "max_abs_log_beta_change": float(moved.max()),
+            "median_abs_log_beta_change": float(moved.median())}
+
+
+def swap_event_ms(state, reps=50):
+    """Device ms of one swap event on ``state``'s rows: DEO (parity 0) and
+    the hottest-first sweep on the same uniforms, each captured in a CUDA
+    graph as the step's graphs hold it and replayed (CUDA events, stream
+    held)."""
+    from ptmcmcsampler_torch import swaps
+
+    t, _, c = state.x.shape
+    gen = torch.Generator(device=state.x.device).manual_seed(0)
+    args = (torch.rand((t - 1, c), generator=gen, device=state.x.device), state.x,
+            state.lnlike, state.lnprior, state.betas)
+    out = {}
+    for name, fn in (("deo", lambda: swaps.deo_swap_apply(*args, 0)),
+                     ("sweep", lambda: swaps.sweep_swap_apply(*args))):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        out[name] = cuda_ms(graph.replay, reps, hold_stream=True)
+        del graph
+    return out
+
+
+def phase_tall_ladder(card):
+    """9f. BASELINE config 5 on one card (``"phase": "tall_ladder"``): path
+    1's cycle on bench.py's 50-D hierarchy at LADDER_T x LADDER_C chains
+    with DEO swaps and the adaptive ladder, LADDER_ITERS iterations through
+    ``run_block``'s graphs, as ``phase_main_path``: ``chees_step`` once per
+    ChEES iteration, the gate on the cold chains, MIN_REPLAYED_SHARE
+    replayed. The ladder must move in its burn, stay descending, keep both
+    ends, and not move after it; each pair's acceptance over the burn-in
+    and over the timed iterations. Then the same with the hottest-first
+    sweep, cut (``"path": "tall_ladder_sweep"``), beside DEO's rate, and one
+    swap event of each scheme on DEO's final state (``swap_event_ms``).
+    Returns the ChEES launches of both."""
+    from ptmcmcsampler_torch.config import KIND_CHEES
+    from ptmcmcsampler_torch.ladder import ladder_betas, temperature_ladder
+    from ptmcmcsampler_torch.ops.chees import chees_step, chees_trajectories
+
+    model, x0 = wide_workload("hierarchical")
+    d = model.ndim
+    launches, rates = {}, {}
+    for path, mode in (("tall_ladder", "deo"), ("tall_ladder_sweep", "sweep")):
+        block, burn, timed, cuts, stride = wide_counts(path, d, LADDER_ITERS, c=LADDER_C)
+        cfg = ladder_config(d, burn, swap_mode=mode, adapt_ladder=True)
+        snaps = {}
+        state, (step, run_block), result, ok = phase_main_path(
+            model, card, path, cfg, {KIND_CHEES: chees_step}, absent=(chees_trajectories,),
+            x0=x0, burn=burn, timed=timed, block=block, stride=stride,
+            compare_iters=LADDER_COMPARE_ITERS,
+            on_burned=lambda st: snaps.update(burned=swap_snapshot(st)))
+        b0 = torch.tensor(ladder_betas(temperature_ladder(d, LADDER_T))[1],
+                          dtype=torch.float32, device=state.x.device)
+        start = {"betas": b0, "proposed": torch.zeros_like(state.counters.swaps_proposed),
+                 "accepted": torch.zeros_like(state.counters.swaps_accepted)}
+        end = swap_snapshot(state)
+        before, after = (pair_acceptance(start, snaps["burned"]),
+                         pair_acceptance(snaps["burned"], end))
+        ladder = ladder_checks(path, b0, snaps["burned"]["betas"], end["betas"])
+        launches[path] = result["launches"][KIND_CHEES]
+        rates[mode] = result["iters_per_sec"]
+        result.update(
+            workload="hierarchical", swap_mode=mode, adapt_ladder=True,
+            ladder_adapt=[cfg.ladder_adapt_lag, cfg.ladder_adapt_time], ladder_burn=cfg.burn,
+            block=block, burn_iters=burn, timed_iters=timed, gate_stride=stride, cuts=cuts,
+            pair_acceptance_burn_in=before, pair_acceptance_timed=after,
+            pair_acceptance_timed_min_max_std=[min(after), max(after), float(np.std(after))],
+            chees_launches=launches[path],
+            chees_iterations=result["iterations_by_kind"][KIND_CHEES],
+            chees_eps=state.stepsize.chees_eps[:, 0].tolist(),
+            chees_tlen=state.stepsize.chees_tlen[:, 0].tolist(), **ladder)
+        if mode == "deo":
+            events = swap_event_ms(state)
+            result["swap_event_device_ms"] = events
+        else:
+            # A swap event every tskip iterations: what the 63-pair sweep adds
+            # to one beside DEO's, from the two timed rates (at this cut, on
+            # other states) and from one event of each on DEO's final state.
+            result.update(deo_iters_per_sec=rates["deo"],
+                          sweep_extra_ms_per_swap_event=cfg.tskip * 1e3 * (
+                              1 / rates["sweep"] - 1 / rates["deo"]),
+                          swap_event_device_ms=events)
+        eager = result["graphs"]["eager"]
+        del state, step, run_block
+        torch.cuda.empty_cache()
+        print_result(result, ok)
+        if eager["host jump"] or eager["no capture"]:
+            raise SystemExit(f"{path}: eager iterations {eager}")
+    return launches
+
+
+def phase_tall_ladder_graphs(card):
+    """9f (first). The graphs check of 3 on the tall ladder (``"path":
+    "tall_ladder"``): the eager step loop against ``run_block`` at LADDER_T
+    x LADDER_C, the ladder's burn at LADDER_GRAPHS_BURN, bit for bit; both
+    DEO parities, with and without the ladder's update, must have a graph."""
+    from ptmcmcsampler_torch.config import KIND_CHEES
+    from ptmcmcsampler_torch.ops.chees import chees_step
+
+    model, x0 = wide_workload("hierarchical")
+    cfg = ladder_config(model.ndim, 2 * LADDER_GRAPHS_BURN, cov_update=GRAPHS_COV_UPDATE,
+                        swap_mode="deo", adapt_ladder=True)
+    result = phase_graphs(model, card, "tall_ladder", cfg, {KIND_CHEES: chees_step}, x0)
+    torch.cuda.empty_cache()
+    events = {key[1] for key in result["graph_keys"]}
+    want = {str(e) for e in (("deo", 0, "ladder"), ("deo", 1, "ladder"), ("deo", 0), ("deo", 1))}
+    if not want <= events:
+        raise SystemExit(f"tall_ladder graphs: swap events {events}, expected {want}")
+    return result
+
+
+def phase_de_pairs(card):
+    """9g. The "iid" DE pair law on path 1's curved workload at 8 x 16384
+    and the "rolled" one on bench.py's 50-D hierarchy (not on the curved
+    target, where rolled synchronises mode jumps), each at LADDER_ITERS
+    through the graphs, the gate enforced, with DE's cold acceptance beside
+    the blocked law's on the same workload (path 1's lines). One
+    ``"phase": "de_pairs"`` line each; returns the ChEES launches."""
+    from ptmcmcsampler_torch.config import KIND_CHEES
+    from ptmcmcsampler_torch.models import CurvedLikelihood
+    from ptmcmcsampler_torch.ops.chees import chees_step, chees_trajectories
+
+    launches = {}
+    hier, hier_x0 = wide_workload("hierarchical")
+    for path, model, x0, de_pair, blocked in (
+            ("de_iid", CurvedLikelihood(), (-0.1, -0.5), "iid", "chees"),
+            ("de_rolled", hier, hier_x0, "rolled", "hierarchical")):
+        d = model.ndim
+        block, burn, timed, cuts, stride = wide_counts(path, d, LADDER_ITERS)
+        if d == D:  # path 1's block and gate stride
+            block, stride = BLOCK, GATE_STRIDE
+        cfg = dataclasses.replace(
+            headline_config(burn // 2) if d == D else wide_config(d, burn), de_pair=de_pair)
+        state, (step, run_block), result, ok = phase_main_path(
+            model, card, path, cfg, {KIND_CHEES: chees_step}, absent=(chees_trajectories,),
+            x0=x0, burn=burn, timed=timed, block=block, stride=stride,
+            compare_iters=LADDER_COMPARE_ITERS)
+        launches[path] = result["launches"][KIND_CHEES]
+        result.update(
+            phase="de_pairs", de_pair=de_pair, workload=blocked, block=block, burn_iters=burn,
+            timed_iters=timed, gate_stride=stride, cuts=cuts,
+            de_acceptance=result["cold_acceptance"]["DEJump"],
+            blocked_de_acceptance=COLD_ACCEPTANCE.get(blocked, {}).get("DEJump",
+                                                                        "not measured"),
+            chees_launches=launches[path])
+        del state, step, run_block
+        torch.cuda.empty_cache()
+        print_result(result, ok)
+    return launches
+
+
+def phase_ladder_sampler(card, wrappers):
+    """9h. ``PTSampler`` on bench.py's 50-D hierarchy at LADDER_T x
+    LADDER_SAMPLER_C chains with ``swap_mode="deo"``, ``sample(adaptLadder=
+    True, hotChain=True)`` (LADDER_SAMPLER_KW), LADDER_SAMPLER_ITERS
+    iterations, then ``resume=True`` to LADDER_SAMPLER_RESUME, beside an
+    unbroken run of LADDER_SAMPLER_RESUME from the same seed. The
+    checkpoint's betas must be the first run's, the ladder must move before
+    and after the resume (it adapts to iteration 2500), stay descending with
+    its cold end and the beta = 0 hot chain, and the resumed run's files,
+    checkpoint and betas must equal the unbroken run's byte for byte;
+    ``chees_step`` once per ChEES iteration in each run (through the
+    graphs), the chain files' rows and sidecar. One JSON line ``"phase":
+    "ladder_sampler"``; returns the ChEES launches."""
+    from ptmcmcsampler_torch import PTSampler
+    from ptmcmcsampler_torch.config import KIND_CHEES
+    from ptmcmcsampler_torch.diagnostics import moment_gate
+
+    model = wide_workload("hierarchical")[0]
+    d = model.ndim
+    root = tempfile.mkdtemp(prefix="chip_smoke_ladder_sampler_")
+    parts, whole = os.path.join(root, "parts"), os.path.join(root, "whole")
+
+    def run(outdir, niter, resume):
+        for w in wrappers.values():
+            w.launches = 0
+        with contextlib.redirect_stdout(sys.stderr):
+            s = PTSampler(d, model.lnlikefn, model.lnpriorfn, np.eye(d),
+                          logl_grad=model.lnlikefn_grad, logp_grad=model.lnpriorfn_grad,
+                          ntemps=LADDER_T, nchains=LADDER_SAMPLER_C, outDir=outdir, seed=7,
+                          swap_mode="deo", resume=resume)
+            t0 = time.time()
+            s.sample(np.zeros(d), niter, **LADDER_SAMPLER_KW)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        return s, wall, counted_launches(s.block_stats, wrappers)
+
+    try:
+        first, wall1, launch1 = run(parts, LADDER_SAMPLER_ITERS, False)
+        with np.load(os.path.join(parts, "checkpoint.npz")) as z:
+            ckpt_betas = z["betas"].copy()
+        with open(os.path.join(parts, "checkpoint.npz.json")) as f:
+            ckpt_iter = json.load(f)["iter"]
+        mid = first.state.betas.clone()
+        iters1 = iterations(first, KIND_CHEES)
+        resumed, wall2, launch2 = run(parts, LADDER_SAMPLER_RESUME, True)
+        iters2 = iterations(resumed, KIND_CHEES) - iters1
+        unbroken, wall3, _ = run(whole, LADDER_SAMPLER_RESUME, False)
+        b0 = torch.tensor(1.0 / first.ladder, dtype=torch.float32, device=mid.device)
+        end = resumed.state.betas
+        cfg = resumed.config
+        thin = LADDER_SAMPLER_KW["thin"]
+        rows = 1 + LADDER_SAMPLER_RESUME // thin
+        text = np.loadtxt(os.path.join(parts, "chain_1.0.txt"), ndmin=2)
+        sidecar = os.path.getsize(os.path.join(parts, "chain_all_1.0.bin"))
+        target, _ = model.posterior_moments()
+        _, max_z, _ = moment_gate(resumed.chains[:, 1000 // thin + 1:], target)
+        checks = {
+            "settings": ((cfg.swap_mode, cfg.adapt_ladder, cfg.ladder_adapt_skip_top),
+                         ("deo", True, True)),
+            "checkpoint iteration": (ckpt_iter, LADDER_SAMPLER_ITERS),
+            "checkpoint betas are the run's": (
+                ckpt_betas.tobytes() == mid.cpu().numpy().tobytes(), True),
+            "resumed from": (resumed._resume_start_iter, LADDER_SAMPLER_ITERS),
+            "moved before the resume": (bool(torch.equal(mid, b0)), False),
+            "moved after the resume": (bool(torch.equal(end, mid)), False),
+            "descending": (bool(torch.all(end[1:-1] < end[:-2])), True),
+            "cold end and hot chain": ((float(end[0]), float(end[-1])), (1.0, 0.0)),
+            "resumed betas = unbroken run's": (torch.equal(end, unbroken.state.betas), True),
+            "files = unbroken run's": (same_files(parts, whole), True),
+            "first run's launches": (launch1["chees_step"], iters1),
+            "resumed run's launches": (launch2["chees_step"], iters2),
+            "chain text rows x columns": (text.shape, (rows, d + 4)),
+            "chain_all_1.0.bin bytes": (sidecar, rows * LADDER_SAMPLER_C * d * 4),
+            "finite state": (bool(torch.isfinite(resumed.state.x).all()), True),
+        }
+        log(f"ladder_sampler: {checks}")
+        for what, (got, want) in checks.items():
+            if got != want:
+                raise SystemExit(f"ladder_sampler: {what} is {got}, expected {want}")
+        name, power = [v.strip() for v in card.split(",", 1)]
+        result = {
+            "phase": "ladder_sampler", "model": "HierarchicalGaussian", "ndim": d,
+            "chains": [LADDER_T, LADDER_SAMPLER_C],
+            "iters": [LADDER_SAMPLER_ITERS, LADDER_SAMPLER_RESUME],
+            "iters_per_sec": [LADDER_SAMPLER_ITERS / wall1,
+                              (LADDER_SAMPLER_RESUME - LADDER_SAMPLER_ITERS) / wall2,
+                              LADDER_SAMPLER_RESUME / wall3],
+            "ladder_burn": LADDER_SAMPLER_KW["burn"],
+            "betas_initial": b0.tolist(), "betas_checkpoint": mid.tolist(),
+            "betas_final": end.tolist(),
+            "launches": [launch1["chees_step"], launch2["chees_step"]],
+            "chees_iterations": [iters1, iters2],
+            "moments_max_z_printed": max_z, "rows": int(text.shape[0]),
+            "graphs": resumed.block_stats.summary(), "checks": list(checks),
+            "card": name, "power_limit": power,
+        }
+        print(json.dumps(result), flush=True)
+        return launch1["chees_step"] + launch2["chees_step"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3836,6 +4207,15 @@ def main():
     result["host_protocol"] = phase_host_jumps()
     print(json.dumps(result), flush=True)
     custom_launches["custom_sampler"] = launches["chees_step"]
+
+    # BASELINE config 5 on one card: DEO swaps and the adaptive ladder on 64
+    # rungs, the rolled and iid DE pair laws, PTSampler's ladder and resume.
+    phase_tall_ladder_graphs(card)
+    custom_launches.update(phase_tall_ladder(card))
+    de_launches = phase_de_pairs(card)
+    custom_launches["de_rolled"] = de_launches["de_rolled"]
+    custom_launches["ladder_sampler"] = phase_ladder_sampler(card, wrappers)
+    kernels[0]["launches_by_path"]["de_iid"] = de_launches["de_iid"]
     for item in wide:
         if item["workload"] == "hierarchical":
             item["launches_by_path"].update(custom_launches)

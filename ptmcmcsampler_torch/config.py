@@ -6,7 +6,8 @@ in :mod:`ptmcmcsampler_torch.state`. All state is float32.
 
 The port covers the shared-select cycle of SCAM/AM/DE, the gradient
 jumps ChEES, NUTS, HMC and MALA, the user's custom, prior-draw and
-auxiliary jumps, the hottest-first sweep swap and the blocked DE pair law.
+auxiliary jumps, both swap schemes (the hottest-first sweep and DEO), the
+adaptive ladder and the three DE pair laws (blocked, rolled, iid).
 ``__post_init__`` raises on every setting the port does
 not run yet, naming the ROADMAP item that will add it, so nothing silently
 takes another path. The JAX package's TPU dispatch knobs (``use_pallas``,
@@ -82,11 +83,19 @@ class SamplerConfig:
     de_size: int = 10000  # DE history ring-buffer rows
 
     jump_select: str = "shared"
+    # DE pair law (proposals/de.py): "blocked" (one ordered-distinct pair a
+    # group of de_block chains), "iid" (one a chain, the reference's law) or
+    # "rolled" (one shift pair an iteration, counter-rotating over chains).
     de_pair: str = "blocked"
     de_block: int = 8  # chains per shared DE pair
-    swap_mode: str = "sweep"
+    swap_mode: str = "sweep"  # "sweep" (the reference's) or "deo" (even/odd)
     adapt_from: str = "cold"  # covariance data source: "cold" chain or "all"
+    # Adaptive ladder geometry (Vousden+ 2016; BASELINE.json config 5), in
+    # burn-in only, both ends fixed (ladder.adapt_ladder_betas).
     adapt_ladder: bool = False
+    ladder_adapt_lag: float = 10000.0
+    ladder_adapt_time: float = 100.0
+    ladder_adapt_skip_top: bool = False  # True when the top rung is a beta = 0 hot chain
 
     hmc_stepsize: float = 0.1  # HMC step size; initial ChEES step size
     hmc_nminsteps: int = 2  # HMC trajectory length drawn from [nmin, nmax)
@@ -116,22 +125,14 @@ class SamplerConfig:
             )
         if self.jump_select != "shared":
             raise ValueError(f"unknown jump_select {self.jump_select!r}")
-        if self.swap_mode == "deo":
-            raise NotImplementedError("swap_mode='deo' is not ported yet (ROADMAP A6)")
-        if self.swap_mode != "sweep":
+        if self.swap_mode not in ("sweep", "deo"):
             raise ValueError(f"unknown swap_mode {self.swap_mode!r}")
-        if self.de_pair in ("rolled", "iid"):
-            raise NotImplementedError(
-                f"de_pair={self.de_pair!r} is not ported yet (ROADMAP A11)"
-            )
-        if self.de_pair != "blocked":
+        if self.de_pair not in ("blocked", "rolled", "iid"):
             raise ValueError(f"unknown de_pair {self.de_pair!r}")
         if self.de_block < 1:
             raise ValueError("de_block must be >= 1")
         if self.adapt_from not in ("cold", "all"):
             raise ValueError(f"unknown adapt_from {self.adapt_from!r}")
-        if self.adapt_ladder:
-            raise NotImplementedError("adapt_ladder is not ported yet (ROADMAP A11)")
         if self.nuts_max_depth > NUTS_MAX_KERNEL_DEPTH:
             raise NotImplementedError(
                 f"nuts_max_depth={self.nuts_max_depth} > {NUTS_MAX_KERNEL_DEPTH} "

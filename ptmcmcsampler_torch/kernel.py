@@ -2,8 +2,9 @@
 
 One step, for the whole ``[ntemps, nchains]`` batch at once:
 
-  proposal -> prior/likelihood -> tempered MH accept -> (every tskip) sweep
-  swap -> Welford, DE-ring and (every cov_update) factor updates
+  proposal -> prior/likelihood -> tempered MH accept -> (every tskip) swap
+  event and, in burn-in, the adaptive ladder -> Welford, DE-ring and
+  (every cov_update) factor updates
 
 as in the JAX package's ``kernel.build_step``. Every cadence and the jump
 kind are host integers (the kinds are drawn a block at a time), so a step
@@ -24,8 +25,9 @@ run on the host, ``run_block`` runs the same body eagerly; so do the
 iterations of a user's jump that runs on the host (a numpy custom jump or
 prior draw: its own iterations; a numpy auxiliary jump: every iteration),
 while every other key keeps its graph. The user's custom and auxiliary jumps
-read the iteration number from a 0-d tensor on the device that the runner
-writes before each iteration, outside the graphs.
+and the adaptive ladder's decay read the iteration number from a 0-d tensor
+on the device that the runner writes before each iteration, outside the
+graphs; the ladder's betas and window counters change on the device too.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch
 
 from . import adaptation, swaps, utils
 from .config import KIND_CHEES, KIND_CUSTOM, KIND_DE, KIND_NUTS, SamplerConfig
+from .ladder import adapt_ladder_betas
 from .ops import chees as ops_chees, hmc as ops_hmc, nuts as ops_nuts, user
 from .proposals.base import ProposalContext
 from .proposals.custom import make_aux_chain
@@ -69,6 +72,22 @@ def make_context(state: SamplerState, iteration=None) -> ProposalContext:
         de_valid=adaptation.de_valid_rows(state.de),
         iteration=iteration,
     )
+
+
+def ladder_window_rates(ctr):
+    """Per-pair swap acceptance rates over the window since the ladder's
+    last update (the deltas against the ``*_lad`` snapshots), as the JAX
+    package's ``kernel.ladder_window_rates``: Vousden, Farr & Mandel (2016)
+    adapt on the acceptance since the previous geometry update. Returns
+    ``(rates [T] f32, pair_valid [T] bool)``; a pair with no proposal in
+    the window is not valid, so no fabricated 0 rate drives an update."""
+    d_prop = ctr.swaps_proposed - ctr.swaps_proposed_lad
+    d_acc = ctr.swaps_accepted - ctr.swaps_accepted_lad
+    # The mean over chains as XLA compiles the JAX package's: the sum (exact
+    # in f32) times the f32 reciprocal of the count.
+    n = torch.full((), d_acc.shape[1], dtype=torch.float32, device=d_acc.device)
+    rates = d_acc.to(torch.float32).sum(1) * torch.reciprocal(n)
+    return rates / torch.clamp(d_prop, min=1).to(torch.float32), d_prop > 0
 
 
 def _accept_logratio(new_ll, new_lp, old_ll, old_lp, qxy, betas):
@@ -110,18 +129,31 @@ def history_updates(config: SamplerConfig, state: SamplerState, it) -> SamplerSt
     return refresh(config, history_push(config, state), it)
 
 
+def swap_event(config: SamplerConfig, it):
+    """The swap event iteration ``it`` runs, decided on the host: None (no
+    swap), ``"sweep"``, or ``("deo", parity)`` with the parity ``(it //
+    tskip) % 2``; with the adaptive ladder, and ``it <= burn``, the event
+    also updates the ladder (``+ ("ladder",)``)."""
+    if config.ntemps <= 1 or it % config.tskip != 0:
+        return None
+    event = ("deo", (it // config.tskip) % 2) if config.swap_mode == "deo" else ("sweep",)
+    return event + ("ladder",) if config.adapt_ladder and it <= config.burn else event
+
+
 def step_key(config: SamplerConfig, state: SamplerState, it, kind) -> tuple:
     """Every host-side decision iteration ``it`` of jump ``kind`` makes from
-    ``state`` (its host fields before the iteration): the jump, whether a
-    swap sweep is due, whether adaptation runs (ChEES and NUTS read ``it <=
-    burn``), the DE ring's valid rows (DE's draw range) and the factors'
-    structure tag (a launch argument of the wide kernels). Two iterations
-    with one key run the same device work, so one CUDA graph serves both.
-    The factor refresh is not part of it: it runs outside every graph."""
+    ``state`` (its host fields before the iteration): the jump, the swap
+    event (:func:`swap_event`: none, the sweep, or DEO's parity, each with
+    the ladder update where it runs), whether adaptation runs (ChEES and
+    NUTS read ``it <= burn``), the DE ring's valid rows (DE's draw range)
+    and the factors' structure tag (a launch argument of the wide kernels).
+    Two iterations with one key run the same device work, so one CUDA graph
+    serves both. The factor refresh is not part of it: it runs outside every
+    graph."""
     jump = config.jumps[kind].kind
     return (
         kind,
-        config.ntemps > 1 and it % config.tskip == 0,
+        swap_event(config, it),
         it <= config.burn if jump in (KIND_CHEES, KIND_NUTS) else None,
         adaptation.de_valid_rows(state.de) if jump == KIND_DE else None,
         state.adapt.structure,
@@ -246,11 +278,14 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
     branches = build_jump_branches(config, model, device)
     aux_chain = make_aux_chain(config)
     # The iteration number on the device (ctx.iteration) where a user's
-    # custom or auxiliary jump reads it: written before every iteration,
-    # outside the graphs, so that a replay reads the true one.
+    # custom or auxiliary jump or the ladder's decay reads it: written before
+    # every iteration, outside the graphs, so that a replay reads the true one.
     iteration = None
-    if config.aux_jumps or any(j.kind == KIND_CUSTOM for j in config.jumps):
+    if (config.aux_jumps or config.adapt_ladder
+            or any(j.kind == KIND_CUSTOM for j in config.jumps)):
         iteration = torch.zeros((), dtype=torch.int64, device=device)
+    # The rungs the ladder adapts: all but a beta = 0 hot chain at the top.
+    ladder_rungs = t - (1 if config.ladder_adapt_skip_top else 0)
     # The jumps that run on the host (their iterations run eagerly; all of
     # them for an auxiliary jump on the host).
     host_kinds = {i for i, j in enumerate(config.jumps) if j.protocol == "host"}
@@ -301,23 +336,48 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
             ),
         )
 
+    def adapt_ladder(betas, ctr):
+        """The ladder's update from the window since its last one, applied
+        where every pair it compares had proposals in the window (under DEO
+        adjacent pairs have opposite parities, so a one-event window never
+        has them all); the window's snapshots advance only where it
+        applied. Every decision here stays on the device."""
+        rates, pair_valid = ladder_window_rates(ctr)
+        new_betas = adapt_ladder_betas(
+            betas, rates, iteration, lag=config.ladder_adapt_lag,
+            time=config.ladder_adapt_time, skip_top=config.ladder_adapt_skip_top,
+            pair_valid=pair_valid)
+        applied = torch.all(pair_valid[: ladder_rungs - 1])
+        return torch.where(applied, new_betas, betas), dataclasses.replace(
+            ctr,
+            swaps_proposed_lad=torch.where(applied, ctr.swaps_proposed, ctr.swaps_proposed_lad),
+            swaps_accepted_lad=torch.where(applied, ctr.swaps_accepted, ctr.swaps_accepted_lad),
+        )
+
     def pt_swap(state: SamplerState, it):
-        """Sweep replica exchange every ``tskip`` iterations."""
-        if t <= 1 or it % config.tskip != 0:
+        """The swap event of iteration ``it`` (:func:`swap_event`)."""
+        event = swap_event(config, it)
+        if event is None:
             return state
-        us = swaps.draw_swap_uniforms(state.rng, t, c, state.x.device)
-        x, ll, lp, accepted, proposed = swaps.sweep_swap_apply(
-            us, state.x, state.lnlike, state.lnprior, state.betas
-        )
+        if event[0] == "deo":
+            us = swaps.draw_pair_uniforms(state.rng, t, c, state.x.device)
+            x, ll, lp, accepted, proposed = swaps.deo_swap_apply(
+                us, state.x, state.lnlike, state.lnprior, state.betas, event[1])
+        else:
+            us = swaps.draw_swap_uniforms(state.rng, t, c, state.x.device)
+            x, ll, lp, accepted, proposed = swaps.sweep_swap_apply(
+                us, state.x, state.lnlike, state.lnprior, state.betas)
         ctr = state.counters
-        return dataclasses.replace(
-            state, x=x, lnlike=ll, lnprior=lp,
-            counters=dataclasses.replace(
-                ctr,
-                swaps_proposed=ctr.swaps_proposed + proposed.to(torch.int32),
-                swaps_accepted=ctr.swaps_accepted + accepted.to(torch.int32),
-            ),
+        ctr = dataclasses.replace(
+            ctr,
+            swaps_proposed=ctr.swaps_proposed + proposed.to(torch.int32),
+            swaps_accepted=ctr.swaps_accepted + accepted.to(torch.int32),
         )
+        betas = state.betas
+        if event[-1] == "ladder" and ladder_rungs >= 3:
+            betas, ctr = adapt_ladder(betas, ctr)
+        return dataclasses.replace(state, x=x, lnlike=ll, lnprior=lp, betas=betas,
+                                   counters=ctr)
 
     def advance(state: SamplerState, it, kind) -> SamplerState:
         """Iteration ``it`` of jump ``kind`` but for the factor refresh: the

@@ -36,7 +36,7 @@ def build_jump_branches(config: SamplerConfig, model, device):
     makers = {
         KIND_SCAM: lambda spec: am.make_scam(config, device),
         KIND_AM: lambda spec: am.make_am(config, device),
-        KIND_DE: lambda spec: de.make_de_blocked(config, device),
+        KIND_DE: lambda spec: de.make_de(config, device),
         KIND_CHEES: lambda spec: chees.make_chees(config, model),
         KIND_NUTS: lambda spec: nuts.make_nuts(config, model),
         KIND_HMC: lambda spec: gradient.make_hmc(config, model),

@@ -5,9 +5,24 @@ rows of the history, jump along their difference restricted to a random
 parameter group; with prob 0.5 a "mode jump" (scale 1.0), else
 ``uniform() * 2.4/sqrt(2*sg) * sqrt(1/beta)``. Symmetric (qxy = 0).
 
-Only the "blocked" pair law is ported: one independent ordered-distinct row
-pair per group of ``de_block`` chains, shared within the group. Each chain's
-marginal pair law is the reference's uniform ordered-distinct draw.
+The three pair laws of the JAX package (``SamplerConfig.de_pair``):
+
+* ``"blocked"`` (default): one independent ordered-distinct row pair per
+  group of ``de_block`` chains, shared within the group.
+* ``"iid"``: one independent ordered-distinct pair per chain, the
+  reference's law: the blocked law with groups of one chain, which is how
+  it runs here.
+* ``"rolled"``: one pair of shifts ``(s1, s2)`` per iteration; chain ``c``
+  takes rows ``((c + s1) % n, (s2 - c) % n)`` of the ``n`` valid ones, the
+  same difference at every temperature. Each chain's pair is uniform over
+  ordered pairs; where the two rows coincide (one chain in ``n``) the move
+  is the identity. Only the joint law across chains is correlated, which
+  synchronises mode jumps on a multimodal target such as the curved one
+  (the JAX package's ``proposals/de.py`` warning): use it on unimodal ones.
+
+Each chain's marginal pair law is the reference's under all three. Every
+law's draws are inputs of a deterministic ``core``, so tests feed the JAX
+package's draws to it.
 """
 
 from __future__ import annotations
@@ -30,15 +45,35 @@ def de_scale_and_apply(embeds, sizes, gidx, prob, uu, temp, sigma_full, x):
     return select_group(gidx, len(embeds), results)
 
 
-def make_de_blocked(config, device):
+def _groups(config, device):
     groups = [tuple(int(i) for i in g) for g in config.groups]
-    embeds = [GroupEmbed(g, config.ndim, device) for g in groups]
-    sizes = [len(g) for g in groups]
-    gsize = config.de_block
+    return groups, [GroupEmbed(g, config.ndim, device) for g in groups], [len(g) for g in groups]
+
+
+def _scale_draws(rng, ngroups, t, c, device):
+    """Each chain's group, mode-jump uniform and scale uniform, ``[T, C]``."""
+    gidx = random_group(rng, ngroups, (t, c), device)
+    prob = torch.rand((t, c), generator=rng, device=device)
+    uu = torch.rand((t, c), generator=rng, device=device)
+    return gidx, prob, uu
+
+
+def make_de(config, device):
+    """The DE branch of ``config.de_pair``'s law."""
+    if config.de_pair == "rolled":
+        return make_de_rolled(config, device)
+    return make_de_blocked(config, device, 1 if config.de_pair == "iid" else config.de_block)
+
+
+def make_de_blocked(config, device, block=None):
+    """Pairs shared by groups of ``block`` chains (``config.de_block`` by
+    default; 1 is the "iid" law)."""
+    groups, embeds, sizes = _groups(config, device)
+    gsize = config.de_block if block is None else block
 
     def core(x, betas, ctx, mm, nn, gidx, prob, uu):
         """``mm [T, G]`` uniform on ``[0, nvalid)`` and ``nn [T, G]`` uniform
-        on ``[0, nvalid - 1)`` (long, ``G = ceil(C / de_block)``); the core
+        on ``[0, nvalid - 1)`` (long, ``G = ceil(C / block)``); the core
         shifts ``nn`` past ``mm``, which makes the pair uniform over ordered
         distinct pairs. ``gidx`` long, ``prob, uu`` uniform, ``[T, C]``."""
         c = x.shape[2]
@@ -54,11 +89,40 @@ def make_de_blocked(config, device):
         nvalid = max(ctx.de_valid, 2)
         mm = torch.randint(0, nvalid, (t, ng), generator=rng, device=x.device)
         nn = torch.randint(0, nvalid - 1, (t, ng), generator=rng, device=x.device)
-        gidx = random_group(rng, len(groups), (t, c), x.device)
-        prob = torch.rand((t, c), generator=rng, device=x.device)
-        uu = torch.rand((t, c), generator=rng, device=x.device)
-        q = core(x, betas, ctx, mm, nn, gidx, prob, uu)
+        q = core(x, betas, ctx, mm, nn, *_scale_draws(rng, len(groups), t, c, x.device))
         return q, torch.zeros_like(x[:, 0]), ss
 
     de_blocked.core = core
     return de_blocked
+
+
+def make_de_rolled(config, device):
+    """Counter-rotating shifts, one pair an iteration (the "rolled" law)."""
+    groups, embeds, sizes = _groups(config, device)
+
+    def core(x, betas, ctx, s1, s2, gidx, prob, uu):
+        """``s1, s2`` 0-d long tensors uniform on ``[0, nvalid)``; ``gidx``,
+        ``prob, uu`` as the blocked core's. The rows are index arithmetic on
+        the device (no shift is read back to the host), which covers the
+        full ring and a part-full one alike, and more chains than ring rows
+        (the pattern repeats every ``nvalid`` chains)."""
+        c = x.shape[2]
+        nvalid = max(ctx.de_valid, 2)
+        chains = torch.arange(c, device=x.device)
+        sig = ctx.de_buf[:, (chains + s1) % nvalid] - ctx.de_buf[:, (s2 - chains) % nvalid]
+        collide = ((2 * chains + s1 - s2) % nvalid) == 0  # the same row twice: no move
+        sig = torch.where(collide, 0.0, sig)  # [D, C], every temperature's
+        temps = torch.clamp(safe_temperature(betas), max=1e30)[:, None]
+        sig_t = sig.expand(x.shape[0], -1, -1)
+        return de_scale_and_apply(embeds, sizes, gidx, prob, uu, temps, sig_t, x)
+
+    def de_rolled(rng, x, betas, it, ctx, ss):
+        t, _, c = x.shape
+        nvalid = max(ctx.de_valid, 2)
+        s1 = torch.randint(0, nvalid, (), generator=rng, device=x.device)
+        s2 = torch.randint(0, nvalid, (), generator=rng, device=x.device)
+        q = core(x, betas, ctx, s1, s2, *_scale_draws(rng, len(groups), t, c, x.device))
+        return q, torch.zeros_like(x[:, 0]), ss
+
+    de_rolled.core = core
+    return de_rolled

@@ -47,10 +47,19 @@ auxiliary jump), the other iterations replaying their graphs.
 Gradient jumps need both ``logl_grad`` and ``logp_grad``; without them they
 are dropped, as in the JAX package.
 
+The tempering ladder's settings are the JAX package's: ``swap_mode``
+("sweep", the reference's, or "deo"; a resumed run keeps its checkpoint's),
+``de_pair`` ("blocked", "rolled", "iid") and ``sample(adaptLadder=True,
+ladderAdaptLag=, ladderAdaptTime=)``, the adaptive ladder in burn-in, which
+leaves a ``hotChain``'s top rung out of its geometry. The adapted betas and
+the ladder's window counters are state: the checkpoint holds them and a
+resumed run continues from them.
+
 The JAX package's TPU dispatch keywords (``rng_impl``, ``use_pallas``,
 ``nuts_impl``, ``nuts_pass1_depth``, ``per_chain_mode``) are accepted and
 ignored. Not ported yet, and refused naming the ROADMAP item: ``mesh=`` and
-multi-process runs (A12); ``trajectoryDir`` and ``adaptLadder`` (A11).
+multi-process runs (A12); ``trajectoryDir`` and ``jump_select="per_chain"``
+(A11).
 """
 
 from __future__ import annotations
@@ -468,7 +477,7 @@ class PTSampler:
     # --------------------------------------------------------------- sample
 
     def _build_config(self, weights, burn, tskip, cov_update, thin, hmc_kwargs,
-                      mass_adapt=False, nuts_max_depth=10, adapt_ladder=False):
+                      mass_adapt=False, nuts_max_depth=10, ladder_kwargs=None):
         have_grads = self._have_grads
         jumps = build_default_jumps(
             SCAMweight=weights["SCAM"],
@@ -499,7 +508,7 @@ class PTSampler:
             de_block=self.de_block,
             swap_mode=self._resolved_swap_mode(),
             adapt_from=self.adapt_from,
-            adapt_ladder=adapt_ladder,
+            **(ladder_kwargs or {}),
             hmc_stepsize=hmc_kwargs.get("stepsize", 0.1),
             hmc_nminsteps=hmc_kwargs.get("nminsteps", 2),
             hmc_nmaxsteps=hmc_kwargs.get("nmaxsteps", 300),
@@ -551,7 +560,7 @@ class PTSampler:
         NUTSmaxdepth=10,
     ):
         """Run PTMCMC sampling (reference ``sample``, PTMCMCSampler.py:374-528)."""
-        del write_burnin, ladderAdaptLag, ladderAdaptTime  # with trajectoryDir, adaptLadder
+        del write_burnin  # with trajectoryDir
         if trajectoryDir is not None:
             raise NotImplementedError("trajectoryDir (NUTS trajectory capture) is not ported "
                                       "yet (ROADMAP A11)")
@@ -590,7 +599,12 @@ class PTSampler:
             weights, burn, Tskip, covUpdate, thin,
             dict(stepsize=HMCstepsize, nminsteps=2, nmaxsteps=HMCsteps),
             mass_adapt=bool(massAdapt), nuts_max_depth=int(NUTSmaxdepth),
-            adapt_ladder=bool(adaptLadder),
+            ladder_kwargs=dict(
+                adapt_ladder=bool(adaptLadder),
+                ladder_adapt_lag=float(ladderAdaptLag),
+                ladder_adapt_time=float(ladderAdaptTime),
+                ladder_adapt_skip_top=bool(hotChain),
+            ),
         )
         self.config = config
         if self.route == "kernel":

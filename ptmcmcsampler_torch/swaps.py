@@ -1,16 +1,32 @@
-"""Replica-exchange swaps: the reference's hottest-first sweep, on device.
+"""Replica-exchange swaps, on the device.
 
-The reference gathers all chains to rank 0 and runs a serial sweep from the
-hottest adjacent pair down, with the acceptance rule
-``log_acc = (1/T_i - 1/T_{i+1}) * (L[m[i+1]] - L[m[i]])``
-(PTMCMCSampler.py:631-697). Here the ladder is the leading array axis and
-the sweep, vectorised over chains, carries the permuted rows directly, so
-positions, log-likelihoods and log-priors all move with the exchanges.
+The ladder is the leading array axis, so a swap permutes rows, vectorised
+over chains; positions, log-likelihoods and log-priors all move with the
+exchanges (``swap_mode``):
+
+* ``"sweep"``: the reference's serial sweep from the hottest adjacent pair
+  down, with the acceptance rule
+  ``log_acc = (1/T_i - 1/T_{i+1}) * (L[m[i+1]] - L[m[i]])``
+  (PTMCMCSampler.py:631-697), carrying the permuted rows directly.
+* ``"deo"``: the deterministic even/odd scheme: at parity 0 the disjoint
+  pairs (0, 1), (2, 3), ..., at parity 1 (1, 2), (3, 4), ...; each pair
+  swaps on its own, so the permutation is two shifted selects.
+
+Randomness is an input: ``us [T-1, C]``, row ``i`` for pair ``(i, i+1)``.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def _log_acc(li, li1, bi, bi1):
+    """The log acceptance of exchanging rows with likelihoods ``li``, ``li1``
+    at inverse temperatures ``bi > bi1``: 0 between two -inf rows, -inf
+    where it is NaN."""
+    dll = torch.where(torch.isneginf(li1) & torch.isneginf(li), 0.0, li1 - li)
+    log_acc = (bi - bi1) * dll
+    return torch.where(torch.isnan(log_acc), float("-inf"), log_acc)
 
 
 def _sweep_rows(us, lnlike, betas, payload_rows=()):
@@ -28,10 +44,7 @@ def _sweep_rows(us, lnlike, betas, payload_rows=()):
     payload_rows = [list(rows) for rows in payload_rows]
     for i in range(t - 2, -1, -1):  # hottest pair first
         li, li1 = ll_rows[i], ll_rows[i + 1]
-        dll = torch.where(torch.isneginf(li1) & torch.isneginf(li), 0.0, li1 - li)
-        log_acc = (betas[i] - betas[i + 1]) * dll
-        log_acc = torch.where(torch.isnan(log_acc), float("-inf"), log_acc)
-        take = log_us[i] <= log_acc
+        take = log_us[i] <= _log_acc(li, li1, betas[i], betas[i + 1])
         ll_rows[i] = torch.where(take, li1, li)
         ll_rows[i + 1] = torch.where(take, li, li1)
         for rows in payload_rows:
@@ -65,6 +78,117 @@ def sweep_swap_apply(us, x, lnlike, lnprior, betas):
     )
 
 
+def sweep_swap_map(us, lnlike, betas):
+    """The sweep as a permutation: ``(swap_map [T, C] int32, accepted [T, C],
+    proposed [T])``, where row ``i`` of the swapped state is row
+    ``swap_map[i]`` of the old one (:func:`apply_swap`)."""
+    t, c = lnlike.shape
+    dev = lnlike.device
+    rows = torch.arange(t, dtype=torch.int32, device=dev)
+    proposed = rows < (t - 1)
+    if t <= 1:
+        return (rows[:, None].expand(t, c).clone(),
+                torch.zeros((t, c), dtype=torch.bool, device=dev), proposed)
+    acc_rows, _, (m_rows,) = _sweep_rows(
+        us, lnlike, betas, payload_rows=([rows[i].expand(c) for i in range(t)],))
+    return torch.stack(m_rows), torch.stack(acc_rows), proposed
+
+
+def _pair_take(us, lnlike, betas, parity):
+    """DEO's accepted exchanges ``take [T-1, C]`` (pair ``(i, i+1)`` active
+    where ``i % 2 == parity``) and the active pairs ``[T-1]``."""
+    active = (torch.arange(lnlike.shape[0] - 1, device=lnlike.device) % 2) == parity % 2
+    log_acc = _log_acc(lnlike[:-1], lnlike[1:], betas[:-1, None], betas[1:, None])
+    take = active[:, None] & (torch.log(torch.clamp(us, min=1e-37)) <= log_acc)
+    return take, active
+
+
+def _pad_row(a, where):
+    """``a [T-1, ...]`` with a row of False added at the ``"end"`` or ``"start"``."""
+    pad = torch.zeros_like(a[:1])
+    return torch.cat([a, pad] if where == "end" else [pad, a])
+
+
+def deo_swap_map(us, lnlike, betas, parity):
+    """DEO as a permutation: ``(swap_map [T, C] int32, accepted [T, C],
+    proposed [T])``; ``proposed[i]`` only for the pairs active at
+    ``parity``, so accepted / proposed is a pair's acceptance rate under
+    either scheme."""
+    t, c = lnlike.shape
+    dev = lnlike.device
+    rows = torch.arange(t, dtype=torch.int32, device=dev)[:, None].expand(t, c)
+    if t <= 1:
+        return (rows.clone(), torch.zeros((t, c), dtype=torch.bool, device=dev),
+                torch.zeros(t, dtype=torch.bool, device=dev))
+    take, active = _pair_take(us, lnlike, betas, parity)
+    up, down = _pad_row(take, "end"), _pad_row(take, "start")  # row i swaps with i+1, i-1
+    swap_map = torch.where(up, rows + 1, torch.where(down, rows - 1, rows))
+    return swap_map, up, _pad_row(active, "end")
+
+
+def apply_swap(swap_map, x, lnlike, lnprior):
+    """Permute ``x [T, D, C]``, ``lnlike``/``lnprior [T, C]`` by ``swap_map``:
+    row ``i`` of chain ``c`` takes row ``swap_map[i, c]``. Up to 16 rungs a
+    select over the rows, as the JAX package writes it (its cost grows as
+    T^2); above, a gather. The values are the same."""
+    t = lnlike.shape[0]
+    if t > 16:
+        idx = swap_map.long()
+        xg = torch.gather(x, 0, idx[:, None, :].expand_as(x))
+        return xg, torch.gather(lnlike, 0, idx), torch.gather(lnprior, 0, idx)
+    x_rows, ll_rows, lp_rows = [], [], []
+    for i in range(t):
+        sel = swap_map[i]
+        xi, lli, lpi = x[i], lnlike[i], lnprior[i]
+        for j in range(t):
+            if j != i:
+                m = sel == j
+                xi = torch.where(m, x[j], xi)
+                lli = torch.where(m, lnlike[j], lli)
+                lpi = torch.where(m, lnprior[j], lpi)
+        x_rows.append(xi)
+        ll_rows.append(lli)
+        lp_rows.append(lpi)
+    return torch.stack(x_rows), torch.stack(ll_rows), torch.stack(lp_rows)
+
+
+def deo_swap_apply(us, x, lnlike, lnprior, betas, parity):
+    """One DEO event at ``parity`` (0 or 1, a host int) on ``x [T, D, C]``,
+    ``lnlike``/``lnprior [T, C]``: each row exchanges only with its one
+    partner, so the permutation is two shifted selects, the same values as
+    ``apply_swap(deo_swap_map(...))``.
+
+    Returns ``(x, lnlike, lnprior, accepted [T, C], proposed [T])``.
+    """
+    t, c = lnlike.shape
+    if t <= 1:
+        z = torch.zeros((t, c), dtype=torch.bool, device=x.device)
+        return x, lnlike, lnprior, z, z[:, 0]
+    take, active = _pair_take(us, lnlike, betas, parity)
+    up, down = _pad_row(take, "end"), _pad_row(take, "start")
+
+    def exchange(a, u, d):
+        return torch.where(u, torch.roll(a, -1, 0), torch.where(d, torch.roll(a, 1, 0), a))
+
+    new_x = exchange(x, up[:, None, :], down[:, None, :])
+    return (new_x, exchange(lnlike, up, down), exchange(lnprior, up, down), up,
+            _pad_row(active, "end"))
+
+
 def draw_swap_uniforms(rng, t, c, device):
     """The sweep's uniforms ``[T-1, C]``."""
+    return torch.rand((t - 1, c), generator=rng, device=device)
+
+
+def draw_pair_uniforms(rng, t, c, device):
+    """DEO's uniforms ``[T-1, C]``, row ``g`` for pair ``(g, g+1)``.
+
+    The JAX package draws row ``g`` from its key folded with ``g``
+    (``ptmcmcsampler_tpu/swaps.py pair_uniforms``) so that a device holding
+    a shard of the ladder regenerates exactly the rows of the pairs it
+    owns, and a sharded DEO equals the unsharded one with no randomness
+    sent between devices. Here one generator draws the whole array on one
+    device; a ladder sharded across cards replaces this function with a
+    per-pair draw of that property, and nothing else in the swap changes.
+    """
     return torch.rand((t - 1, c), generator=rng, device=device)

@@ -209,9 +209,9 @@ def test_step_key_holds_every_host_decision():
     state = _state(cfg, model)
     kind = {s.kind: i for i, s in enumerate(cfg.jumps)}
     key = t_kernel.step_key
-    assert key(cfg, state, 3, kind["scam"]) == (kind["scam"], True, None, None,
+    assert key(cfg, state, 3, kind["scam"]) == (kind["scam"], ("sweep",), None, None,
                                                  state.adapt.structure)
-    assert key(cfg, state, 4, kind["scam"])[1] is False
+    assert key(cfg, state, 4, kind["scam"])[1] is None
     assert key(cfg, state, 2, kind["chees"])[2] is True
     assert key(cfg, state, 3, kind["chees"])[2] is False
     assert key(cfg, state, 3, kind["de"])[3] == de_valid_rows(state.de) == 0

@@ -152,9 +152,6 @@ def test_default_jumps_and_weights_match():
     "kw,item",
     [
         (dict(jump_select="per_chain"), "A11"),
-        (dict(swap_mode="deo"), "A6"),
-        (dict(de_pair="rolled"), "A11"),
-        (dict(adapt_ladder=True), "A11"),
         (dict(nuts_max_depth=11), "A11"),
         (dict(nuts_trajectory=True), "A11"),
         (dict(nuts_force_trajlen=5), "A11"),
@@ -175,3 +172,13 @@ def test_config_builds_the_gradient_cycle():
                                  nuts_max_depth=10)
     assert [j.kind for j in cfg.jumps] == ["mala", "hmc", "nuts", "scam", "am", "de"]
     assert (cfg.hmc_nminsteps, cfg.hmc_nmaxsteps, cfg.nuts_delta) == (2, 300, 0.6)
+
+
+@pytest.mark.parametrize("kw", [dict(swap_mode="bogus"), dict(de_pair="bogus"),
+                                dict(jump_select="bogus"), dict(adapt_from="bogus")])
+def test_config_rejects_unknown_settings(kw):
+    base = dict(ndim=2, ntemps=2, nchains=4, groups=((0, 1),),
+                jumps=t_config.build_default_jumps(have_grads=True, CHEESweight=20))
+    base.update(kw)
+    with pytest.raises(ValueError, match="unknown"):
+        t_config.SamplerConfig(**base)

@@ -1200,3 +1200,58 @@ def test_sampler_registers_user_jumps_on_the_card(cuda, tmp_path):
     host = prop[names.index("NumpyGauss")] + prop[names.index("NumpyPrior")]
     assert s.block_stats.eager["host jump"] == host > 0
     assert _launches(s.block_stats, chees_step) == _iterations(s.config, s.state, KIND_CHEES)
+
+
+# ---- DEO swaps, the adaptive ladder and the DE pair laws in the graphs ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("de_pair", ["rolled", "iid"])
+def test_deo_and_ladder_graphs_equal_the_eager_step_loop(cuda, de_pair):
+    """The 50-D hierarchy on 64 rungs x 256 chains, SCAM/AM/DE/ChEES with
+    DEO swaps, the adaptive ladder and the rolled (or iid) DE pair law:
+    ``run_block``'s graphs against ``step`` after ``step`` over 150
+    iterations that cross the ladder's burn (60), bit for bit. Both DEO
+    parities, with and without the ladder's update, and the DE iterations
+    replay graphs (a shift read back to the host would raise at capture);
+    the ladder moves, descending, with both ends kept."""
+    from ptmcmcsampler_torch.config import KIND_DE
+    from ptmcmcsampler_torch.ladder import ladder_betas, temperature_ladder
+    from ptmcmcsampler_torch.proposals.cycle import draw_kinds
+    from ptmcmcsampler_torch.state import state_tensors
+
+    model = HierarchicalGaussian()
+    d, t, c = model.ndim, 64, 256
+    cfg = SamplerConfig(
+        ndim=d, ntemps=t, nchains=c, groups=(tuple(range(d)),),
+        jumps=build_default_jumps(SCAMweight=10, AMweight=10, DEweight=10, CHEESweight=20,
+                                  burn=30, have_grads=True),
+        tskip=5, cov_update=50, burn=60, thin=1, de_size=400, hmc_stepsize=0.08,
+        swap_mode="deo", de_pair=de_pair, adapt_ladder=True, ladder_adapt_lag=100.0,
+        ladder_adapt_time=5.0)
+    _, betas = ladder_betas(temperature_ladder(d, t))
+    xs = torch.zeros((t, d, c), device=cuda)
+
+    def fresh():
+        return init_state(cfg, 4, np.zeros(d), np.eye(d), betas, model.lnlike(xs),
+                          model.lnprior(xs), device=cuda)
+
+    step, run_block = build_step(cfg, model, device=cuda)
+    eager, graph = fresh(), fresh()
+    kinds = draw_kinds(cfg, 0, 150, eager.host_rng)
+    for kind in kinds:
+        eager = step(eager, kind)
+    graph, _ = run_block(graph, 150, kinds=kinds)
+    torch.cuda.synchronize()
+    te, tg = state_tensors(eager), state_tensors(graph)
+    for path in te:
+        assert torch.equal(_bits(te[path]), _bits(tg[path])), path
+    assert torch.equal(eager.rng.get_state(), graph.rng.get_state())
+    stats = run_block.stats
+    events = {key[1] for key in stats.replays}
+    assert {("deo", 0, "ladder"), ("deo", 1, "ladder"), ("deo", 0), ("deo", 1)} <= events
+    de = [j.kind for j in cfg.jumps].index(KIND_DE)
+    assert any(key[0] == de for key in stats.replays)
+    b0 = fresh().betas
+    b = graph.betas
+    assert not torch.equal(b, b0) and torch.all(b[1:] < b[:-1])
+    assert b[0] == b0[0] and b[-1] == b0[-1]

@@ -281,7 +281,6 @@ def test_without_grads_no_gradient_jump(tmp_path):
     ("mesh", NotImplementedError, "A12"),
     ("trajectoryDir", NotImplementedError, "A11"),
     ("dtype", ValueError, "float32"),
-    ("adaptLadder", NotImplementedError, "A11"),
 ])
 def test_refusals_name_the_item(tmp_path, call, error, item):
     ll, lp, llg, lpg = _curved_callables("bound")
@@ -293,9 +292,7 @@ def test_refusals_name_the_item(tmp_path, call, error, item):
             PTSampler(2, ll, lp, np.eye(2), dtype=np.float64, **kw)
         else:
             s = PTSampler(2, ll, lp, np.eye(2), **kw)
-            arg = {"trajectoryDir": str(tmp_path / "t")} if call == "trajectoryDir" \
-                else {"adaptLadder": True}
-            s.sample(P0, 10, burn=5, thin=1, isave=5, **arg)
+            s.sample(P0, 10, burn=5, thin=1, isave=5, trajectoryDir=str(tmp_path / "t"))
 
 
 # One callable of each user-jump method in each protocol: torch-native, or
