@@ -283,6 +283,38 @@ Phases, in order; any failure exits non-zero:
    equal the unbroken run's byte for byte, ``chees_step`` once per ChEES
    iteration in each run; the gate past iteration 1000 is printed. One
    line ``"phase": "ladder_sampler"``.
+9i. ``jump_select="per_chain"`` (``phase_per_chain``), each chain its own
+   kind every iteration: the graphs checks (run_block against the eager
+   step loop over PER_CHAIN_GRAPHS_ITERS iterations that cross DE's
+   activation, bit for bit, every kernel once an iteration) for the
+   rotation on both paths' cycles on the 50-D hierarchy at T x C and the
+   stacked mode on path 2's at T x STACKED_C; both paths at T x C under
+   the rotation (PER_CHAIN_ITERS, cut from bench.py's 3000 + 12000): each
+   jump's proposals equal to its slices' counts x T x the phases'
+   iterations, exactly, each kernel launched once an iteration on its
+   slice (a ragged one: 3277 or 6554 chains a rung, no whole group),
+   counted through the graphs, the moment gate, the profile; then
+   ``PTSampler(jump_select="per_chain")`` at T x WIDE_SAMPLER_C. Lines
+   ``"phase": "per_chain"``.
+9j. The NUTS kernel's general entry (``phase_nuts_general``): against its
+   plain version on T x (C - 1) chains (the plain version on
+   GENERAL_PLAIN_COLUMNS chains a rung) for the curved model, the 50-D
+   hierarchy and its user functor, at depth GENERAL_DEPTH with every tree
+   run to the cap and with each forced length of GENERAL_TRAJLENS, the
+   captured lane's buffers too: no lane, no buffer may differ in any bit;
+   at depth 6 the general entry equals the default one. The default
+   entries' ptxas lines must equal 5902412's (BASE_NUTS_PTXAS). Then path 2
+   on the curved target at depth GENERAL_DEPTH with
+   ``nuts_force_trajlen=GENERAL_PATH_TRAJLEN`` (every NUTS call through the
+   general entry; the trees that leave no box run forced_leaves' 1501), its
+   gate and share of trees past 1023 leaves printed, and the
+   general entry's ms a call on the path's final state: the NUTS item's
+   ``general`` entry of the kernels line.
+9k. ``trajectory_sampler``: ``PTSampler`` on the 50-D hierarchy at T x
+   WIDE_SAMPLER_C, path 2's cycle, WIDE_SAMPLER_ITERS iterations, with
+   ``trajectoryDir`` and ``write_burnin``: three files for each emitted row
+   that ran NUTS, every NUTS launch through the general entry; the same
+   seeded run without it (the default entry) leaves every file equal.
 10. Kernels line: each kernel's launches on its path, error against the
    plain version, device time (CUDA events, stream held, inputs from its
    path's final state), the time of a wrapper call, the plain version's time
@@ -448,8 +480,11 @@ PLAIN_KW = dict(burn=500, Tskip=5, isave=500, covUpdate=500, thin=10, SCAMweight
 # (tools/torch_wide_workload.py), more than this script's limit leaves
 # beside its other phases. So its burn-in is cut as well as its timed
 # iterations.
-WIDE_ITERS = {"gaussian": (3000, 12000), "hierarchical": (3000, 12000),
-              "gaussian200": (500, 500)}
+# Cut: the 40-D and 50-D timed iterations to 6000 and gaussian200 to
+# 250 + 250, to make room for the per-chain, general-entry and trajectory
+# phases.
+WIDE_ITERS = {"gaussian": (3000, 6000), "hierarchical": (3000, 6000),
+              "gaussian200": (250, 250)}
 # The wide kernel-vs-plain checks run the kernels at the main path's 8 x
 # 16384 chains and the plain version on the same batch, but for gaussian200
 # at 256 steps, where the plain version (its ordered sums are D launches a
@@ -484,8 +519,10 @@ WIDE_MODEL_OPS = {
 # 50- and 200-D after 3000, 1500 and 500 burn-in iterations (PERF.md §5), so
 # bench.py's counts take about 50 s at 40-D and would take about 130 and
 # 460 s at 50-D and 200-D.
-WIDE_NUTS_ITERS = {"gaussian": (3000, 12000), "hierarchical": (1500, 4500),
-                   "gaussian200": (500, 500)}
+# Cut to 1500 + 3000 at 40-D, 1000 + 2000 at 50-D and 150 +
+# 150 at 200-D for the same reason.
+WIDE_NUTS_ITERS = {"gaussian": (1500, 3000), "hierarchical": (1000, 2000),
+                   "gaussian200": (150, 150)}
 # The wide NUTS and HMC checks run the plain version on this many chains a
 # rung (the first and the last half of them), the kernels on all of them.
 WIDE_PLAIN_COLUMNS_NUTS = 1024
@@ -501,8 +538,10 @@ WIDE_CAPPED_EPS = 1e-6
 # listed in each JSON line). user_hierarchical is bench.py's hierarchical
 # workload through the registered functor; user_ref_gaussian the 10-D
 # Gaussian, run for its entries' launches and timings on a path.
-USER_ITERS = {"user_hierarchical": (1500, 4500), "user_ref_gaussian": (500, 1000)}
-USER_NUTS_ITERS = {"user_hierarchical": (1000, 3000), "user_ref_gaussian": (500, 1000)}
+# Cut: user_hierarchical's timed iterations to 3000 (path 1) and its
+# path 2 to 500 + 1000.
+USER_ITERS = {"user_hierarchical": (1500, 3000), "user_ref_gaussian": (500, 1000)}
+USER_NUTS_ITERS = {"user_hierarchical": (500, 1000), "user_ref_gaussian": (500, 1000)}
 # The user sampler phase's reference scenario (the reference's test_nuts.py
 # cycle through PTSampler, its HMC settings), at 8 x 1024 chains.
 USER_REF_ITERS = 2000
@@ -955,8 +994,18 @@ LARGE_NGROUPS = {"hierarchical270": 269, "hierarchical1024": 1023}
 # A NUTS call takes about 0.16 s at 270-D and 2.9 s at 1024-D on an H100
 # (trees of 33 and 55 leaves on average, groups of 8 and 4 chains run to
 # their deepest tree), so path 2 at 1024-D is cut furthest.
-LARGE_ITERS = {"hierarchical270": (1000, 2000), "hierarchical1024": (200, 300)}
-LARGE_NUTS_ITERS = {"hierarchical270": (400, 600), "hierarchical1024": (60, 100)}
+# Cut: path 1 at 1024-D to half (from 200 + 300) and path 2 at 270-D
+# from 400 + 600, to make room for the per-chain, general-entry and
+# trajectory phases. Path 2 at 1024-D keeps 60 +
+# 100: with 50 timed iterations a first use of a key there left 0.96 of
+# them replayed, below MIN_REPLAYED_SHARE.
+LARGE_ITERS = {"hierarchical270": (1000, 2000), "hierarchical1024": (100, 150)}
+LARGE_NUTS_ITERS = {"hierarchical270": (300, 450), "hierarchical1024": (60, 100)}
+# Path 2 at 270-D runs at a smaller NUTS depth cap (bench.py's 10), for the
+# same room: a group of 8 chains steps as long as its deepest tree. Listed
+# in its line's cuts. (At 1024-D a cap of 7 took a call only from 2.16 to
+# 1.80 s on an H100, 18 s of the script, so that path keeps 10.)
+LARGE_NUTS_DEPTH = {"hierarchical270": 8}
 # The plain versions' chains a rung in the large workloads' kernel items
 # (their ordered sums over D are D launches a product); the NUTS plain
 # version, which runs to the deepest tree of its chains, on (rungs,
@@ -2916,17 +2965,28 @@ def phase_wide_nuts_path(name, card, err, ptxas, iters=WIDE_NUTS_ITERS):
     ``hmc_step`` once per HMC iteration, the HMC trajectory entry never), the
     gate at 40-D and 50-D, gaussian200 finite with its split R-hat; the trees
     of one more call at the final state; NUTS iterations alone under the
-    profiler; then the NUTS and HMC kernels' items. Prints the workload's
-    JSON line; returns ``(nuts_item, hmc_item)``."""
+    profiler; then the NUTS and HMC kernels' items. A workload of
+    LARGE_NUTS_DEPTH runs all of it at that depth cap. Prints the
+    workload's JSON line; returns ``(nuts_item, hmc_item)``."""
     from ptmcmcsampler_torch.config import KIND_HMC, KIND_NUTS
     from ptmcmcsampler_torch.ops.common import wide_group
     from ptmcmcsampler_torch.ops.hmc import hmc_step, hmc_trajectories
     from ptmcmcsampler_torch.ops.nuts import nuts_trees
     from ptmcmcsampler_torch.proposals.nuts import draw_nuts
 
+    global NUTS_DEPTH
+    if name in LARGE_NUTS_DEPTH and NUTS_DEPTH != LARGE_NUTS_DEPTH[name]:
+        saved, NUTS_DEPTH = NUTS_DEPTH, LARGE_NUTS_DEPTH[name]
+        try:
+            items = phase_wide_nuts_path(name, card, err, ptxas, iters)
+        finally:
+            NUTS_DEPTH = saved
+        return items
     model, x0 = wide_workload(name)
     d = model.ndim
     block, burn, timed, cuts, stride = wide_counts(name, d, iters)
+    if name in LARGE_NUTS_DEPTH:
+        cuts["nuts_max_depth"] = {"bench": 10, "run": NUTS_DEPTH}
     cfg = wide_nuts_config(d, burn)
     state, (step, run_block), result, ok = phase_main_path(
         model, card, f"nuts/{name}", cfg, {KIND_NUTS: nuts_trees, KIND_HMC: hmc_step},
@@ -3597,7 +3657,9 @@ def large_check_line(card, label, model, builtin, err, seconds):
 # burn-in, a small-Gaussian custom jump at 5, the prior draw at 2) plus ChEES
 # at 20 and the auxiliary HierarchyReflection, on bench.py's 50-D hierarchy.
 CUSTOM_WEIGHTS = dict(SCAMweight=20, AMweight=20, DEweight=20, CHEESweight=20)
-CUSTOM_ITERS = {"custom_jumps": (3000, 12000)}
+# Cut: the timed iterations to 6000, to make room for the per-chain,
+# general-entry and trajectory phases.
+CUSTOM_ITERS = {"custom_jumps": (3000, 6000)}
 CUSTOM_SAMPLER_KW = dict(burn=500, Tskip=5, isave=500, covUpdate=500, thin=10,
                          NUTSweight=0, HMCweight=0, MALAweight=0, HMCstepsize=HMC_EPS,
                          **CUSTOM_WEIGHTS)
@@ -3728,8 +3790,11 @@ def phase_host_jumps():
 # 12000 to keep the script in its time limit (each line lists its cut): at
 # the full counts they took 31, 10, 7 and 16 s on an H100 (PERF.md §5).
 LADDER_T, LADDER_C = 64, 2048
-LADDER_ITERS = {"tall_ladder": (3000, 6000), "tall_ladder_sweep": (1000, 3000),
-                "de_iid": (3000, 6000), "de_rolled": (3000, 6000)}
+# Cut: the timed iterations of tall_ladder, de_iid and de_rolled from
+# 6000 to 3000, and of the sweep from 3000 to 1500, to make room for the
+# per-chain, general-entry and trajectory phases.
+LADDER_ITERS = {"tall_ladder": (3000, 3000), "tall_ladder_sweep": (1000, 1500),
+                "de_iid": (3000, 3000), "de_rolled": (3000, 3000)}
 # The eager loop against the graphs on these paths' final states: 20
 # iterations of each under the profiler, as on the wide paths past 64-D.
 LADDER_COMPARE_ITERS = 20
@@ -4044,6 +4109,609 @@ def phase_ladder_sampler(card, wrappers):
         shutil.rmtree(root, ignore_errors=True)
 
 
+
+# ---- Slice 15: per-chain jump selection, the NUTS kernel's general entry
+# and the NUTS trajectory capture (ROADMAP A11's end) ----
+
+# The per_chain phase: both paths' cycles on the 50-D hierarchy at T x C,
+# rotation mode, cut from bench.py's 3000 + 12000 to fit the script's limit.
+PER_CHAIN_ITERS = {"hierarchical": (1000, 2000), "nuts/hierarchical": (500, 1000)}
+# The graphs check of the per_chain phase: eager loop against run_block over
+# PER_CHAIN_GRAPHS_ITERS iterations that cross DE's activation (burn cut to
+# GRAPHS_BURN, cov_update to GRAPHS_COV_UPDATE); the stacked mode on path
+# 2's cycle at T x STACKED_C.
+PER_CHAIN_GRAPHS_ITERS, STACKED_C = 60, 64
+# The NUTS kernel's general entry: checks at GENERAL_DEPTH on T x (C - 1)
+# chains (no whole group, no whole block) against the plain version on
+# GENERAL_PLAIN_COLUMNS chains a rung (the first and the last halves),
+# trees at a step size of GENERAL_CAPPED_EPS (every tree to the cap) and
+# with each forced length of GENERAL_TRAJLENS, with the capture; then path
+# 2 on the curved target at depth GENERAL_DEPTH with a forced length of
+# GENERAL_PATH_TRAJLEN (every tree past 1023 leaves), GENERAL_PATH_ITERS.
+GENERAL_DEPTH, GENERAL_CAPPED_EPS = 12, 1e-5
+GENERAL_TRAJLENS = (1, 37, 1500)
+GENERAL_PLAIN_COLUMNS = 64
+GENERAL_PATH_TRAJLEN, GENERAL_PATH_ITERS = 1500, (500, 1000)
+# The trajectory_sampler phase: PTSampler on the 50-D hierarchy at T x
+# WIDE_SAMPLER_C, path 2's cycle, with trajectoryDir and write_burnin.
+TRAJ_SAMPLER_KW = dict(WIDE_SAMPLER_KW, CHEESweight=0)
+# The ptxas lines of the NUTS kernel's default entries at 5902412 (this
+# script's build log there; tools/torch_ptxas_diff.py --other holds them to
+# a build of that checkout); their sources are unchanged since.
+BASE_NUTS_PTXAS = {
+    "nuts_tree_kernel<>": (62, 0, 0, 0, 26624),
+    "nuts_wide_kernel<WideHierarchicalGaussian,0>": (128, 496, 772, 1256, 2304),
+    "nuts_wide_kernel<WideHierarchicalGaussian,1>": (128, 496, 768, 1288, 2304),
+    "nuts_wide_kernel<WideIntervalGaussian,0>": (128, 408, 578, 888, 2304),
+    "nuts_wide_kernel<WideIntervalGaussian,1>": (128, 416, 578, 980, 2304),
+    "nuts_wide_kernel<WideCorrelatedGaussian,0>": (128, 480, 912, 1592, 2304),
+    "nuts_wide_kernel<WideCorrelatedGaussian,1>": (128, 488, 876, 1528, 2304),
+}
+PTXAS_FIELDS = ("registers", "stack_bytes", "spill_store_bytes", "spill_load_bytes",
+                "static_smem_bytes")
+
+
+def per_chain_config(cfg, mode="rotation"):
+    return dataclasses.replace(cfg, jump_select="per_chain", per_chain_mode=mode)
+
+
+def per_chain_expected(cfg, iters):
+    """Each jump's proposals over the whole batch after ``iters``
+    iterations from 0: the partition of each activation phase times T times
+    the phase's iterations (the rotation's totals, whatever the draws)."""
+    from ptmcmcsampler_torch.proposals.cycle import activation_thresholds, phase_partitions
+
+    ends = [0] + [min(iters, thr) for thr in activation_thresholds(cfg)] + [iters]
+    parts = phase_partitions(cfg)
+    return sum(parts[p] * (ends[p + 1] - ends[p]) for p in range(len(parts))) * cfg.ntemps
+
+
+def per_chain_graphs(card, label, cfg, model, x0, wrappers, iters=PER_CHAIN_GRAPHS_ITERS,
+                     block=50):
+    """The eager step loop against ``run_block``'s graphs from one seed over
+    ``iters`` iterations: every state tensor, host field and generator equal
+    bit for bit, and each kernel of ``wrappers`` launched once an iteration
+    in both (every kernel kind is active in every phase, on its slice or on
+    the whole batch). Returns the result (printed by the caller)."""
+    from ptmcmcsampler_torch import build_step
+    from ptmcmcsampler_torch.state import state_tensors
+
+    dev = torch.device(DEVICE)
+    step, run_block = build_step(cfg, model, device=dev)
+    eager, graph = new_state(cfg, model, x0, dev), new_state(cfg, model, x0, dev)
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(iters):
+        eager = step(eager)
+    torch.cuda.synchronize()
+    eager_sec = time.time() - t0
+    eager_launches = {k: w.launches for k, w in wrappers.items()}
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.time()
+    for i in range(0, iters, block):
+        graph, _ = run_block(graph, min(block, iters - i))
+    torch.cuda.synchronize()
+    graph_sec = time.time() - t0
+    stats = run_block.stats
+    graph_launches = counted_launches(stats, wrappers)
+
+    def bits(a):
+        return a.contiguous().reshape(-1).view(torch.uint8)
+
+    te, tg = state_tensors(eager), state_tensors(graph)
+    differ = [p for p in te if not torch.equal(bits(te[p]), bits(tg[p]))]
+    if (eager.it, eager.de.filled) != (graph.it, graph.de.filled):
+        differ.append("host fields")
+    differ += [g for g in ("rng", "host_rng")
+               if not torch.equal(getattr(eager, g).get_state(), getattr(graph, g).get_state())]
+    prop = graph.counters.jump_proposed.sum((1, 2)).cpu().numpy()
+    want = per_chain_expected(cfg, iters)
+    name, power = [v.strip() for v in card.split(",", 1)]
+    result = {
+        "phase": "per_chain", "check": "graphs", "path": label, "mode": cfg.per_chain_mode,
+        "chains": [cfg.ntemps, cfg.nchains], "iters": iters, "block": block,
+        "cuts": {"burn": {"path": BURN_ITERS // 2, "run": cfg.burn},
+                 "cov_update": {"path": 1000, "run": cfg.cov_update}},
+        "bitwise_equal": not differ, "differ": differ, "tensors_compared": len(te),
+        "eager_ms_per_iter": 1e3 * eager_sec / iters, "graph_ms_per_iter": 1e3 * graph_sec / iters,
+        **stats.summary(), "graph_keys": [list(map(str, k)) for k in stats.recorded],
+        "eager_launches": eager_launches, "graph_launches": graph_launches,
+        "proposals": dict(zip(cfg.jump_names(), prop.tolist())),
+        "card": name, "power_limit": power,
+    }
+    print(json.dumps(result), flush=True)
+    if differ:
+        raise SystemExit(f"per_chain graphs {label}: the graphs and the eager loop differ in "
+                         f"{differ}")
+    if any(n != iters for n in (*graph_launches.values(), *eager_launches.values())):
+        raise SystemExit(f"per_chain graphs {label}: launches {graph_launches} (graphs), "
+                         f"{eager_launches} (eager) for {iters} iterations")
+    if cfg.per_chain_rotation and not np.array_equal(prop, want):
+        raise SystemExit(f"per_chain graphs {label}: proposals {prop}, expected {want}")
+    return result
+
+
+def phase_per_chain_path(card, label, cfg, model, x0, wrappers, burn, timed, block, stride, cuts):
+    """One path's cycle under per_chain rotation at T x C through
+    ``run_block``: each kind's proposals equal to the partitions' counts x T
+    x the phases' iterations, exactly; each kernel of ``wrappers`` launched
+    once an iteration on its slice, counted through the graphs; the moment
+    gate on every ``stride``-th cold chain; at least MIN_REPLAYED_SHARE of
+    the timed iterations replayed; then the iterations under the profiler.
+    Prints its JSON line and returns it."""
+    from ptmcmcsampler_torch import build_step
+    from ptmcmcsampler_torch.diagnostics import moment_gate
+    from ptmcmcsampler_torch.proposals.cycle import phase_partitions
+
+    dev = torch.device(DEVICE)
+    t, d, c = cfg.ntemps, cfg.ndim, cfg.nchains
+    _, run_block = build_step(cfg, model, device=dev)
+    state = new_state(cfg, model, x0, dev)
+    stats = run_block.stats
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    for _ in range(burn // block):
+        state, out = run_block(state, block)
+    torch.cuda.synchronize()
+    before = (sum(stats.replays.values()), stats.iterations)
+    cold = []
+    t1 = time.time()
+    for _ in range(timed // block):
+        state, out = run_block(state, block)
+        cold.append(out.x[:, 0, :, ::stride].clone())
+    torch.cuda.synchronize()
+    elapsed = time.time() - t1
+    del out
+    log(f"{label}: {burn} + {timed} iterations, timed {elapsed:.1f}s")
+    launches = counted_launches(stats, wrappers)
+    graphs = stats.summary()
+    graphs["timed_replayed_share"] = ((sum(stats.replays.values()) - before[0])
+                                      / (stats.iterations - before[1]))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    prop = state.counters.jump_proposed.sum((1, 2)).cpu().numpy()
+    want = per_chain_expected(cfg, burn + timed)
+    chains = torch.cat(cold).permute(2, 0, 1)
+    del cold
+    ok, max_z, ess = moment_gate(chains, model.posterior_moments()[0])
+    del chains
+    state, prof = phase_profile(state, lambda st, n: run_block(st, n)[0], label,
+                                iters=PROFILE_ITERS, iterations="all, graphs")
+    name, power = [v.strip() for v in card.split(",", 1)]
+    result = {
+        "phase": "per_chain", "path": label, "mode": cfg.per_chain_mode, "chains": [t, c],
+        "ndim": d, "burn_iters": burn, "timed_iters": timed, "block": block, "cuts": cuts,
+        "gate_stride": stride, "iters_per_sec": timed / elapsed,
+        "ess_per_sec": float(ess.min()) / elapsed, "moments_ok": ok, "moments_max_z": max_z,
+        "slices_by_phase": {str(p): dict(zip(cfg.jump_names(), part.tolist()))
+                            for p, part in enumerate(phase_partitions(cfg))},
+        "proposals": dict(zip(cfg.jump_names(), prop.tolist())),
+        "proposals_expected": dict(zip(cfg.jump_names(), want.tolist())),
+        "launches": launches, "iterations": burn + timed, "graphs": graphs,
+        "peak_mem_gb": peak_gb, "profile": {k: prof[k] for k in PROFILE_KEYS},
+        "jumps": jump_counts(cfg, state), "card": name, "power_limit": power,
+    }
+    print(json.dumps(result), flush=True)
+    checks = {
+        "proposals": (prop.tolist(), want.tolist()),
+        "launches": (launches, {k: burn + timed for k in wrappers}),
+        "moment gate": (ok, True),
+        "finite state": (bool(torch.isfinite(state.x).all()), True),
+    }
+    for what, (got, expect) in checks.items():
+        if got != expect:
+            raise SystemExit(f"per_chain {label}: {what} is {got}, expected {expect}")
+    if graphs["timed_replayed_share"] < MIN_REPLAYED_SHARE:
+        raise SystemExit(f"per_chain {label}: only {graphs['timed_replayed_share']:.4f} of the "
+                         "timed iterations replayed a graph")
+    return result
+
+
+def phase_per_chain_sampler(card, wrappers):
+    """PTSampler(jump_select="per_chain") on the 50-D hierarchy's bound
+    methods at T x WIDE_SAMPLER_C (rotation), WIDE_SAMPLER_KW's cycle: each
+    kernel once an iteration, the cold chains' proposals of each jump equal
+    to the partitions' counts, the chain files' rows, the gate past
+    iteration 1000."""
+    from ptmcmcsampler_torch import PTSampler
+    from ptmcmcsampler_torch.diagnostics import moment_gate
+
+    dev = torch.device(DEVICE)
+    model = wide_workload("hierarchical")[0]
+    d = model.ndim
+    root = tempfile.mkdtemp(prefix="chip_smoke_per_chain_")
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with contextlib.redirect_stdout(sys.stderr):
+            s = PTSampler(d, model.lnlikefn, model.lnpriorfn, np.eye(d),
+                          logl_grad=model.lnlikefn_grad, logp_grad=model.lnpriorfn_grad,
+                          ntemps=T, nchains=WIDE_SAMPLER_C, outDir=root, seed=7,
+                          jump_select="per_chain")
+            t0 = time.time()
+            s.sample(np.zeros(d), WIDE_SAMPLER_ITERS, **WIDE_SAMPLER_KW)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        launches = counted_launches(s.block_stats, wrappers)
+        cold = s.state.counters.jump_proposed[:, 0].sum(-1).cpu().numpy()
+        want = per_chain_expected(s.config, WIDE_SAMPLER_ITERS) // T
+        rows = 1 + WIDE_SAMPLER_ITERS // WIDE_SAMPLER_KW["thin"]
+        text = np.loadtxt(os.path.join(root, "chain_1.0.txt"), ndmin=2)
+        ok, max_z, ess = moment_gate(s.chains[:, 1000 // WIDE_SAMPLER_KW["thin"] + 1:],
+                                     model.posterior_moments()[0])
+        name, power = [v.strip() for v in card.split(",", 1)]
+        result = {
+            "phase": "per_chain", "path": "sampler", "mode": "rotation" if
+            s.config.per_chain_rotation else "stacked", "chains": [T, WIDE_SAMPLER_C],
+            "ndim": d, "iters": WIDE_SAMPLER_ITERS, "iters_per_sec": WIDE_SAMPLER_ITERS / wall,
+            "launches": launches, "cold_proposals": dict(zip(s.config.jump_names(), cold.tolist())),
+            "moments_ok": ok, "moments_max_z": max_z, "ess_min_dim": float(ess.min()),
+            "graphs": s.block_stats.summary(),
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "card": name, "power_limit": power,
+        }
+        print(json.dumps(result), flush=True)
+        if not s.config.per_chain_rotation:
+            raise SystemExit("per_chain sampler: expected the rotation at "
+                             f"{WIDE_SAMPLER_C} chains")
+        checks = {
+            "cold proposals": (cold.tolist(), want.tolist()),
+            "launches": ({k: launches[k] for k in ("chees_step", "nuts_trees", "hmc_step")},
+                         {k: WIDE_SAMPLER_ITERS for k in ("chees_step", "nuts_trees", "hmc_step")}),
+            "trajectory entries' launches": (launches["chees_trajectories"]
+                                             + launches["hmc_trajectories"], 0),
+            "chain text rows x columns": (text.shape, (rows, d + 4)),
+            "moment gate": (ok, True),
+        }
+        for what, (got, expect) in checks.items():
+            if got != expect:
+                raise SystemExit(f"per_chain sampler: {what} is {got}, expected {expect}")
+        return {k: launches[k] for k in ("chees_step", "nuts_trees", "hmc_step")}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_per_chain(card, wrappers):
+    """The per_chain phase: the graphs checks (rotation on both paths,
+    stacked on path 2 at T x STACKED_C), both paths at full width, then
+    PTSampler. Returns each kernel's launches by path."""
+    from ptmcmcsampler_torch.config import KIND_CHEES, KIND_HMC, KIND_NUTS
+
+    model, x0 = wide_workload("hierarchical")
+    d = model.ndim
+    path1 = {KIND_CHEES: wrappers["chees_step"]}
+    path2 = {KIND_NUTS: wrappers["nuts_trees"], KIND_HMC: wrappers["hmc_step"]}
+    cut = dict(cov_update=GRAPHS_COV_UPDATE)
+    launches = {}
+    for label, cfg, ws in (
+            ("hierarchical", per_chain_config(wide_config(d, GRAPHS_BURN, **cut)), path1),
+            ("nuts/hierarchical", per_chain_config(wide_nuts_config(d, GRAPHS_BURN, **cut)),
+             path2),
+            ("nuts/hierarchical stacked", per_chain_config(dataclasses.replace(
+                wide_nuts_config(d, GRAPHS_BURN, **cut), nchains=STACKED_C), "stacked"),
+             path2)):
+        per_chain_graphs(card, label, cfg, model, x0, ws)
+        torch.cuda.empty_cache()
+    for label, make, ws in (("hierarchical", wide_config, path1),
+                            ("nuts/hierarchical", wide_nuts_config, path2)):
+        block, burn, timed, cuts, stride = wide_counts("hierarchical", d,
+                                                       {"hierarchical": PER_CHAIN_ITERS[label]})
+        result = phase_per_chain_path(card, f"per_chain/{label}",
+                                      per_chain_config(make(d, burn)), model, x0, ws, burn,
+                                      timed, block, stride, cuts)
+        for kind, n in result["launches"].items():
+            launches.setdefault(ws[kind].__name__, {})[f"per_chain/{label}"] = n
+        torch.cuda.empty_cache()
+    for k, n in phase_per_chain_sampler(card, wrappers).items():
+        launches.setdefault(k, {})["per_chain/sampler"] = n
+    return launches
+
+
+def forced_leaves(trajlen, depth):
+    """The leaves a tree runs with a forced length where no leaf diverges:
+    doubling j runs 2**j leaves and stops after an odd leaf k where
+    2**j + k >= trajlen; the tree stops after a doubling that reaches it."""
+    total = 0
+    for j in range(depth):
+        for k in range(1, 1 << j, 2):
+            if (1 << j) + k >= trajlen:
+                return total + k + 1
+        total += 1 << j
+        if total >= trajlen:
+            return total
+    return total
+
+
+def general_cases(model):
+    """The general entry's checks: (label, depth, step-size scale, forced
+    length), each with the capture. The plain version's trees of 4095 and
+    1501 leaves take 30 and 11 s at 50-D (its ordered sums are D launches a
+    product), so the 50-D hierarchy takes the two short lengths and its
+    user functor (the same template) one; the card tests hold the 50-D
+    entry to its plain version with every tree at the cap and at 1500
+    (``tests/test_torch_cuda.py``)."""
+    cases = [("capped", GENERAL_DEPTH, None, None)]
+    cases += [(f"trajlen {n}", GENERAL_DEPTH, 1.0, n) for n in GENERAL_TRAJLENS]
+    if model.ndim == 2:
+        return cases
+    if getattr(model, "cuda_functor", "").startswith("user_"):
+        return cases[2:3]
+    return cases[1:3]
+
+
+def phase_general_vs_plain(model, label):
+    """The general entry on T x (C - 1) chains against its plain version on
+    GENERAL_PLAIN_COLUMNS chains a rung, each case of ``general_cases``: no
+    lane may differ in any bit, nor the captured lane's buffers; the trees
+    must run past 1023 leaves where the case says (the cap: every tree to
+    4095 leaves; a forced length L: 2**j - 1 + an even count past L, the
+    same in every lane). At depth 6 the general entry must equal the
+    default entry in every bit. Returns ``(largest |kernel - plain|,
+    {case: trees})``."""
+    from ptmcmcsampler_torch import SamplerConfig, build_default_jumps
+    from ptmcmcsampler_torch.ops.nuts import nuts_trees, nuts_trees_plain, nuts_uniforms
+    from ptmcmcsampler_torch.proposals.nuts import draw_nuts
+    from ptmcmcsampler_torch.trajectory import empty_capture
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1515)
+    d, c = model.ndim, C - 1
+    n = GENERAL_PLAIN_COLUMNS // 2
+    cols = torch.cat([torch.arange(n, device=dev), torch.arange(c - n, c, device=dev)])
+    err, trees = 0.0, {}
+
+    def inputs(depth):
+        if d == 2:
+            q0, _, betas, eps, _, chol = trajectory_inputs(gen, dev, 1, c)
+            r0, expo, dirs, accu, key, r_eps = draw_nuts(gen, T, D, c, depth, dev)
+        else:
+            (q0, r0, betas, eps, expo, dirs, accu, key, chol), r_eps = wide_tree_inputs(
+                gen, dev, model, c, depth)
+        eps = eps.abs().clamp(min=1e-3).contiguous()  # every lane builds a tree
+        return [q0, r0, betas, eps, expo, dirs, accu, key, chol], r_eps
+
+    args, r_eps = inputs(6)
+    same = lanes_differ(nuts_trees(*args, model, r_eps=r_eps, general=True),
+                        nuts_trees(*args, model, r_eps=r_eps))
+    log(f"general {label}: depth 6, {same} lanes differ from the default entry")
+    if same:
+        raise SystemExit(f"general {label}: the general entry differs from the default one")
+    for case, depth, scale, trajlen in general_cases(model):
+        args, _ = inputs(depth)
+        if scale is None:  # every tree to the cap
+            args[3] = torch.full_like(args[3], GENERAL_CAPPED_EPS if d == 2 else 1e-4)
+        cfg = SamplerConfig(ndim=d, ntemps=1, nchains=1, groups=((0,),),
+                            jumps=build_default_jumps(), nuts_max_depth=depth)
+        cap, cap_ref = empty_capture(cfg, dev), empty_capture(cfg, dev)
+        t0 = time.time()
+        out = nuts_trees(*args, model, force_trajlen=trajlen, capture=cap)
+        torch.cuda.synchronize()
+        kernel_s = time.time() - t0
+        sub = take_columns(args, c, cols)
+        t0 = time.time()
+        # The reservoir's uniforms of the columns' chains (a chain's Philox
+        # counter is its index in the whole batch).
+        resu = nuts_uniforms(args[7], depth, T, c).index_select(-1, cols)
+        ref = nuts_trees_plain(*sub[:7], resu, sub[8], model, force_trajlen=trajlen,
+                               capture=cap_ref)
+        del resu
+        torch.cuda.synchronize()
+        plain_s = time.time() - t0
+        got = take_columns(out, c, cols)
+        differ = lanes_differ(got, ref)
+        cap_differ = [f for f, a, b in zip(("plus", "minus", "ind_plus", "ind_minus", "meta"),
+                                           cap.tensors(), cap_ref.tensors())
+                      if not torch.equal(a, b)]
+        nalpha = out[4]
+        stats = {"min_nalpha": float(nalpha.min()), **tree_stats(nalpha, out[5]),
+                 "capture_lengths": cap.meta.tolist(), "kernel_s": kernel_s,
+                 "plain_s": plain_s}
+        trees[case] = stats
+        log(f"general {label} {case}: {differ} of {T * 2 * n} lanes differ from the plain "
+            f"version, capture differs in {cap_differ}, trees {stats}")
+        # The cap: nearly every tree at 2**depth - 1 leaves; a forced length:
+        # no tree past forced_leaves (a tree that leaves the prior box or
+        # diverges stops before it), and some at it.
+        most = (1 << depth) - 1 if trajlen is None else forced_leaves(trajlen, depth)
+        stats["share_at_most"] = float((nalpha == most).float().mean())
+        want_ok = float(nalpha.max()) == most and (
+            trajlen is not None or stats["share_at_most"] >= CAPPED_ALIVE_MIN)
+        if differ or cap_differ or not want_ok or int(cap.meta[3]) != 1:
+            raise SystemExit(f"general {label} {case}: the general entry disagrees with the "
+                             f"plain version ({differ} lanes, capture {cap_differ}) or its trees "
+                             f"{stats} are not the case's")
+        err = max(err, max_abs_diff(got, ref))
+    return err, trees
+
+
+def phase_nuts_general(card, model, logs, builtin_nuts_log):
+    """The nuts_general phase: the general entry against its plain version
+    (D = 2, the 50-D hierarchy, its user functor), the default entries'
+    ptxas lines against 5902412's, then path 2 on the curved target at depth
+    GENERAL_DEPTH with a forced length of GENERAL_PATH_TRAJLEN through
+    run_block (every NUTS iteration through the general entry), its gate,
+    tree sizes and the general entry's ms a call on the path's final state.
+    Returns the general entry's item of the kernels line (its launches by
+    path filled in later)."""
+    from ptmcmcsampler_torch.config import KIND_HMC, KIND_NUTS
+    from ptmcmcsampler_torch.kernel import GENERAL_NUTS
+    from ptmcmcsampler_torch.ops.hmc import hmc_step, hmc_trajectories
+    from ptmcmcsampler_torch.ops.nuts import nuts_trees, nuts_trees_plain, nuts_uniforms
+    from ptmcmcsampler_torch.proposals.nuts import draw_nuts
+
+    err, trees = {}, {}
+    for label, m in (("curved", model), ("hierarchical", wide_workload("hierarchical")[0]),
+                     ("user_hierarchical", wide_workload("user_hierarchical")[0])):
+        err[label], trees[label] = phase_general_vs_plain(m, label)
+        torch.cuda.empty_cache()
+    ptxas_now = ptxas_info(builtin_nuts_log)
+    ptxas_base = {k: dict(zip(PTXAS_FIELDS, v)) for k, v in BASE_NUTS_PTXAS.items()}
+    ptxas_equal = {k: ptxas_now.get(k) == v for k, v in ptxas_base.items()}
+    general_ptxas = ptxas_info(logs.get("nuts_general", ""))
+    log(f"nuts default entries' ptxas against 5902412's: {ptxas_equal}; general: {general_ptxas}")
+    if not all(ptxas_equal.values()) or set(ptxas_now) != set(ptxas_base):
+        raise SystemExit(f"nuts_general: the default entries' ptxas lines {ptxas_now} differ "
+                         f"from 5902412's {ptxas_base}")
+
+    burn, timed = GENERAL_PATH_ITERS
+    cfg = dataclasses.replace(nuts_config(burn // 2), nuts_max_depth=GENERAL_DEPTH,
+                              nuts_force_trajlen=GENERAL_PATH_TRAJLEN)
+    nuts_trees.general_launches = 0
+    state, (step, run_block), result, ok = phase_main_path(
+        model, card, "nuts_general/curved", cfg, {
+            KIND_NUTS: nuts_trees, KIND_HMC: hmc_step}, absent=(hmc_trajectories,),
+        burn=burn, timed=timed, block=min(500, burn), compare_iters=20)
+    general = run_block.stats.kernel_launches(GENERAL_NUTS, nuts_trees.general_launches)
+    every = run_block.stats.kernel_launches("nuts_trees", nuts_trees.launches)
+    dev = state.x.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(98)
+    q0 = (state.adapt.chol_inv.T @ state.x).contiguous()
+    eps = state.stepsize.epsilon.contiguous()
+    r0, expo, dirs, accu, key, r_eps = draw_nuts(gen, T, D, C, GENERAL_DEPTH, dev)
+    args = (q0, r0, state.betas, eps, expo, dirs, accu, key, state.adapt.chol, model)
+    kw = dict(force_trajlen=GENERAL_PATH_TRAJLEN)
+    kernel_ms = cuda_ms(lambda: nuts_trees(*args, **kw), 5, hold_stream=True)
+    wrapper_ms = cuda_ms(lambda: nuts_trees(*args, **kw), 5)
+    out = nuts_trees(*args, **kw)
+    nalpha = out[4]
+    cols = torch.arange(64, device=dev)
+    sub = take_columns(args[:9], C, cols)
+    resu = nuts_uniforms(key, GENERAL_DEPTH, T, C).index_select(-1, cols)
+    plain_ms = once_ms(lambda: nuts_trees_plain(*sub[:7], resu, sub[8], model, **kw))
+    del resu
+    leaves = float(nalpha.sum())
+    levels = float(torch.ceil(torch.log2(nalpha + 1.0)).sum())
+    bytes_moved = 4 * ((3 * D + 8) * T * C + 2 * levels) + 4 * (T + D * D) + 16
+    ops = OPS_PER_LEAF * leaves + OPS_PER_LEVEL * levels + OPS_PER_STEP * T * C
+    past = min(1023, GENERAL_PATH_TRAJLEN - 1)  # the default entries' most leaves
+    path_trees = {"min_nalpha": float(nalpha.min()), **tree_stats(nalpha, out[5]),
+                  "share_past_1023_leaves": float((nalpha > past).float().mean())}
+    del out, state, step, run_block
+    result.update(depth=GENERAL_DEPTH, force_trajlen=GENERAL_PATH_TRAJLEN,
+                  general_launches=general, nuts_launches_all=every, trees=path_trees,
+                  general_ms_per_call=kernel_ms, gate_enforced=False,
+                  cuts={"burn_iters": {"bench": BURN_ITERS, "run": burn},
+                        "timed_iters": {"bench": TIMED_ITERS, "run": timed}})
+    print(json.dumps(result), flush=True)
+    log(f"nuts_general path: gate ok {ok} (max z {result['moments_max_z']}), general entry "
+        f"{general} of {every} NUTS launches, trees {path_trees}, {kernel_ms:.3f} ms a call")
+    if general != every or path_trees[
+            "max_nalpha"] != forced_leaves(GENERAL_PATH_TRAJLEN, GENERAL_DEPTH):
+        raise SystemExit(f"nuts_general path: general launches {general} of {every}, trees "
+                         f"{path_trees}")
+    torch.cuda.empty_cache()
+    name, power = [v.strip() for v in card.split(",", 1)]
+    return kernel_entry(
+        "nuts_general", "ptmcmcsampler_tpu/ops/nuts_pallas.py:74 (its XLA fallback, "
+        "ptmcmcsampler_tpu/proposals/nuts.py:52)", general, max(err.values()), kernel_ms,
+        wrapper_ms, plain_ms, bytes_moved, ops, plain_chains=[T, 64], path="nuts_general/curved", depth=GENERAL_DEPTH,
+        force_trajlen=GENERAL_PATH_TRAJLEN, trees=path_trees, checks=trees,
+        max_abs_err_by_model=err, ptxas=general_ptxas,
+        default_ptxas_equal_base=ptxas_equal, card=name, power_limit=power)
+
+
+def phase_trajectory_sampler(card, wrappers):
+    """PTSampler on the 50-D hierarchy at T x WIDE_SAMPLER_C, path 2's
+    cycle, WIDE_SAMPLER_ITERS iterations with trajectoryDir and
+    write_burnin=True: three files for each emitted row whose iteration ran
+    NUTS (the kinds run_block drew, recorded), the NUTS kernel's launches
+    all through the general entry; then the same seeded run without
+    trajectoryDir (the default entry): every output file equal."""
+    from ptmcmcsampler_torch import PTSampler
+    from ptmcmcsampler_torch import kernel as t_kernel
+    from ptmcmcsampler_torch.config import KIND_NUTS
+    from ptmcmcsampler_torch.ops.nuts import nuts_trees
+
+    dev = torch.device(DEVICE)
+    model = wide_workload("hierarchical")[0]
+    d = model.ndim
+    root = tempfile.mkdtemp(prefix="chip_smoke_trajectory_")
+    real_draw = t_kernel.draw_kinds
+    drawn = []
+
+    def recording(*a, **k):
+        kinds = real_draw(*a, **k)
+        drawn.extend(kinds)
+        return kinds
+
+    try:
+        runs = {}
+        for which in ("capture", "plain"):
+            for w in wrappers.values():
+                w.launches = 0
+            nuts_trees.general_launches = 0
+            drawn.clear()
+            t_kernel.draw_kinds = recording
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            outdir = os.path.join(root, which)
+            kw = dict(trajectoryDir=os.path.join(root, "traj"), write_burnin=True) \
+                if which == "capture" else {}
+            with contextlib.redirect_stdout(sys.stderr):
+                s = PTSampler(d, model.lnlikefn, model.lnpriorfn, np.eye(d),
+                              logl_grad=model.lnlikefn_grad, logp_grad=model.lnpriorfn_grad,
+                              ntemps=T, nchains=WIDE_SAMPLER_C, outDir=outdir, seed=11)
+                t0 = time.time()
+                s.sample(np.zeros(d), WIDE_SAMPLER_ITERS, **TRAJ_SAMPLER_KW, **kw)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            t_kernel.draw_kinds = real_draw
+            nuts = [j.kind for j in s.config.jumps].index(KIND_NUTS)
+            thin = TRAJ_SAMPLER_KW["thin"]
+            runs[which] = {
+                "wall_sec": wall, "iters_per_sec": WIDE_SAMPLER_ITERS / wall,
+                "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                "launches": counted_launches(s.block_stats, wrappers),
+                "general_launches": s.block_stats.kernel_launches(
+                    t_kernel.GENERAL_NUTS, nuts_trees.general_launches),
+                "nuts_iters": int(s.state.counters.jump_proposed[nuts, 0, 0]),
+                "nuts_rows": sum(k == nuts for k in drawn[thin - 1::thin]),
+                "kinds_drawn": len(drawn),
+            }
+            del s
+        files = os.listdir(os.path.join(root, "traj"))
+        cap = runs["capture"]
+        rows = WIDE_SAMPLER_ITERS // TRAJ_SAMPLER_KW["thin"]
+        capture_row_bytes = (2 * (1 << NUTS_DEPTH) * (d + 1) + 4) * 4
+        equal = same_files(os.path.join(root, "capture"), os.path.join(root, "plain"))
+        name, power = [v.strip() for v in card.split(",", 1)]
+        result = {
+            "phase": "trajectory_sampler", "model": "HierarchicalGaussian", "ndim": d,
+            "chains": [T, WIDE_SAMPLER_C], "iters": WIDE_SAMPLER_ITERS,
+            "thin": TRAJ_SAMPLER_KW["thin"], "isave": TRAJ_SAMPLER_KW["isave"],
+            "files": len(files), "burnin_files": sum(f.startswith("burnin-") for f in files),
+            "chain_files_equal": equal, "runs": runs,
+            "capture_bytes_per_block": capture_row_bytes * TRAJ_SAMPLER_KW["isave"] // TRAJ_SAMPLER_KW["thin"],
+            "capture_bytes_all_rows": capture_row_bytes * rows,
+            "card": name, "power_limit": power,
+        }
+        print(json.dumps(result), flush=True)
+        checks = {
+            "files": (len(files), 3 * cap["nuts_rows"]),
+            "kinds drawn": (cap["kinds_drawn"], WIDE_SAMPLER_ITERS),
+            "chain files equal": (equal, True),
+            "general launches (capture)": (cap["general_launches"], cap["nuts_iters"]),
+            "NUTS launches (capture)": (cap["launches"]["nuts_trees"], cap["nuts_iters"]),
+            "general launches (no capture)": (runs["plain"]["general_launches"], 0),
+        }
+        for what, (got, want) in checks.items():
+            if got != want or (what == "files" and not got):
+                raise SystemExit(f"trajectory_sampler: {what} is {got}, expected {want}")
+        return {"capture": cap["general_launches"]}
+    finally:
+        t_kernel.draw_kinds = real_draw
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4219,6 +4887,21 @@ def main():
     for item in wide:
         if item["workload"] == "hierarchical":
             item["launches_by_path"].update(custom_launches)
+
+    # The end of ROADMAP A11: per-chain jump selection on both paths and
+    # through PTSampler, the NUTS kernel's general entry (depth 12, a forced
+    # length, the capture), PTSampler's trajectoryDir.
+    per_chain_launches = phase_per_chain(card, wrappers)
+    for items, wrapper in ((wide, "chees_step"), (wide_nuts, "nuts_trees"),
+                           (wide_hmc, "hmc_step")):
+        for item in items:
+            if item["workload"] == "hierarchical":
+                item["launches_by_path"].update(per_chain_launches.get(wrapper, {}))
+    general = phase_nuts_general(card, model, logs, logs.get("nuts_tree", ""))
+    traj_launches = phase_trajectory_sampler(card, wrappers)
+    general["launches_by_path"] = {"nuts_general/curved": general["launches"],
+                                   "trajectory_sampler": traj_launches["capture"]}
+    kernels[1]["general"] = general
     kernels[0]["wide"] = wide
     kernels[1]["wide"] = list(wide_nuts)
     kernels[2]["wide"] = list(wide_hmc)

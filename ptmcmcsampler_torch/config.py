@@ -4,13 +4,14 @@ Everything here is host-side and constant for one sampler: shapes, cadences,
 the jump-cycle layout and the parameter groups. The dynamic quantities live
 in :mod:`ptmcmcsampler_torch.state`. All state is float32.
 
-The port covers the shared-select cycle of SCAM/AM/DE, the gradient
-jumps ChEES, NUTS, HMC and MALA, the user's custom, prior-draw and
-auxiliary jumps, both swap schemes (the hottest-first sweep and DEO), the
-adaptive ladder and the three DE pair laws (blocked, rolled, iid).
-``__post_init__`` raises on every setting the port does
-not run yet, naming the ROADMAP item that will add it, so nothing silently
-takes another path. The JAX package's TPU dispatch knobs (``use_pallas``,
+The port covers the whole cycle of the JAX package: SCAM/AM/DE, the
+gradient jumps ChEES, NUTS, HMC and MALA, the user's custom, prior-draw and
+auxiliary jumps, both jump selections (one kind an iteration for the whole
+batch, or one a chain: ``jump_select="per_chain"``), both swap schemes (the
+hottest-first sweep and DEO), the adaptive ladder, the three DE pair laws
+(blocked, rolled, iid), NUTS trees to depth 30 with a forced length, and
+the capture of one NUTS trajectory. ``__post_init__`` refuses what the JAX
+package refuses. The JAX package's TPU dispatch knobs (``use_pallas``,
 ``nuts_impl``, ``pallas_nuts_block_n``, ``nuts_pass1_depth``) choose among
 TPU code paths with the same results and have no counterpart here.
 """
@@ -40,9 +41,23 @@ PORTED_KINDS = (KIND_SCAM, KIND_AM, KIND_DE, KIND_CHEES, KIND_NUTS, KIND_HMC, KI
 #: graphs on the card), or "host", one numpy call a chain (eagerly).
 PROTOCOLS = ("torch", "host")
 
-#: Deepest NUTS tree the CUDA tree kernel builds (2**10 - 1 = 1023 leaves),
-#: as the JAX package's fused tree kernel.
+#: Deepest NUTS tree of the NUTS kernel's default entries (2**10 - 1 = 1023
+#: leaves), as the JAX package's fused tree kernel; deeper trees, a forced
+#: trajectory length and the trajectory capture run its general entry.
 NUTS_MAX_KERNEL_DEPTH = 10
+
+#: Deepest NUTS tree any entry builds. The JAX package counts a subtree's
+#: leaves in int32 (``1 << depth``, its proposals/nuts.py), which overflows
+#: at depth 31; so does the reservoir's 32-bit Philox row counter here.
+NUTS_MAX_DEPTH = 30
+
+#: How ``jump_select="per_chain"`` assigns the kinds: "rotation" (a static
+#: weight-proportional layout of the chains, rotated by one random offset an
+#: iteration; each branch runs once on its slice), "stacked" (every branch on
+#: the whole batch, each chain taking its own kind's result) or "auto"
+#: (rotation from PER_CHAIN_ROTATION_MIN chains, stacked below).
+PER_CHAIN_MODES = ("auto", "rotation", "stacked")
+PER_CHAIN_ROTATION_MIN = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,7 +97,8 @@ class SamplerConfig:
     thin: int = 10
     de_size: int = 10000  # DE history ring-buffer rows
 
-    jump_select: str = "shared"
+    jump_select: str = "shared"  # "shared" (one kind an iteration) or "per_chain"
+    per_chain_mode: str = "auto"  # PER_CHAIN_MODES
     # DE pair law (proposals/de.py): "blocked" (one ordered-distinct pair a
     # group of de_block chains), "iid" (one a chain, the reference's law) or
     # "rolled" (one shift pair an iteration, counter-rotating over chains).
@@ -101,10 +117,12 @@ class SamplerConfig:
     hmc_nminsteps: int = 2  # HMC trajectory length drawn from [nmin, nmax)
     hmc_nmaxsteps: int = 300
     nuts_delta: float = 0.6  # dual-averaging target (nutsjump.py:410)
-    nuts_max_depth: int = 10
+    nuts_max_depth: int = 10  # 1 .. NUTS_MAX_DEPTH
     nuts_force_epsilon: Optional[float] = None
+    # Leaves a NUTS tree runs to in place of the U-turn test (the JAX
+    # package's semantics: the tree stops once it has this many leaves).
     nuts_force_trajlen: Optional[int] = None
-    nuts_trajectory: bool = False  # NUTS trajectory capture
+    nuts_trajectory: bool = False  # capture the (T0, C0) trajectory (nutsjump.py:818-835)
     chees_max_steps: int = 256
     chees_delta: float = 0.651
     chees_lr: float = 0.025
@@ -119,12 +137,10 @@ class SamplerConfig:
                     raise ValueError(f"group index {i} out of range")
         if not self.jumps:
             raise ValueError("No jump proposals specified!")
-        if self.jump_select == "per_chain":
-            raise NotImplementedError(
-                "jump_select='per_chain' is not ported yet (ROADMAP A11)"
-            )
-        if self.jump_select != "shared":
+        if self.jump_select not in ("shared", "per_chain"):
             raise ValueError(f"unknown jump_select {self.jump_select!r}")
+        if self.per_chain_mode not in PER_CHAIN_MODES:
+            raise ValueError(f"unknown per_chain_mode {self.per_chain_mode!r}")
         if self.swap_mode not in ("sweep", "deo"):
             raise ValueError(f"unknown swap_mode {self.swap_mode!r}")
         if self.de_pair not in ("blocked", "rolled", "iid"):
@@ -133,17 +149,9 @@ class SamplerConfig:
             raise ValueError("de_block must be >= 1")
         if self.adapt_from not in ("cold", "all"):
             raise ValueError(f"unknown adapt_from {self.adapt_from!r}")
-        if self.nuts_max_depth > NUTS_MAX_KERNEL_DEPTH:
-            raise NotImplementedError(
-                f"nuts_max_depth={self.nuts_max_depth} > {NUTS_MAX_KERNEL_DEPTH} "
-                "(the per-chain NUTS tree) is not ported yet (ROADMAP A11)"
-            )
-        if self.nuts_max_depth < 1:
-            raise ValueError("nuts_max_depth must be >= 1")
-        if self.nuts_force_trajlen is not None:
-            raise NotImplementedError("nuts_force_trajlen is not ported yet (ROADMAP A11)")
-        if self.nuts_trajectory:
-            raise NotImplementedError("NUTS trajectory capture is not ported yet (ROADMAP A11)")
+        if not 1 <= self.nuts_max_depth <= NUTS_MAX_DEPTH:
+            raise ValueError(f"nuts_max_depth={self.nuts_max_depth} is outside [1, "
+                             f"{NUTS_MAX_DEPTH}]: a tree's leaf count must fit an int32")
         for j in self.jumps:
             if j.kind not in PORTED_KINDS:
                 raise ValueError(f"unknown jump kind {j.kind!r}")
@@ -152,6 +160,22 @@ class SamplerConfig:
             if user and (j.fn is None or j.protocol not in PROTOCOLS):
                 raise ValueError(f"jump {j.name!r} needs a callable and a protocol in "
                                  f"{PROTOCOLS}")
+        if self.jump_select == "per_chain":
+            for j in self.jumps:
+                if j.protocol == "host":
+                    # The stacked mode runs every branch each iteration; a host
+                    # branch would make ntemps * nchains host calls.
+                    raise ValueError(
+                        f"per_chain jump selection cannot include the host (numpy) jump "
+                        f"{j.name!r}; pass a torch-native jump or use jump_select='shared'")
+            if self.nuts_trajectory:
+                raise ValueError("NUTS trajectory capture requires jump_select='shared'")
+
+    @property
+    def per_chain_rotation(self):
+        """Whether ``per_chain`` selection runs the rotation (else stacked)."""
+        mode = self.per_chain_mode
+        return mode == "rotation" or (mode == "auto" and self.nchains >= PER_CHAIN_ROTATION_MIN)
 
     @property
     def njumps(self):

@@ -28,6 +28,14 @@ while every other key keeps its graph. The user's custom and auxiliary jumps
 and the adaptive ladder's decay read the iteration number from a 0-d tensor
 on the device that the runner writes before each iteration, outside the
 graphs; the ladder's betas and window counters change on the device too.
+
+With ``jump_select="per_chain"`` (:func:`make_per_chain`) every chain takes
+its own kind each iteration, drawn on the device: the rotation's offset or
+the stacked mode's kinds are draws from ``state.rng``, never host values, so
+one graph serves every iteration of an activation phase. With
+``nuts_trajectory`` the NUTS branch records the trajectory of chain (T0, C0)
+into the step's capture buffers (``trajectory.TrajCapture``) inside the
+graphs, and ``run_block`` copies them into each thinned row.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import dataclasses
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import adaptation, swaps, utils
@@ -44,8 +53,10 @@ from .ladder import adapt_ladder_betas
 from .ops import chees as ops_chees, hmc as ops_hmc, nuts as ops_nuts, user
 from .proposals.base import ProposalContext
 from .proposals.custom import make_aux_chain
-from .proposals.cycle import build_jump_branches, draw_kinds
+from .proposals.cycle import (activation_phase, activation_thresholds, build_jump_branches,
+                              draw_kinds, jump_probabilities, phase_partitions)
 from .state import SS_FIELDS, SamplerState, copy_into, map_state
+from .trajectory import TrajCapture, empty_capture
 
 
 class BlockOutput(NamedTuple):
@@ -59,6 +70,9 @@ class BlockOutput(NamedTuple):
     naccepted: torch.Tensor  # [rows, T]
     swaps_accepted: torch.Tensor  # [rows, T]
     swaps_proposed: torch.Tensor  # [rows, T]
+    # With config.nuts_trajectory: the capture at each row (TrajCapture of
+    # [rows, ...] tensors), as the JAX package's BlockOutput.traj.
+    traj: TrajCapture = None
 
 
 def make_context(state: SamplerState, iteration=None) -> ProposalContext:
@@ -142,29 +156,142 @@ def swap_event(config: SamplerConfig, it):
 
 def step_key(config: SamplerConfig, state: SamplerState, it, kind) -> tuple:
     """Every host-side decision iteration ``it`` of jump ``kind`` makes from
-    ``state`` (its host fields before the iteration): the jump, the swap
-    event (:func:`swap_event`: none, the sweep, or DEO's parity, each with
-    the ladder update where it runs), whether adaptation runs (ChEES and
-    NUTS read ``it <= burn``), the DE ring's valid rows (DE's draw range)
-    and the factors' structure tag (a launch argument of the wide kernels).
-    Two iterations with one key run the same device work, so one CUDA graph
-    serves both. The factor refresh is not part of it: it runs outside every
-    graph."""
-    jump = config.jumps[kind].kind
+    ``state`` (its host fields before the iteration): the jump (with
+    ``per_chain`` selection, ``("per_chain", mode, phase)``: the kinds are
+    device draws, and only the activation phase is decided on the host),
+    the swap event (:func:`swap_event`: none, the sweep, or DEO's parity,
+    each with the ladder update where it runs), whether adaptation runs
+    (ChEES and NUTS read ``it <= burn``), the DE ring's valid rows (DE's
+    draw range) and the factors' structure tag (a launch argument of the
+    wide kernels). Two iterations with one key run the same device work, so
+    one CUDA graph serves both. The factor refresh is not part of it: it
+    runs outside every graph."""
+    if config.jump_select == "per_chain":
+        mode = "rotation" if config.per_chain_rotation else "stacked"
+        phase = activation_phase(config, it)
+        active = np.flatnonzero(jump_probabilities(config, it) > 0)
+        jumps = {config.jumps[j].kind for j in active}
+        kind = ("per_chain", mode, phase)
+    else:
+        jumps = {config.jumps[kind].kind}
     return (
         kind,
         swap_event(config, it),
-        it <= config.burn if jump in (KIND_CHEES, KIND_NUTS) else None,
-        adaptation.de_valid_rows(state.de) if jump == KIND_DE else None,
+        it <= config.burn if jumps & {KIND_CHEES, KIND_NUTS} else None,
+        adaptation.de_valid_rows(state.de) if KIND_DE in jumps else None,
         state.adapt.structure,
     )
+
+
+def rotation_offset(rng, c, device):
+    """The rotation's offset, uniform on ``[0, c)``: a 0-d draw on the
+    device, never read to the host, so one graph serves every iteration."""
+    return torch.randint(0, c, (), generator=rng, device=device)
+
+
+def make_per_chain(config: SamplerConfig, branches, device):
+    """``propose(rng, x, betas, it, ctx, ss) -> (q, qxy, kinds [T, C] long,
+    ss)`` for ``jump_select="per_chain"``, each chain with its own kind.
+
+    Rotation (the JAX package's kernel.py:163-264): the phase's static
+    layout gives jump j a contiguous run of ``rotation_partition`` slots;
+    one offset ``r`` an iteration, uniform on ``[0, C)`` and shared by all
+    temperatures, puts chain c in slot ``(c + r) % C``. Each branch runs once
+    on its slice (gathered with ``index_select``: ``torch.roll`` would take
+    ``r`` to the host), and the results are gathered back to chain order.
+    The ChEES jump's per-temperature ``chees_*`` fields take its slice's
+    update row-wide. Stacked (:296-321): each chain draws its kind from the
+    active probabilities by inverse CDF (``searchsorted`` on one uniform a
+    chain), every active branch runs on the whole batch and each chain takes
+    its kind's results; ``chees_*`` take the ChEES update in every row where
+    a chain ran ChEES.
+    """
+    t, c = config.ntemps, config.nchains
+    nphase = len(activation_thresholds(config)) + 1
+    chees = [j for j, spec in enumerate(config.jumps) if spec.kind == KIND_CHEES]
+    chees_fields = [f for f in SS_FIELDS if f.startswith("chees_")]
+    chains = torch.arange(c, device=device)
+
+    def rows_of(v):  # the ChEES update of a rung, from its first chain: [T, n] -> [T, C]
+        return v[:, :1].expand(t, c).contiguous()
+
+    if config.per_chain_rotation:
+        layouts = []
+        for counts in phase_partitions(config):
+            offs = np.concatenate([[0], np.cumsum(counts)]).tolist()
+            slot_kind = torch.as_tensor(np.repeat(np.arange(len(counts)), counts), device=device)
+            layouts.append(([int(n) for n in counts], offs, slot_kind))
+
+        def rotation(rng, x, betas, it, ctx, ss):
+            counts, offs, slot_kind = layouts[activation_phase(config, it)]
+            r = rotation_offset(rng, c, x.device)
+            chain_at = (chains - r) % c  # the chain in each slot
+            slot_of = (chains + r) % c  # each chain's slot
+            qs, qxys, outs, changed, ches = [], [], [], set(), None
+            for j, n in enumerate(counts):
+                if n == 0:
+                    continue
+                idx = chain_at[offs[j]:offs[j] + n]
+                ss_j = {f: v.index_select(1, idx) for f, v in ss.items()}
+                q_j, qxy_j, new_j = branches[j](rng, x.index_select(2, idx), betas, it, ctx, ss_j)
+                qs.append(q_j)
+                qxys.append(qxy_j)
+                outs.append(new_j)
+                changed |= {f for f in ss if new_j[f] is not ss_j[f]}
+                if j in chees:
+                    ches = new_j
+            new_ss = dict(ss)
+            for f in (f for f in ss if f in changed):  # in a fixed order
+                new_ss[f] = torch.cat([o[f] for o in outs], 1).index_select(1, slot_of)
+            if ches is not None:
+                new_ss.update({f: rows_of(ches[f]) for f in chees_fields})
+            q = torch.cat(qs, 2).index_select(2, slot_of)
+            qxy = torch.cat(qxys, 1).index_select(1, slot_of)
+            return q, qxy, slot_kind.index_select(0, slot_of).expand(t, c), new_ss
+
+        return rotation
+
+    thresholds = activation_thresholds(config)
+    phases = []  # (active jumps, the CDF whose searchsorted draws a kind) by phase
+    for p in range(nphase):
+        probs = jump_probabilities(config, thresholds[p - 1] + 1 if p else 0).astype(np.float64)
+        active = np.flatnonzero(probs > 0).tolist()
+        cdf = np.cumsum(probs)
+        cdf[active[-1]:] = 2.0  # past every uniform: rounding never picks an inactive jump
+        phases.append((active, torch.as_tensor(cdf, dtype=torch.float32, device=device)))
+
+    def stacked(rng, x, betas, it, ctx, ss):
+        active, cdf = phases[activation_phase(config, it)]
+        u = torch.rand((t * c,), generator=rng, device=x.device)
+        kinds = torch.searchsorted(cdf, u, right=True).view(t, c)
+        q = qxy = None
+        new_ss = dict(ss)
+        for j in active:
+            q_j, qxy_j, new_j = branches[j](rng, x, betas, it, ctx, ss)
+            sel = kinds == j
+            q = q_j if q is None else torch.where(sel[:, None, :], q_j, q)
+            qxy = qxy_j if qxy is None else torch.where(sel, qxy_j, qxy)
+            rows = sel.any(1, keepdim=True)
+            for f in ss:
+                if new_j[f] is not ss[f]:
+                    new_ss[f] = torch.where(rows if f in chees_fields else sel, new_j[f],
+                                            new_ss[f])
+        return q, qxy, kinds, new_ss
+
+    return stacked
 
 
 def _wrapper_calls():
     """The calls each kernel wrapper has counted (its ``launches``), by name."""
     wrappers = (ops_chees.chees_step, ops_chees.chees_trajectories, ops_hmc.hmc_step,
                 ops_hmc.hmc_trajectories, ops_nuts.nuts_trees)
-    return {w.__name__: w.launches for w in wrappers}
+    calls = {w.__name__: w.launches for w in wrappers}
+    calls[GENERAL_NUTS] = ops_nuts.nuts_trees.general_launches
+    return calls
+
+
+#: The name BlockStats counts the NUTS kernel's general entry under.
+GENERAL_NUTS = "nuts_trees (general)"
 
 
 def _graphs_on(device) -> bool:
@@ -261,7 +388,8 @@ class BlockStats:
 
 def build_step(config: SamplerConfig, model, device="cuda", capture=True):
     """Build ``step(state, kind=None) -> state`` and ``run_block(state,
-    nrows, kinds=None, on_dispatched=None) -> (state, BlockOutput)``.
+    nrows, kinds=None, on_dispatched=None) -> (state, BlockOutput)``;
+    ``step.traj`` is the NUTS trajectory capture with ``nuts_trajectory``.
 
     ``model`` gives batched ``lnlike(x[..., D, C])``, ``lnprior`` and, for
     the gradient jumps, ``value_grad(x, beta)`` and a ``cuda_functor`` (a
@@ -275,7 +403,16 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
     if device.type == "cuda":  # a user functor's libraries, before any capture
         user.prepare(model, device)
     t, c = config.ntemps, config.nchains
-    branches = build_jump_branches(config, model, device)
+    # The NUTS trajectory capture of chain (T0, C0): fixed buffers the NUTS
+    # branch overwrites inside the graphs; any other jump marks it inactive.
+    traj_cap = None
+    if config.nuts_trajectory and any(j.kind == KIND_NUTS for j in config.jumps):
+        traj_cap = empty_capture(config, device)
+    branches = build_jump_branches(config, model, device, traj_cap)
+    per_chain = None
+    if config.jump_select == "per_chain":
+        per_chain = make_per_chain(config, branches, device)
+        jump_index = torch.arange(config.njumps, device=device)[:, None, None]
     aux_chain = make_aux_chain(config)
     # The iteration number on the device (ctx.iteration) where a user's
     # custom or auxiliary jump or the ladder's decay reads it: written before
@@ -289,17 +426,23 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
     # The jumps that run on the host (their iterations run eagerly; all of
     # them for an auxiliary jump on the host).
     host_kinds = {i for i, j in enumerate(config.jumps) if j.protocol == "host"}
-    if any(j.protocol == "host" for j in config.aux_jumps):
-        host_kinds = set(range(config.njumps))
+    host_aux = any(j.protocol == "host" for j in config.aux_jumps)
 
     def set_iteration(it):
         if iteration is not None:
             iteration.fill_(it)
 
     def mh_step(state: SamplerState, it, kind):
+        """The proposal and its MH accept; ``kind`` is the jump index, or
+        None under ``per_chain`` selection (each chain's kind is drawn)."""
         ss = {f: getattr(state.stepsize, f) for f in SS_FIELDS}
         ctx = make_context(state, iteration)
-        q, qxy, new_ss = branches[kind](state.rng, state.x, state.betas, it, ctx, ss)
+        if per_chain is not None:
+            q, qxy, kinds, new_ss = per_chain(state.rng, state.x, state.betas, it, ctx, ss)
+        else:
+            q, qxy, new_ss = branches[kind](state.rng, state.x, state.betas, it, ctx, ss)
+            if traj_cap is not None and config.jumps[kind].kind != KIND_NUTS:
+                traj_cap.meta[3].zero_()  # no trajectory this iteration
         if aux_chain is not None:
             q, qxy = aux_chain(state.rng, state.x, q, qxy, state.betas, it, ctx)
 
@@ -318,10 +461,15 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
         acc_i = accept.to(torch.int32)
 
         ctr = state.counters
-        jump_proposed = ctr.jump_proposed.clone()
-        jump_proposed[kind] += 1
-        jump_accepted = ctr.jump_accepted.clone()
-        jump_accepted[kind] += acc_i
+        if per_chain is not None:  # each chain counts its own kind
+            chosen = (kinds[None] == jump_index).to(torch.int32)  # [J, T, C]
+            jump_proposed = ctr.jump_proposed + chosen
+            jump_accepted = ctr.jump_accepted + chosen * acc_i
+        else:
+            jump_proposed = ctr.jump_proposed.clone()
+            jump_proposed[kind] += 1
+            jump_accepted = ctr.jump_accepted.clone()
+            jump_accepted[kind] += acc_i
         return dataclasses.replace(
             state,
             x=torch.where(accept[:, None, :], q, state.x),
@@ -391,10 +539,11 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
 
     def step(state: SamplerState, kind=None) -> SamplerState:
         """One eager iteration; ``kind`` is the jump index, drawn here if not
-        given. The graphs of ``run_block`` are held against it."""
+        given (and None under ``per_chain`` selection). The graphs of
+        ``run_block`` are held against it."""
         check_device(state)
         it = state.it + 1
-        if kind is None:
+        if kind is None and per_chain is None:
             kind = draw_kinds(config, state.it, 1, state.host_rng)[0]
         set_iteration(it)
         return refresh(config, advance(state, it, kind), it)
@@ -415,8 +564,9 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
             graph = held["card"].capture(lambda: body(static, it, kind), static)
         except RuntimeError as e:
             aux = "".join(f", auxiliary jump {j.name}" for j in config.aux_jumps)
+            jump = "per_chain" if kind is None else config.jumps[kind].name
             raise RuntimeError(
-                f"run_block: capturing the {config.jumps[kind].name} step{aux} of model "
+                f"run_block: capturing the {jump} step{aux} of model "
                 f"{type(model).__name__} (iteration {it}, key {key}) failed: {e}. A step on "
                 "the card must not read the device from the host (a user's jump that has "
                 "to is written as a numpy callable, which runs eagerly)") from e
@@ -433,7 +583,7 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
         key = step_key(config, static, it, kind)
         filled = adaptation.de_filled_after(static.de, c)
         set_iteration(it)  # read by the graphs at their replay
-        if on_card and kind in host_kinds:
+        if on_card and (host_aux or kind in host_kinds):
             body(static, it, kind)
             stats.eager["host jump"] += 1
         elif key in graphs or (on_card and key in warmed):
@@ -459,7 +609,9 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
         advances in place; a state it is given that is not that one is
         written into it first (``copy_into``), which covers a loaded
         checkpoint and a resume. ``kinds``: the iterations' jump indices,
-        drawn from ``state.host_rng`` when not given. ``on_dispatched()``,
+        drawn from ``state.host_rng`` when not given (all None under
+        ``per_chain`` selection, which draws none on the host).
+        ``on_dispatched()``,
         if given, is called once, before the block's first synchronising
         step (a factor refresh) or at its end: with graphs the block's
         iterations up to there are then enqueued, and the device runs them
@@ -474,7 +626,8 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
         dev = static.x.device
         thin = config.thin
         if kinds is None:
-            kinds = draw_kinds(config, static.it, nrows * thin, static.host_rng)
+            kinds = ([None] * (nrows * thin) if per_chain is not None
+                     else draw_kinds(config, static.it, nrows * thin, static.host_rng))
         elif len(kinds) != nrows * thin:
             raise ValueError(f"run_block: {len(kinds)} kinds for {nrows * thin} iterations")
         x = torch.empty((nrows,) + tuple(static.x.shape), dtype=static.x.dtype, device=dev)
@@ -483,6 +636,7 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
         nacc = torch.empty((nrows, t), dtype=torch.int32, device=dev)
         sacc = torch.empty_like(nacc)
         sprop = torch.empty_like(nacc)
+        traj = None if traj_cap is None else empty_capture(config, dev, rows=(nrows,))
         for r in range(nrows):
             for k in range(thin):
                 it = static.it + 1
@@ -501,10 +655,16 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
             nacc[r] = static.counters.naccepted[:, 0]
             sacc[r] = static.counters.swaps_accepted[:, 0]
             sprop[r] = static.counters.swaps_proposed
+            if traj is not None:
+                for row, buf in zip(traj.tensors(), traj_cap.tensors()):
+                    row[r] = buf
         if on_dispatched is not None:
             on_dispatched()
         its = torch.arange(1, nrows + 1, device=dev) * thin + (static.it - nrows * thin)
-        return static, BlockOutput(x, lnlike, lnprob, its, nacc, sacc, sprop)
+        return static, BlockOutput(x, lnlike, lnprob, its, nacc, sacc, sprop, traj)
 
     run_block.stats = stats
+    # The trajectory capture's buffers (None without nuts_trajectory): the
+    # last NUTS iteration's trajectory, marked inactive after any other jump.
+    step.traj = run_block.traj = traj_cap
     return step, run_block

@@ -26,7 +26,7 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-SOURCES = ("chees_trajectory", "hmc_trajectory", "nuts_tree")
+SOURCES = ("chees_trajectory", "hmc_trajectory", "nuts_tree", "nuts_general")
 # --fmad=false: no contraction of a*b+c into one FMA, so a kernel rounds each
 # operation as PyTorch's one-operation-per-launch plain versions do and can
 # be held to them pointwise (FMA rounding differences grow exponentially

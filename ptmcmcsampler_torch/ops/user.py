@@ -21,7 +21,8 @@ Each kernel gets one generated translation unit, which includes the
 kernel's templates (``csrc/<kernel>_kernels.cuh``) and instantiates its
 wide entries with ``WidePerChain<...>`` (``csrc/models.cuh``) under
 ``chees_step_user_<name>``, ``chees_trajectory_user_<name>``,
-``nuts_tree_user_<name>``, ``hmc_step_user_<name>``,
+``nuts_tree_user_<name>``, ``nuts_general_user_<name>`` (the NUTS kernel's
+general entry, a library of its own), ``hmc_step_user_<name>``,
 ``hmc_trajectory_user_<name>`` and ``hmc_draws_user_<name>``. The
 libraries are keyed like the built-in ones (``ops/build.py``) and built by
 :func:`prepare`, or at a kernel's first launch; nothing falls back: a
@@ -51,6 +52,10 @@ KERNELS = {
     "nuts": ("nuts_tree", "nuts_kernels.cuh", "PTMC_NUTS_WIDE_ENTRY", ("nuts_tree",)),
     "hmc": ("hmc_trajectory", "hmc_kernels.cuh", "PTMC_HMC_WIDE_ENTRIES",
             ("hmc_trajectory", "hmc_step", "hmc_draws")),
+    # The NUTS kernel's general entry (deep trees, a forced length, the
+    # capture): a library of its own, at the NUTS kernel's dims.
+    "nuts_general": ("nuts_general", "nuts_general.cuh", "PTMC_NUTS_GENERAL_WIDE_ENTRY",
+                     ("nuts_general",)),
 }
 PREFIX = "user_"
 
@@ -94,14 +99,14 @@ def register_functor(name, source, dims=(1, common.WIDE_MAX_D)):
                              "source or other dims")
         return functor
     REGISTERED[functor] = (source, (lo, hi))
-    common.FUNCTORS[functor] = {kernel: (lo, hi) for kernel in KERNELS}
+    common.FUNCTORS[functor] = {kernel: (lo, hi) for kernel in KERNELS if kernel != "nuts_general"}
     for kernel in KERNELS:
         build.GENERATED[library_name(kernel, functor)] = translation_unit(kernel, functor)
     return functor
 
 
 def library_name(kernel, functor):
-    """The library of ``kernel`` ("chees", "nuts" or "hmc") built with the
+    """The library of ``kernel`` (a key of KERNELS) built with the
     registered ``functor``."""
     return f"{KERNELS[kernel][0]}_{functor}"
 

@@ -26,6 +26,12 @@ The reservoir's uniforms are not drawn as an array: the branch draws a
 two-word Philox key on the device and the kernel computes each leaf's
 uniform from it (``ops.nuts.nuts_uniforms`` materialises them for the plain
 version).
+
+A depth past 10, ``nuts_force_trajlen`` and the trajectory capture
+(``capture``, the step's ``trajectory.TrajCapture``, which each call
+overwrites with the tree of chain (T0, C0)) take the tree kernel's general
+entry (``ops.nuts.nuts_trees`` picks it from them); the config fixes all
+three, so the choice is no part of a graph's key.
 """
 
 from __future__ import annotations
@@ -56,12 +62,13 @@ def draw_nuts(rng, t, d, c, depth, device):
     return r0, expo, dirs, accu, key, r_eps
 
 
-def make_nuts(config, model):
+def make_nuts(config, model, capture=None):
     forward, backward, _ = make_whitened_funcs(model.value_grad)
     depth = config.nuts_max_depth
     delta = config.nuts_delta
     force_eps = config.nuts_force_epsilon
     nburn = config.burn
+    tree_kw = dict(force_trajlen=config.nuts_force_trajlen, capture=capture)
 
     def core(x, betas, it, ctx, ss, r0, expo, dirs, accu, draws, r_eps):
         """Deterministic NUTS step.
@@ -82,7 +89,7 @@ def make_nuts(config, model):
         q_prop, logp0, logp_prop, alpha, nalpha, _, epsilon = nuts_trees(
             q0, r0.contiguous(), betas, eps_in.contiguous(), expo.contiguous(),
             dirs.contiguous(), accu.contiguous(), draws.contiguous(),
-            ctx.chol.contiguous(), model, r_eps=r_search, structure=ctx.structure,
+            ctx.chol.contiguous(), model, r_eps=r_search, structure=ctx.structure, **tree_kw,
         )
         if force_eps is not None:
             mu = torch.log(10.0 * epsilon)

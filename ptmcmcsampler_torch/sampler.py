@@ -55,11 +55,18 @@ leaves a ``hotChain``'s top rung out of its geometry. The adapted betas and
 the ladder's window counters are state: the checkpoint holds them and a
 resumed run continues from them.
 
+The jump selection is the JAX package's: ``jump_select="shared"`` (one kind
+an iteration for the whole batch) or ``"per_chain"`` (one a chain, the
+reference's law), with ``per_chain_mode`` "auto", "rotation" or "stacked".
+``sample(NUTSmaxdepth=)`` takes NUTS trees to depth 30, and
+``sample(trajectoryDir=, write_burnin=)`` writes the NUTS trajectories of
+the cold chain 0 in the reference's files (``trajectory.py``), as the JAX
+package does, with ``jump_select="shared"`` only.
+
 The JAX package's TPU dispatch keywords (``rng_impl``, ``use_pallas``,
-``nuts_impl``, ``nuts_pass1_depth``, ``per_chain_mode``) are accepted and
-ignored. Not ported yet, and refused naming the ROADMAP item: ``mesh=`` and
-multi-process runs (A12); ``trajectoryDir`` and ``jump_select="per_chain"``
-(A11).
+``nuts_impl``, ``nuts_pass1_depth``) are accepted and ignored. Not ported
+yet, and refused naming the ROADMAP item: ``mesh=`` and multi-process runs
+(A12).
 """
 
 from __future__ import annotations
@@ -83,6 +90,7 @@ from .ladder import ladder_betas, temperature_ladder
 from .ops import common, user
 from .proposals import custom
 from .state import clone_generator, init_state, map_state
+from .trajectory import TrajectoryWriter
 
 _FUNCTOR_METHODS = ("lnlikefn", "lnpriorfn", "lnlikefn_grad", "lnpriorfn_grad")
 _BATCHED_METHODS = ("lnlike", "lnprior", "value_grad")
@@ -264,8 +272,7 @@ class PTSampler:
     ):
         # MPI shim, mesh axis names and the TPU dispatch keywords: accepted,
         # without effect here.
-        del comm, temp_axis, chain_axis, rng_impl, use_pallas, nuts_impl
-        del per_chain_mode, nuts_pass1_depth
+        del comm, temp_axis, chain_axis, rng_impl, use_pallas, nuts_impl, nuts_pass1_depth
         if mesh is not None:
             raise NotImplementedError("mesh= (a sharded run) is not ported yet (ROADMAP A12)")
         if torch.distributed.is_available() and torch.distributed.is_initialized() \
@@ -282,6 +289,7 @@ class PTSampler:
         self.verbose = verbose
         self.resume = resume
         self.jump_select = jump_select
+        self.per_chain_mode = per_chain_mode
         self.de_pair = de_pair
         self.de_block = int(de_block)
         self.swap_mode = swap_mode
@@ -477,7 +485,8 @@ class PTSampler:
     # --------------------------------------------------------------- sample
 
     def _build_config(self, weights, burn, tskip, cov_update, thin, hmc_kwargs,
-                      mass_adapt=False, nuts_max_depth=10, ladder_kwargs=None):
+                      mass_adapt=False, nuts_max_depth=10, ladder_kwargs=None,
+                      nuts_trajectory=False):
         have_grads = self._have_grads
         jumps = build_default_jumps(
             SCAMweight=weights["SCAM"],
@@ -503,7 +512,9 @@ class PTSampler:
             thin=thin,
             de_size=max(burn, self.nchains),
             nuts_max_depth=nuts_max_depth,
+            nuts_trajectory=nuts_trajectory,
             jump_select=self.jump_select,
+            per_chain_mode=self.per_chain_mode,
             de_pair=self.de_pair,
             de_block=self.de_block,
             swap_mode=self._resolved_swap_mode(),
@@ -560,10 +571,6 @@ class PTSampler:
         NUTSmaxdepth=10,
     ):
         """Run PTMCMC sampling (reference ``sample``, PTMCMCSampler.py:374-528)."""
-        del write_burnin  # with trajectoryDir
-        if trajectoryDir is not None:
-            raise NotImplementedError("trajectoryDir (NUTS trajectory capture) is not ported "
-                                      "yet (ROADMAP A11)")
         if (maxIter is not None or i0 != 0) and self.verbose:
             # In the reference these size per-rank in-memory histories
             # (PTMCMCSampler.py:205-212, :419-421); blocks here are drained
@@ -599,6 +606,7 @@ class PTSampler:
             weights, burn, Tskip, covUpdate, thin,
             dict(stepsize=HMCstepsize, nminsteps=2, nmaxsteps=HMCsteps),
             mass_adapt=bool(massAdapt), nuts_max_depth=int(NUTSmaxdepth),
+            nuts_trajectory=trajectoryDir is not None,
             ladder_kwargs=dict(
                 adapt_ladder=bool(adaptLadder),
                 ladder_adapt_lag=float(ladderAdaptLag),
@@ -607,6 +615,14 @@ class PTSampler:
             ),
         )
         self.config = config
+        self._traj_writer = None
+        if trajectoryDir is not None:
+            if torch.distributed.is_available() and torch.distributed.is_initialized() \
+                    and torch.distributed.get_world_size() > 1:
+                raise NotImplementedError(
+                    "trajectoryDir capture is not supported in multi-process runs; capture "
+                    "trajectories in a single-process run")
+            self._traj_writer = TrajectoryWriter(trajectoryDir, burn, write_burnin)
         if self.route == "kernel":
             why = card_refusal(self.device.type, self._model.cuda_functor, config.jumps,
                                self.ndim)
@@ -785,7 +801,8 @@ class PTSampler:
             host = torch.clone
         snap = map_state(state, host, rng=clone_generator(state.rng),
                          host_rng=clone_generator(state.host_rng))
-        rows = BlockOutput(*(host(a) for a in out))
+        rows = BlockOutput(*(host(a) for a in out[:-1]),
+                           traj=None if out.traj is None else out.traj.map(host))
         done = None
         if state.x.is_cuda:
             done = torch.cuda.Event()
@@ -851,6 +868,10 @@ class PTSampler:
         sprop = out.swaps_proposed.cpu().numpy()  # [rows, T]
         ctr = state.counters
         rows = x.shape[0]
+
+        if self._traj_writer is not None and out.traj is not None:
+            for r in range(rows):
+                self._traj_writer.write(int(its[r]), out.traj.row(r))
 
         self._chain_host.append(x[:, 0, 0, :])
         self._chains_host.append(x[:, 0, :, :])

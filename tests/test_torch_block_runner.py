@@ -142,6 +142,13 @@ def assert_states_equal(a, b):
 
 def assert_outputs_equal(a, b):
     for field, x, y in zip(BlockOutput._fields, a, b):
+        if field == "traj" and x is None and y is None:  # no trajectory capture
+            continue
+        if field == "traj":
+            assert x is not None and y is not None, field
+            for u, v in zip(x.tensors(), y.tensors()):
+                assert _bytes(u) == _bytes(v), field
+            continue
         assert x.dtype == y.dtype and _bytes(x) == _bytes(y), field
 
 

@@ -148,21 +148,54 @@ def test_default_jumps_and_weights_match():
         np.testing.assert_array_equal(a, b)
 
 
+def _host_jump(x, it, beta):
+    return x, 0.0
+
+
 @pytest.mark.parametrize(
-    "kw,item",
+    "kw,match",
     [
-        (dict(jump_select="per_chain"), "A11"),
-        (dict(nuts_max_depth=11), "A11"),
-        (dict(nuts_trajectory=True), "A11"),
-        (dict(nuts_force_trajlen=5), "A11"),
+        (dict(jump_select="per_chain", extra=(t_config.JumpSpec(
+            "numpy", t_config.KIND_CUSTOM, 5, fn=_host_jump, protocol="host"),)), "host"),
+        (dict(jump_select="per_chain", nuts_trajectory=True), "jump_select='shared'"),
+        (dict(nuts_max_depth=31), "int32"),
+        (dict(nuts_max_depth=0), "outside"),
+        (dict(per_chain_mode="sorted"), "per_chain_mode"),
     ],
 )
-def test_config_raises_on_unported(kw, item):
+def test_config_refuses_what_jax_refuses(kw, match):
+    """The port refuses, with ValueError, what the JAX package's config
+    refuses (a host jump or the trajectory capture under per_chain
+    selection, an unknown per_chain_mode), and a NUTS depth past 30, where
+    the JAX package's int32 leaf count overflows; the JAX config takes
+    depth 30 and refuses the same per_chain settings."""
     base = dict(ndim=2, ntemps=2, nchains=4, groups=((0, 1),),
                 jumps=t_config.build_default_jumps(have_grads=True, CHEESweight=20))
+    base["jumps"] += kw.pop("extra", ())
     base.update(kw)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=match):
         t_config.SamplerConfig(**base)
+    if "nuts_max_depth" not in kw:
+        jkw = dict(base, jumps=tuple(
+            j_config.JumpSpec(s.name, s.kind, s.weight, s.activate_after,
+                              **({"fn": s.fn, "protocol": "legacy"} if s.fn else {}))
+            for s in base["jumps"]))
+        with pytest.raises(ValueError):
+            j_config.SamplerConfig(**jkw)
+
+
+def test_config_takes_the_settings_the_jax_package_takes():
+    """per_chain selection (both modes), NUTS depth 11-30, a forced length
+    and the capture: no refusal in either package."""
+    base = dict(ndim=2, ntemps=2, nchains=4, groups=((0, 1),),
+                jumps=t_config.build_default_jumps(have_grads=True, NUTSweight=20))
+    for kw in (dict(jump_select="per_chain", per_chain_mode="rotation"),
+               dict(jump_select="per_chain", per_chain_mode="stacked"),
+               dict(nuts_max_depth=11), dict(nuts_max_depth=30), dict(nuts_force_trajlen=5),
+               dict(nuts_trajectory=True)):
+        cfg = t_config.SamplerConfig(**dict(base, **kw))
+        j_config.SamplerConfig(**dict(base, **kw))
+        assert cfg.per_chain_rotation == (kw.get("per_chain_mode") == "rotation")
 
 
 def test_config_builds_the_gradient_cycle():

@@ -385,12 +385,14 @@ def test_wrapper_rejects_other_devices():
 
 
 def test_nuts_wrapper_rejects_depth_beyond_the_kernel():
+    """Depth 30 is the general entry's cap (config.NUTS_MAX_DEPTH); the
+    wrapper refuses 31 before it reads any draw."""
     t, c = 1, 4
-    dirs = torch.ones((11, t, c))
-    with pytest.raises(ValueError, match="depth 11"):
+    dirs = torch.ones((31, t, c))
+    with pytest.raises(ValueError, match="depth 31"):
         nuts_trees(torch.zeros((t, 2, c)), torch.zeros((t, 2, c)), torch.ones(t),
                    torch.ones((t, c)), torch.ones((t, c)), dirs, dirs,
-                   torch.ones(((1 << 11) - 1, t, c)), torch.eye(2), CurvedLikelihood())
+                   torch.ones((1, t, c)), torch.eye(2), CurvedLikelihood())
 
 
 @pytest.mark.parametrize("name", build.SOURCES)
@@ -416,7 +418,8 @@ def test_build_key_follows_philox_header(tmp_path):
     header = csrc / "philox.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {name: build.library_path(name, csrc) for name in build.SOURCES}
-    assert [n for n in build.SOURCES if after[n] != before[n]] == ["hmc_trajectory", "nuts_tree"]
+    assert [n for n in build.SOURCES if after[n] != before[n]] == ["hmc_trajectory", "nuts_tree",
+                                                                   "nuts_general"]
 
 
 def _small_config(**jumps):
@@ -1255,3 +1258,186 @@ def test_deo_and_ladder_graphs_equal_the_eager_step_loop(cuda, de_pair):
     b = graph.betas
     assert not torch.equal(b, b0) and torch.all(b[1:] < b[:-1])
     assert b[0] == b0[0] and b[-1] == b0[-1]
+
+
+# ---- The NUTS kernel's general entry (depth to 30, a forced length, the
+# capture of lane (T0, C0)) and the entries on the ragged slices of the
+# per_chain rotation.
+
+def _general_inputs(dev, model, c, depth, eps_scale=1.0, seed=0):
+    """A tree's arguments for the curved or a wide model, with r_eps."""
+    if model.ndim == 2:
+        args = list(_tree_inputs(dev, depth, c=c, seed=seed))
+        r_eps = torch.randn(args[0].shape, generator=torch.Generator(device=dev).manual_seed(5),
+                            device=dev)
+    else:
+        *args, r_eps = _wide_tree_inputs(dev, model, c, depth, seed=seed)
+    args[3] = (args[3] * eps_scale).contiguous()
+    args[3][0, 0] = args[3][0, 1].abs() + eps_scale * 0.01  # lane (T0, C0) builds a tree
+    return args, r_eps
+
+
+def _check_tree(model, out, ref, label):
+    """Bitwise for the wide entries; the curved entry within the default
+    curved entry's tolerances (its leaf counts equal)."""
+    names = ("q_prop", "logp0", "logp_prop", "alpha", "nalpha", "alive", "eps")
+    if model.ndim != 2:
+        for what, a, b in zip(names, out, ref):
+            assert _same(a, b), f"{label}: {what}"
+        return
+    for i in (1, 4, 5, 6):
+        assert torch.equal(out[i], ref[i]), f"{label}: {names[i]}"
+    for i in (0, 2, 3):
+        torch.testing.assert_close(out[i], ref[i], rtol=1e-4, atol=1e-4)
+
+
+_GENERAL_MODELS = {"curved": CurvedLikelihood, **WIDE_MODELS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_GENERAL_MODELS))
+def test_general_nuts_entry_equals_the_default_entry(cuda, name):
+    """At depth <= 10 the general entry computes the default entry's
+    function: every output equal, bit for bit, on a ragged batch."""
+    model = _GENERAL_MODELS[name]()
+    c = 77 if model.ndim > 2 else 1001
+    args, r_eps = _general_inputs(cuda, model, c, 6)
+    before = nuts_trees.general_launches
+    gen_out = nuts_trees(*args, model, r_eps=r_eps, general=True)
+    assert nuts_trees.general_launches == before + 1
+    def_out = nuts_trees(*args, model, r_eps=r_eps)
+    assert nuts_trees.general_launches == before + 1
+    for a, b in zip(gen_out, def_out):
+        assert _same(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["curved", "hierarchical"])
+@pytest.mark.parametrize("trajlen", [None, 1, 37, 1500])
+def test_general_nuts_entry_matches_plain_past_depth_10(cuda, name, trajlen):
+    """Depth 12 at a step size small enough that every tree runs to the cap
+    (or to the forced length), with the capture, against the plain version
+    on the same key: the outputs and the captured lane's buffers."""
+    from ptmcmcsampler_torch.config import SamplerConfig as Cfg
+    from ptmcmcsampler_torch.trajectory import empty_capture
+
+    model = _GENERAL_MODELS[name]()
+    depth, c = 12, (37 if model.ndim > 2 else 200)
+    args, _ = _general_inputs(cuda, model, c, depth, eps_scale=1e-4 if name == "curved" else 1e-3)
+    cfg = Cfg(ndim=model.ndim, ntemps=1, nchains=1, groups=((0,),),
+              jumps=build_default_jumps(), nuts_max_depth=depth)
+    cap, cap_ref = empty_capture(cfg, cuda), empty_capture(cfg, cuda)
+    out = nuts_trees(*args, model, force_trajlen=trajlen, capture=cap)
+    q0, r0, betas, eps, expo, dirs, accu, key, chol = args
+    ref = nuts_trees_plain(q0, r0, betas, eps, expo, dirs, accu,
+                           nuts_uniforms(key, depth, *eps.shape), chol, model,
+                           force_trajlen=trajlen, capture=cap_ref)
+    _check_tree(model, out, ref, f"{name} trajlen={trajlen}")
+    live = eps > 0
+    if trajlen is None:  # nearly every tree past depth 10, some to the cap
+        assert float((out[4][live] > 1023).float().mean()) > 0.9
+        assert int(out[4][live].max()) == 4095
+    else:  # the forced length's leaves, 2**j - 1 + (an even count) past L
+        want = {1: 1, 37: 37, 1500: 1501}[trajlen]
+        assert torch.equal(out[4][live], torch.full_like(out[4][live], want))
+    assert torch.equal(cap.meta, cap_ref.meta) and int(cap.meta[3]) == 1
+    assert int(cap.meta[0] + cap.meta[1]) == int(out[4][0, 0]) + 1
+    for a, b in zip(cap.tensors()[:4], cap_ref.tensors()[:4]):
+        if model.ndim == 2:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        else:
+            assert _same(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["curved", "hierarchical"])
+def test_entries_on_a_ragged_slice_match_plain(cuda, name):
+    """The per_chain rotation runs each kernel on a slice of 3277 chains,
+    no multiple of any group: each entry there against its plain version
+    (the wide ones bit for bit)."""
+    model = _GENERAL_MODELS[name]()
+    c = 3277 if model.ndim == 2 else 301
+    args, r_eps = _general_inputs(cuda, model, c, 5)
+    q0, r0, betas, eps, expo, dirs, accu, key, chol = args
+    out = nuts_trees(*args, model, r_eps=r_eps)
+    ref = nuts_trees_plain(q0, r0, betas, eps, expo, dirs, accu,
+                           nuts_uniforms(key, 5, *eps.shape), chol, model, r_eps)
+    _check_tree(model, out, ref, "nuts")
+    if model.ndim == 2:
+        x, p0, b, e, nsteps, ch = _inputs(cuda, c=c)
+        torch.testing.assert_close(chees_trajectories(x, p0, b, e, nsteps, ch, model)[0],
+                                   chees_trajectories_plain(x, p0, b, e, nsteps, ch, model)[0],
+                                   rtol=1e-4, atol=1e-4)
+        return
+    sargs = _wide_step_inputs(cuda, model, c=c)
+    for a, b in zip(chees_step(*sargs, model), chees_step_plain(*sargs, model)):
+        assert _same(a, b)
+    x, _, _, betas, _, _, _, _, chol, chol_inv = sargs
+    key = torch.tensor([0x1234567, 0x89ABCDE], dtype=torch.int64, device=cuda)
+    t, d, _ = x.shape
+    hargs = (x, betas, key, chol, chol_inv, 0.08, HMC_NMIN, HMC_NMAX, model)
+    draws = hmc_kernel_draws(key, t, d, c, HMC_NMIN, HMC_NMAX, model)
+    for a, b in zip(hmc_step(*hargs), hmc_step_plain(x, betas, draws, *hargs[3:])):
+        assert _same(a, b)
+
+
+def _per_chain_case(dev, mode, nchains):
+    cfg = dataclasses.replace(
+        _small_config(NUTSweight=10, HMCweight=10, CHEESweight=10), nchains=nchains,
+        nuts_max_depth=6, jump_select="per_chain", per_chain_mode=mode)
+    return cfg, CurvedLikelihood()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode, nchains", [("rotation", 1000), ("stacked", 64)])
+def test_per_chain_graphs_match_the_eager_loop(cuda, mode, nchains):
+    """run_block's graphs under per_chain selection against the eager step
+    loop, bit for bit, across DE's activation; every kernel once an
+    iteration (on its slice, or on the whole batch)."""
+    cfg, model = _per_chain_case(cuda, mode, nchains)
+    wrappers = {KIND_CHEES: chees_step, KIND_NUTS: nuts_trees, KIND_HMC: hmc_step}
+    result = chip_smoke.per_chain_graphs("NVIDIA H100, 700 W", mode, cfg, model, (-0.1, -0.5),
+                                         wrappers, iters=60, block=20)
+    assert result["bitwise_equal"] and result["replays"] > 30
+
+
+@pytest.mark.cuda
+def test_per_chain_offset_read_on_the_host_raises_at_capture(cuda, monkeypatch):
+    """A rotation offset read to the host (``.item()``, as ``torch.roll``
+    would need) cannot be captured: run_block raises, naming the step."""
+    from ptmcmcsampler_torch import kernel as t_kernel
+
+    monkeypatch.setattr(t_kernel, "rotation_offset", lambda rng, c, device: torch.tensor(
+        int(torch.randint(0, c, (), generator=rng, device=device).item()), device=device))
+    cfg, model = _per_chain_case(cuda, "rotation", 256)
+    _, run_block = build_step(cfg, model, device=cuda)
+    xs = torch.tensor([-0.1, -0.5], device=cuda)[None, :, None].expand(2, 2, 256)
+    state = init_state(cfg, 1, np.array([-0.1, -0.5]), np.eye(2), np.array([1.0, 0.5]),
+                       model.lnlike(xs), model.lnprior(xs), device=cuda)
+    with pytest.raises(RuntimeError, match="capturing the per_chain step"):
+        run_block(state, 3)
+
+
+@pytest.mark.cuda
+def test_sampler_trajectory_dir_leaves_the_chain_files_unchanged(cuda, tmp_path):
+    """PTSampler with trajectoryDir (the NUTS kernel's general entry, which
+    records the trajectory) and without it (the default entry): the same
+    chain files, byte for byte, and a file set for each NUTS row."""
+    from ptmcmcsampler_torch import PTSampler
+
+    model = HierarchicalGaussian(ngroups=9)
+    kw = dict(burn=50, Tskip=5, isave=50, covUpdate=50, thin=5, SCAMweight=10, AMweight=10,
+              DEweight=10, CHEESweight=0, NUTSweight=20, HMCweight=10, MALAweight=0)
+    for which in ("with", "without"):
+        s = PTSampler(model.ndim, model.lnlikefn, model.lnpriorfn, np.eye(model.ndim),
+                      logl_grad=model.lnlikefn_grad, logp_grad=model.lnpriorfn_grad, ntemps=2,
+                      nchains=64, outDir=str(tmp_path / which), seed=5, verbose=False,
+                      device=cuda)
+        traj = dict(trajectoryDir=str(tmp_path / "traj"), write_burnin=True) \
+            if which == "with" else {}
+        before = nuts_trees.general_launches
+        s.sample(np.zeros(model.ndim), 200, **kw, **traj)
+        assert (nuts_trees.general_launches > before) == (which == "with")
+    assert chip_smoke.same_files(str(tmp_path / "with"), str(tmp_path / "without"))
+    files = list((tmp_path / "traj").iterdir())
+    assert files and len(files) % 3 == 0

@@ -45,7 +45,8 @@ def test_register_returns_the_prefixed_name_and_fills_the_tables():
     assert common.FUNCTORS[name] == {"chees": (3, 7), "nuts": (3, 7), "hmc": (3, 7)}
     assert set(user.libraries(name)) <= set(build.GENERATED)
     assert user.libraries(name) == ("chees_trajectory_user_t_tables",
-                                    "nuts_tree_user_t_tables", "hmc_trajectory_user_t_tables")
+                                    "nuts_tree_user_t_tables", "hmc_trajectory_user_t_tables",
+                                    "nuts_general_user_t_tables")
 
 
 @pytest.mark.parametrize("name", ["", "1model", "my-model", "two words", "curved",
@@ -121,16 +122,18 @@ def test_library_path_follows_the_source_and_the_headers(tmp_path, monkeypatch):
     shutil.copytree(build.CSRC, csrc)
     before = {k: build.library_path(lib, csrc) for k, lib in libs.items()}
     assert before == {k: build.library_path(lib) for k, lib in libs.items()}
-    assert len(set(before.values())) == 3
+    assert len(set(before.values())) == 4
 
     def changed():
         return sorted(k for k, lib in libs.items() if build.library_path(lib, csrc) != before[k])
 
-    for other in ("chees_trajectory.cu", "nuts_tree.cu", "hmc_trajectory.cu"):
+    for other in ("chees_trajectory.cu", "nuts_tree.cu", "hmc_trajectory.cu", "nuts_general.cu"):
         (csrc / other).write_text((csrc / other).read_text() + "\n// edited\n")
     assert changed() == []
-    edits = [("chees_kernels.cuh", ["chees"]), ("philox.cuh", ["hmc", "nuts"]),
-             ("models.cuh", ["chees", "hmc", "nuts"])]
+    edits = [("chees_kernels.cuh", ["chees"]), ("philox.cuh", ["hmc", "nuts", "nuts_general"]),
+             ("models.cuh", ["chees", "hmc", "nuts", "nuts_general"]),
+             ("nuts_kernels.cuh", ["nuts", "nuts_general"]),
+             ("nuts_general.cuh", ["nuts_general"])]
     for header, expect in edits:
         shutil.rmtree(csrc)
         shutil.copytree(build.CSRC, csrc)
@@ -214,7 +217,7 @@ def test_prepare_raises_naming_the_functor(tmp_path, monkeypatch):
     assert not any(p.suffix == ".so" for p in (tmp_path / "build").iterdir())
     # The generated sources were written beside the libraries they name.
     units = sorted(p.name for p in (tmp_path / "build").iterdir() if p.suffix == ".cu")
-    assert len(units) == 3 and all("user_ref_gaussian" in u for u in units)
+    assert len(units) == len(user.KERNELS) and all("user_ref_gaussian" in u for u in units)
 
 
 # ---- The plain versions on UserRefGaussian against the Pallas kernels ----

@@ -7,9 +7,9 @@ Usage, from the root of this checkout on a machine with nvcc::
 
     python3 tools/torch_ptxas_diff.py --other PATH_TO_OTHER_CHECKOUT
 
-Each ``csrc/<source>.cu`` of the three kernels, of both checkouts, is
-compiled with this checkout's nvcc flags (``ops/build.py``) into a
-temporary directory, all six ``nvcc`` at once. For every kernel
+Each ``csrc/<source>.cu`` that both checkouts have (``build.SOURCES``), of
+both checkouts, is compiled with this checkout's nvcc flags
+(``ops/build.py``) into a temporary directory, all ``nvcc`` at once. For every kernel
 instantiation it compares the ``-Xptxas -v`` lines (registers, stack frame,
 spill stores and loads, static shared memory; ``chip_smoke.ptxas_info``)
 and the SASS that ``cuobjdump -sass`` prints for it. A control build, the
@@ -95,15 +95,16 @@ def main():
     cuobjdump = cuobjdump_path()
     nvcc = build.nvcc_path()
     failed = False
+    sources = [n for n in build.SOURCES if (other_csrc / f"{n}.cu").exists()]
     with tempfile.TemporaryDirectory(prefix="ptxas_diff_") as tmp:
         control = Path(tmp) / "control"
         shutil.copytree(other_csrc, control)
-        for name in build.SOURCES:
+        for name in sources:
             src = control / f"{name}.cu"
             src.write_text(src.read_text() + "\n// control\n")
         procs = {}
         for which, csrc in (("this", build.CSRC), ("other", other_csrc), ("control", control)):
-            for name in build.SOURCES:
+            for name in sources:
                 lib = Path(tmp) / f"lib{name}-{which}.so"
                 cmd = [nvcc, *build.NVCC_FLAGS, "-o", str(lib), str(csrc / f"{name}.cu")]
                 procs[which, name] = (lib, subprocess.Popen(
@@ -115,7 +116,7 @@ def main():
                 raise SystemExit(f"nvcc failed for {key}:\n{log}")
             reports[key] = cs.ptxas_info(log)
             codes[key] = sass(lib, cuobjdump) if cuobjdump else None
-        for name in build.SOURCES:
+        for name in sources:
             this, other = reports["this", name], reports["other", name]
             ptxas_differ = sorted(k for k in set(this) | set(other)
                                   if this.get(k) != other.get(k))
