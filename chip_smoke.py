@@ -303,7 +303,7 @@ Phases, in order; any failure exits non-zero:
    run to the cap and with each forced length of GENERAL_TRAJLENS, the
    captured lane's buffers too: no lane, no buffer may differ in any bit;
    at depth 6 the general entry equals the default one. The default
-   entries' ptxas lines must equal 5902412's (BASE_NUTS_PTXAS). Then path 2
+   entries' ptxas lines must equal BASE_NUTS_PTXAS. Then path 2
    on the curved target at depth GENERAL_DEPTH with
    ``nuts_force_trajlen=GENERAL_PATH_TRAJLEN`` (every NUTS call through the
    general entry; the trees that leave no box run forced_leaves' 1501), its
@@ -482,8 +482,8 @@ PLAIN_KW = dict(burn=500, Tskip=5, isave=500, covUpdate=500, thin=10, SCAMweight
 # iterations.
 # Cut: the 40-D and 50-D timed iterations to 6000 and gaussian200 to
 # 250 + 250, to make room for the per-chain, general-entry and trajectory
-# phases.
-WIDE_ITERS = {"gaussian": (3000, 6000), "hierarchical": (3000, 6000),
+# phases; the 40-D and 50-D ones to 4000 for the sharded phase.
+WIDE_ITERS = {"gaussian": (3000, 4000), "hierarchical": (3000, 4000),
               "gaussian200": (250, 250)}
 # The wide kernel-vs-plain checks run the kernels at the main path's 8 x
 # 16384 chains and the plain version on the same batch, but for gaussian200
@@ -996,11 +996,12 @@ LARGE_NGROUPS = {"hierarchical270": 269, "hierarchical1024": 1023}
 # their deepest tree), so path 2 at 1024-D is cut furthest.
 # Cut: path 1 at 1024-D to half (from 200 + 300) and path 2 at 270-D
 # from 400 + 600, to make room for the per-chain, general-entry and
-# trajectory phases. Path 2 at 1024-D keeps 60 +
+# trajectory phases; for the sharded phase, the timed iterations at 270-D
+# from 2000 to 1000 (path 1) and 450 to 300 (path 2). Path 2 at 1024-D keeps 60 +
 # 100: with 50 timed iterations a first use of a key there left 0.96 of
 # them replayed, below MIN_REPLAYED_SHARE.
-LARGE_ITERS = {"hierarchical270": (1000, 2000), "hierarchical1024": (100, 150)}
-LARGE_NUTS_ITERS = {"hierarchical270": (300, 450), "hierarchical1024": (60, 100)}
+LARGE_ITERS = {"hierarchical270": (1000, 1000), "hierarchical1024": (100, 150)}
+LARGE_NUTS_ITERS = {"hierarchical270": (300, 300), "hierarchical1024": (60, 100)}
 # Path 2 at 270-D runs at a smaller NUTS depth cap (bench.py's 10), for the
 # same room: a group of 8 chains steps as long as its deepest tree. Listed
 # in its line's cuts. (At 1024-D a cap of 7 took a call only from 2.16 to
@@ -3658,8 +3659,8 @@ def large_check_line(card, label, model, builtin, err, seconds):
 # at 20 and the auxiliary HierarchyReflection, on bench.py's 50-D hierarchy.
 CUSTOM_WEIGHTS = dict(SCAMweight=20, AMweight=20, DEweight=20, CHEESweight=20)
 # Cut: the timed iterations to 6000, to make room for the per-chain,
-# general-entry and trajectory phases.
-CUSTOM_ITERS = {"custom_jumps": (3000, 6000)}
+# general-entry and trajectory phases, and to 3000 for the sharded phase.
+CUSTOM_ITERS = {"custom_jumps": (3000, 3000)}
 CUSTOM_SAMPLER_KW = dict(burn=500, Tskip=5, isave=500, covUpdate=500, thin=10,
                          NUTSweight=0, HMCweight=0, MALAweight=0, HMCstepsize=HMC_EPS,
                          **CUSTOM_WEIGHTS)
@@ -3792,9 +3793,10 @@ def phase_host_jumps():
 LADDER_T, LADDER_C = 64, 2048
 # Cut: the timed iterations of tall_ladder, de_iid and de_rolled from
 # 6000 to 3000, and of the sweep from 3000 to 1500, to make room for the
-# per-chain, general-entry and trajectory phases.
-LADDER_ITERS = {"tall_ladder": (3000, 3000), "tall_ladder_sweep": (1000, 1500),
-                "de_iid": (3000, 3000), "de_rolled": (3000, 3000)}
+# per-chain, general-entry and trajectory phases; the first three to 2000
+# for the sharded phase.
+LADDER_ITERS = {"tall_ladder": (3000, 2000), "tall_ladder_sweep": (1000, 1500),
+                "de_iid": (3000, 2000), "de_rolled": (3000, 2000)}
 # The eager loop against the graphs on these paths' final states: 20
 # iterations of each under the profiler, as on the wide paths past 64-D.
 LADDER_COMPARE_ITERS = 20
@@ -4114,8 +4116,9 @@ def phase_ladder_sampler(card, wrappers):
 # and the NUTS trajectory capture (ROADMAP A11's end) ----
 
 # The per_chain phase: both paths' cycles on the 50-D hierarchy at T x C,
-# rotation mode, cut from bench.py's 3000 + 12000 to fit the script's limit.
-PER_CHAIN_ITERS = {"hierarchical": (1000, 2000), "nuts/hierarchical": (500, 1000)}
+# rotation mode, cut from bench.py's 3000 + 12000 to fit the script's limit
+# (the timed iterations from 2000 and 1000 for the sharded phase).
+PER_CHAIN_ITERS = {"hierarchical": (1000, 1000), "nuts/hierarchical": (500, 500)}
 # The graphs check of the per_chain phase: eager loop against run_block over
 # PER_CHAIN_GRAPHS_ITERS iterations that cross DE's activation (burn cut to
 # GRAPHS_BURN, cov_update to GRAPHS_COV_UPDATE); the stacked mode on path
@@ -4135,17 +4138,20 @@ GENERAL_PATH_TRAJLEN, GENERAL_PATH_ITERS = 1500, (500, 1000)
 # The trajectory_sampler phase: PTSampler on the 50-D hierarchy at T x
 # WIDE_SAMPLER_C, path 2's cycle, with trajectoryDir and write_burnin.
 TRAJ_SAMPLER_KW = dict(WIDE_SAMPLER_KW, CHEESweight=0)
-# The ptxas lines of the NUTS kernel's default entries at 5902412 (this
-# script's build log there; tools/torch_ptxas_diff.py --other holds them to
-# a build of that checkout); their sources are unchanged since.
+# The ptxas lines of the NUTS kernel's default entries since they take the
+# counter arguments n_base and c_total (this script's build log on an H100;
+# tools/torch_ptxas_diff.py --other holds them to a build of an earlier
+# checkout). At 5902412, before those arguments, nuts_tree_kernel<> had 62
+# registers and the wide kernels' spill stores were within 12 B of these
+# (PERF.md §6).
 BASE_NUTS_PTXAS = {
-    "nuts_tree_kernel<>": (62, 0, 0, 0, 26624),
-    "nuts_wide_kernel<WideHierarchicalGaussian,0>": (128, 496, 772, 1256, 2304),
-    "nuts_wide_kernel<WideHierarchicalGaussian,1>": (128, 496, 768, 1288, 2304),
-    "nuts_wide_kernel<WideIntervalGaussian,0>": (128, 408, 578, 888, 2304),
-    "nuts_wide_kernel<WideIntervalGaussian,1>": (128, 416, 578, 980, 2304),
-    "nuts_wide_kernel<WideCorrelatedGaussian,0>": (128, 480, 912, 1592, 2304),
-    "nuts_wide_kernel<WideCorrelatedGaussian,1>": (128, 488, 876, 1528, 2304),
+    "nuts_tree_kernel<>": (63, 0, 0, 0, 26624),
+    "nuts_wide_kernel<WideHierarchicalGaussian,0>": (128, 488, 760, 1220, 2304),
+    "nuts_wide_kernel<WideHierarchicalGaussian,1>": (128, 496, 772, 1292, 2304),
+    "nuts_wide_kernel<WideIntervalGaussian,0>": (128, 400, 574, 872, 2304),
+    "nuts_wide_kernel<WideIntervalGaussian,1>": (128, 416, 582, 988, 2304),
+    "nuts_wide_kernel<WideCorrelatedGaussian,0>": (128, 480, 904, 1536, 2304),
+    "nuts_wide_kernel<WideCorrelatedGaussian,1>": (128, 488, 880, 1532, 2304),
 }
 PTXAS_FIELDS = ("registers", "stack_bytes", "spill_store_bytes", "spill_load_bytes",
                 "static_smem_bytes")
@@ -4535,7 +4541,7 @@ def phase_general_vs_plain(model, label):
 def phase_nuts_general(card, model, logs, builtin_nuts_log):
     """The nuts_general phase: the general entry against its plain version
     (D = 2, the 50-D hierarchy, its user functor), the default entries'
-    ptxas lines against 5902412's, then path 2 on the curved target at depth
+    ptxas lines against BASE_NUTS_PTXAS, then path 2 on the curved target at depth
     GENERAL_DEPTH with a forced length of GENERAL_PATH_TRAJLEN through
     run_block (every NUTS iteration through the general entry), its gate,
     tree sizes and the general entry's ms a call on the path's final state.
@@ -4556,10 +4562,11 @@ def phase_nuts_general(card, model, logs, builtin_nuts_log):
     ptxas_base = {k: dict(zip(PTXAS_FIELDS, v)) for k, v in BASE_NUTS_PTXAS.items()}
     ptxas_equal = {k: ptxas_now.get(k) == v for k, v in ptxas_base.items()}
     general_ptxas = ptxas_info(logs.get("nuts_general", ""))
-    log(f"nuts default entries' ptxas against 5902412's: {ptxas_equal}; general: {general_ptxas}")
+    log(f"nuts default entries' ptxas against BASE_NUTS_PTXAS: {ptxas_equal}; "
+        f"general: {general_ptxas}")
     if not all(ptxas_equal.values()) or set(ptxas_now) != set(ptxas_base):
         raise SystemExit(f"nuts_general: the default entries' ptxas lines {ptxas_now} differ "
-                         f"from 5902412's {ptxas_base}")
+                         f"from BASE_NUTS_PTXAS {ptxas_base}")
 
     burn, timed = GENERAL_PATH_ITERS
     cfg = dataclasses.replace(nuts_config(burn // 2), nuts_max_depth=GENERAL_DEPTH,
@@ -4709,6 +4716,379 @@ def phase_trajectory_sampler(card, wrappers):
         return {"capture": cap["general_launches"]}
     finally:
         t_kernel.draw_kinds = real_draw
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---- Multi-process runs (ROADMAP A12): two ranks sharing the card ----------
+
+# The run_block cases, (burn, timed) iterations (bench.py's 3000 + 12000 cut
+# to fit the phase's minute: the ranks run eagerly, with their collectives
+# staged through host memory), each against the one-process eager run of the
+# same seed. sharded/curved: path 1 with the rungs split (2 x 1), DEO by the
+# neighbour exchange (what PTSampler picks on that mesh for swap_mode=None),
+# a factor refresh every SHARDED_COV_UPDATE; sharded/nuts: path 2 with the
+# chains split (1 x 2), so the NUTS and HMC kernels draw from n0 = c0 != 0.
+SHARDED_ITERS = {"sharded/curved": (200, 400), "sharded/nuts": (200, 400)}
+SHARDED_MESH = {"sharded/curved": (2, 1), "sharded/nuts": (1, 2)}
+SHARDED_COV_UPDATE = 150
+SHARDED_BLOCK = 100
+# sharded_sampler: PTSampler on the 50-D hierarchy at 8 x WIDE_SAMPLER_C over
+# two ranks (the rungs split by default), then a resume.
+SHARDED_SAMPLER_ITERS, SHARDED_SAMPLER_RESUME = 1000, 1500
+SHARDED_RANKS = 2
+SHARDED_TIMEOUT = 300  # seconds a launch of the ranks may take
+SHARDED_GROUP_TIMEOUT = 60  # torch.distributed's timeout of a collective, seconds
+SHARDED_REPS = 20  # calls an exchange's and a gather's time is the mean of
+SHARDED_WIDE_D = 50  # the width the gather and the draws are also timed at
+# The state's arrays by the group the sharded lines count differing elements in.
+SHARDED_GROUPS = {"x": ("x",), "lnlike": ("lnlike",), "lnprior": ("lnprior",),
+                  "naccepted": ("counters/naccepted",),
+                  "swaps": ("counters/swaps_",), "adapt": ("adapt/",), "betas": ("betas",),
+                  "other": ("stepsize/", "de/", "counters/jump_", "it")}
+
+
+def sharded_config(label):
+    """``(config, model, x0)`` of a sharded run_block case."""
+    from ptmcmcsampler_torch.models import CurvedLikelihood
+
+    burn = SHARDED_ITERS[label][0]
+    if label == "sharded/curved":
+        cfg = dataclasses.replace(headline_config(burn, SHARDED_COV_UPDATE), swap_mode="deo")
+    else:
+        cfg = nuts_config(burn, SHARDED_COV_UPDATE)
+    return cfg, CurvedLikelihood(), (-0.1, -0.5)
+
+
+def sharded_wrappers():
+    from ptmcmcsampler_torch.ops.chees import chees_step, chees_trajectories
+    from ptmcmcsampler_torch.ops.hmc import hmc_step, hmc_trajectories
+    from ptmcmcsampler_torch.ops.nuts import nuts_trees
+
+    return {w.__name__: w for w in (chees_step, chees_trajectories, hmc_step,
+                                    hmc_trajectories, nuts_trees)}
+
+
+def sharded_state_arrays(state):
+    """The whole state as ``{path: array}`` with the generators' states."""
+    from ptmcmcsampler_torch.state import state_to_numpy
+
+    out = state_to_numpy(state)
+    out["torch/rng"] = state.rng.get_state().numpy()
+    out["torch/host_rng"] = state.host_rng.get_state().numpy()
+    return out
+
+
+def sharded_run(label, mesh=None):
+    """A case's iterations by ``run_block`` without graphs, on ``mesh`` (None:
+    one process). Returns ``(whole state arrays, timed it/s, launches,
+    timings)``: each wrapper's launches over the whole run (its count set to
+    0 before it), and on a mesh the host ms of one DEO exchange and of one
+    gather of the cold rows (SHARDED_REPS calls after the run)."""
+    from ptmcmcsampler_torch import build_step, swaps
+    from ptmcmcsampler_torch.parallel.mesh import gather, shard_state, unshard_state
+
+    cfg, model, x0 = sharded_config(label)
+    burn, timed = SHARDED_ITERS[label]
+    dev = torch.device(DEVICE)
+    _, run_block = build_step(cfg, model, device=dev, capture=False, mesh=mesh)
+    state = new_state(cfg, model, x0, dev)
+    if mesh is not None:
+        state = shard_state(state, mesh)
+    wrappers = sharded_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    for _ in range(burn // SHARDED_BLOCK):
+        state, _ = run_block(state, SHARDED_BLOCK)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(timed // SHARDED_BLOCK):
+        state, _ = run_block(state, SHARDED_BLOCK)
+    torch.cuda.synchronize()
+    rate = timed / (time.time() - t0)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    block = run_block.block
+    timings = dict.fromkeys(("deo_exchange_ms", "cold_gather_ms", "cold_gather_50d_ms",
+                             "global_draw_ms", "local_draw_ms"))
+    if block.sharded:
+        def host_ms(fn):
+            fn()
+            torch.cuda.synchronize()
+            t1 = time.time()
+            for _ in range(SHARDED_REPS):
+                fn()
+            torch.cuda.synchronize()
+            return 1e3 * (time.time() - t1) / SHARDED_REPS
+
+        if mesh.ntemp > 1:
+            deo = swaps.make_sharded_deo(block)
+            us = swaps.block_uniforms(torch.rand((cfg.ntemps - 1, cfg.nchains), device=dev),
+                                      block)
+            timings["deo_exchange_ms"] = host_ms(lambda: deo(
+                us, state.x, state.lnlike, state.lnprior, state.betas, 0))
+        timings["cold_gather_ms"] = host_ms(lambda: gather(block, state.x[0], (cfg.ndim, "C")))
+        # The same at the 50-D hierarchy's width (3.3 MB of cold rows at
+        # 16384 chains), and the cost of drawing the unsharded [T, 50, C]
+        # normals and keeping the block against drawing the block alone.
+        wide = torch.zeros((SHARDED_WIDE_D, block.c1 - block.c0), device=dev)
+        timings["cold_gather_50d_ms"] = host_ms(lambda: gather(block, wide, (50, "C")))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(3)
+        dims = ("T", SHARDED_WIDE_D, "C")
+        timings["global_draw_ms"] = cuda_ms(lambda: block.draw(torch.randn, gen, dims, dev),
+                                            SHARDED_REPS)
+        local = (block.t1 - block.t0, SHARDED_WIDE_D, block.c1 - block.c0)
+        timings["local_draw_ms"] = cuda_ms(
+            lambda: torch.randn(local, generator=gen, device=dev), SHARDED_REPS)
+    return sharded_state_arrays(unshard_state(state, block)), rate, launches, timings
+
+
+def sharded_sampler(outdir, resume=False, mesh_default=True, swap_mode=None):
+    """``PTSampler`` on the 50-D hierarchy's bound methods at 8 x
+    WIDE_SAMPLER_C with WIDE_SAMPLER_KW's cycle: SHARDED_SAMPLER_ITERS
+    iterations, or with ``resume`` a resume to SHARDED_SAMPLER_RESUME.
+    Returns ``(sampler, seconds)``."""
+    from ptmcmcsampler_torch import PTSampler
+
+    model = wide_workload("hierarchical")[0]
+    s = PTSampler(model.ndim, model.lnlikefn, model.lnpriorfn, np.eye(model.ndim),
+                  logl_grad=model.lnlikefn_grad, logp_grad=model.lnpriorfn_grad,
+                  ntemps=T, nchains=WIDE_SAMPLER_C, outDir=outdir, seed=7, verbose=False,
+                  resume=resume, swap_mode=swap_mode)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    s.sample(np.zeros(model.ndim),
+             SHARDED_SAMPLER_RESUME if resume else SHARDED_SAMPLER_ITERS, **WIDE_SAMPLER_KW)
+    torch.cuda.synchronize()
+    return s, time.time() - t0
+
+
+def sharded_worker(argv):
+    """One rank of the sharded cases (``chip_smoke.py --sharded-worker CASE
+    RANK WORLD PORT OUTDIR``, CASE ``run_block`` for every SHARDED_ITERS case
+    or ``sharded_sampler``): joins the ``gloo`` group on this machine, runs
+    on its block on ``cuda:0`` (the ranks share the card), writes
+    ``OUTDIR/rank<r>.json`` (its launches, rates and timings) and, on rank 0,
+    each case's whole final state (``<case>.npz``) or the sampler's files
+    (``OUTDIR/chains``). Loads the kernel libraries the parent built."""
+    from ptmcmcsampler_torch.parallel import initialize_distributed, make_pt_mesh
+
+    label, rank, world, port, outdir = argv[0], int(argv[1]), int(argv[2]), int(argv[3]), argv[4]
+    initialize_distributed(f"tcp://localhost:{port}", world, rank, backend="gloo",
+                           timeout=SHARDED_GROUP_TIMEOUT)
+    torch.cuda.set_device(0)
+    out = {"rank": rank, "cases": {}}
+    if label == "sharded_sampler":
+        wrappers = sharded_wrappers()
+        for w in wrappers.values():
+            w.launches = 0
+        chains = os.path.join(outdir, "chains")
+        s, wall = sharded_sampler(chains)
+        out["iters_per_sec"] = SHARDED_SAMPLER_ITERS / wall
+        s, wall = sharded_sampler(chains, resume=True)
+        out["resume_iters_per_sec"] = (SHARDED_SAMPLER_RESUME - SHARDED_SAMPLER_ITERS) / wall
+        out.update(launches={n: w.launches for n, w in wrappers.items()},
+                   mesh=[s.mesh.ntemp, s.mesh.nchain], swap_mode=s.config.swap_mode,
+                   owns_cold=bool(s._owns_cold), graphs=s.block_stats.summary()["capture"])
+    else:  # every run_block case, one after the other
+        for case in SHARDED_ITERS:
+            arrays, rate, launches, timings = sharded_run(case, make_pt_mesh(*SHARDED_MESH[case]))
+            if rank == 0:
+                np.savez(os.path.join(outdir, case.replace("/", "_") + ".npz"), **arrays)
+            out["cases"][case] = dict(iters_per_sec=rate, launches=launches, **timings)
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    # Leave the group together: a process that exits with gloo's threads
+    # still up may abort.
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def launch_ranks(label, outdir, world=SHARDED_RANKS):
+    """Run ``world`` ranks of case ``label`` (this script, ``--sharded-worker``)
+    and wait for them: a rank that exits non-zero, or a launch past
+    SHARDED_TIMEOUT, kills the others and fails the phase. Returns each
+    rank's ``rank<r>.json``."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for r in range(world):
+        logf = open(os.path.join(outdir, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-worker", label, str(r),
+             str(world), str(port), outdir], stdout=logf, stderr=subprocess.STDOUT), logf))
+    deadline = time.time() + SHARDED_TIMEOUT
+    try:
+        while True:
+            codes = [p.poll() for p, _ in procs]
+            bad = [r for r, code in enumerate(codes) if code not in (None, 0)]
+            late = time.time() > deadline
+            if bad or late:
+                for p, _ in procs:
+                    if p.poll() is None:
+                        p.kill()
+                r = bad[0] if bad else 0
+                with open(os.path.join(outdir, f"rank{r}.log")) as f:
+                    tail = f.read()[-4000:]
+                raise SystemExit(f"{label}: rank {r} "
+                                 f"{'failed' if bad else 'ran past the time limit'}:\n{tail}")
+            if all(code == 0 for code in codes):
+                break
+            time.sleep(0.1)
+    finally:
+        for p, logf in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            logf.close()
+    results = []
+    for r in range(world):
+        with open(os.path.join(outdir, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def differing(got, want):
+    """Elements of ``got`` that differ from ``want`` (arrays by path), by
+    SHARDED_GROUPS' groups; a path one lacks counts whole."""
+    counts = {g: 0 for g in SHARDED_GROUPS}
+    for path in sorted(set(got) | set(want)):
+        group = next((g for g, prefixes in SHARDED_GROUPS.items()
+                      if any(path == p or path.startswith(p) for p in prefixes)), "other")
+        a, b = got.get(path), want.get(path)
+        if a is None or b is None or a.shape != b.shape or a.dtype != b.dtype:
+            counts[group] += int(np.size(a if a is not None else b))
+        elif path.startswith("torch/"):
+            counts[group] += int(a.tobytes() != b.tobytes())
+        else:
+            counts[group] += int(np.sum(a.view(np.uint8).reshape(a.shape + (-1,))
+                                        != b.view(np.uint8).reshape(b.shape + (-1,)))
+                                 if a.ndim else a.tobytes() != b.tobytes())
+    return counts
+
+
+def files_differing(a, b):
+    """The chain and jump files, ``cov.npy`` and the checkpoint's arrays of
+    two output directories that differ, and each rung's all-chain rows past
+    the seed row (a multi-process run's sidecars start after it, as the JAX
+    package's part files do)."""
+    from ptmcmcsampler_torch.io.chainfile import ChainWriter
+
+    out = []
+    names = sorted(f for f in os.listdir(b) if f.endswith(".txt") or f == "cov.npy")
+    for name in names:
+        pa, pb = os.path.join(a, name), os.path.join(b, name)
+        if not os.path.isfile(pa) or not filecmp.cmp(pa, pb, shallow=False):
+            out.append(name)
+    with np.load(os.path.join(a, "checkpoint.npz")) as x, \
+            np.load(os.path.join(b, "checkpoint.npz")) as y:
+        out += [f"checkpoint.npz:{k}" for k in y.files
+                if k not in x.files or x[k].tobytes() != y[k].tobytes()]
+    for temp in sorted(n[len("chain_"):-len(".txt")] for n in names if n.startswith("chain_")):
+        wa = ChainWriter(a, np.array([float(temp)]), resume=True).load_all(0)
+        wb = ChainWriter(b, np.array([float(temp)]), resume=True).load_all(0)
+        if wa is None or wb is None or wa.tobytes() != wb[1:].tobytes():
+            out.append(f"chain_all_{temp} rows")
+    return out
+
+
+def phase_sharded(card):
+    """ROADMAP A12 on the card: SHARDED_RANKS processes share cuda:0 over
+    ``gloo`` (NCCL refuses two ranks on one GPU), each its block of the
+    batch, the rows they exchange staged through pinned host memory. Each
+    case's final state must equal the one-process run of the same seed in
+    every element, and each rank must launch its path's kernels; the
+    sharded sampler's files must equal a one-process run's and its
+    checkpoint load in one process. Prints one line a case. Returns the
+    launches by case and wrapper: ``{case: {wrapper: [rank 0, rank 1]}}``."""
+    from ptmcmcsampler_torch.config import KIND_CHEES, KIND_HMC, KIND_NUTS
+    from ptmcmcsampler_torch.io.checkpoint import load_checkpoint
+
+    card_name, power = [v.strip() for v in card.split(",", 1)]
+    kinds = {"chees_step": KIND_CHEES, "nuts_trees": KIND_NUTS, "hmc_step": KIND_HMC}
+    launches_by_case = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        outdir = os.path.join(root, "run_block")
+        os.makedirs(outdir)
+        t0 = time.time()
+        all_ranks = launch_ranks("run_block", outdir)
+        wall_ranks = time.time() - t0
+        for label in SHARDED_ITERS:
+            ranks = [r["cases"][label] for r in all_ranks]
+            with np.load(os.path.join(outdir, label.replace("/", "_") + ".npz")) as f:
+                got = {k: f[k] for k in f.files}
+            want, rate, launches, _ = sharded_run(label)
+            diff = differing(got, want)
+            cfg = sharded_config(label)[0]
+            path_kernels = [w for w, k in kinds.items() if k in {j.kind for j in cfg.jumps}]
+            by_rank = {w: [r["launches"][w] for r in ranks] for w in path_kernels}
+            line = {
+                "phase": "sharded", "path": label, "mesh": SHARDED_MESH[label],
+                "backend": "gloo", "ranks": SHARDED_RANKS, "device": "cuda:0 shared",
+                "graphs": False, "chains": [T, C], "iters": SHARDED_ITERS[label],
+                "cuts": {"bench.py": [BURN_ITERS, TIMED_ITERS], "here": SHARDED_ITERS[label]},
+                "differing_elements": diff,
+                "iters_per_sec_two_ranks": [r["iters_per_sec"] for r in ranks],
+                "iters_per_sec_one_process_eager": rate,
+                **{k: ranks[0][k] for k in ("deo_exchange_ms", "cold_gather_ms",
+                                            "cold_gather_50d_ms", "global_draw_ms",
+                                            "local_draw_ms")},
+                "launches_by_rank": by_rank,
+                "launches_one_process": {w: launches[w] for w in path_kernels},
+                "launch_sec_both_cases": wall_ranks, "card": card_name, "power_limit": power,
+            }
+            print(json.dumps(line), flush=True)
+            if any(diff.values()):
+                raise SystemExit(f"{label}: the sharded run differs from one process: {diff}")
+            if not path_kernels or any(n == 0 for v in by_rank.values() for n in v):
+                raise SystemExit(f"{label}: a rank launched no {by_rank}")
+            launches_by_case[label] = by_rank
+
+        outdir = os.path.join(root, "sampler")
+        os.makedirs(outdir)
+        t0 = time.time()
+        ranks = launch_ranks("sharded_sampler", outdir)
+        wall_ranks = time.time() - t0
+        one = os.path.join(root, "one_process")
+        with contextlib.redirect_stdout(sys.stderr):
+            s, wall = sharded_sampler(one, swap_mode="deo")
+            s, wall_resume = sharded_sampler(one, resume=True, swap_mode="deo")
+        diff_files = files_differing(os.path.join(outdir, "chains"), one)
+        loaded, meta, restored = load_checkpoint(
+            os.path.join(outdir, "chains", "checkpoint.npz"), s.config, torch.device(DEVICE))
+        by_rank = {w: [r["launches"][w] for r in ranks] for w in kinds}
+        line = {
+            "phase": "sharded_sampler", "model": "HierarchicalGaussian", "ndim": 50,
+            "chains": [T, WIDE_SAMPLER_C], "mesh": ranks[0]["mesh"], "backend": "gloo",
+            "swap_mode": ranks[0]["swap_mode"], "graphs": ranks[0]["graphs"],
+            "iters": [SHARDED_SAMPLER_ITERS, SHARDED_SAMPLER_RESUME],
+            "cuts": {"bench.py": [BURN_ITERS, TIMED_ITERS],
+                     "here": [SHARDED_SAMPLER_ITERS, SHARDED_SAMPLER_RESUME]},
+            "files_differing": diff_files,
+            "owns_cold": [r["owns_cold"] for r in ranks],
+            "checkpoint_loads": bool(restored and meta["iter"] == SHARDED_SAMPLER_RESUME
+                                     and loaded.it == SHARDED_SAMPLER_RESUME),
+            "iters_per_sec_two_ranks": [r["iters_per_sec"] for r in ranks],
+            "resume_iters_per_sec_two_ranks": [r["resume_iters_per_sec"] for r in ranks],
+            "iters_per_sec_one_process": SHARDED_SAMPLER_ITERS / wall,
+            "resume_iters_per_sec_one_process":
+                (SHARDED_SAMPLER_RESUME - SHARDED_SAMPLER_ITERS) / wall_resume,
+            "launches_by_rank": by_rank, "launch_sec": wall_ranks,
+            "card": card_name, "power_limit": power,
+        }
+        print(json.dumps(line), flush=True)
+        if diff_files or not line["checkpoint_loads"] or line["owns_cold"] != [True, False]:
+            raise SystemExit(f"sharded_sampler: files differ {diff_files}, checkpoint loads "
+                             f"{line['checkpoint_loads']}, owners {line['owns_cold']}")
+        if any(n == 0 for v in by_rank.values() for n in v):
+            raise SystemExit(f"sharded_sampler: a rank launched no {by_rank}")
+        launches_by_case["sharded_sampler"] = by_rank
+        return launches_by_case
+    finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -4901,6 +5281,19 @@ def main():
     traj_launches = phase_trajectory_sampler(card, wrappers)
     general["launches_by_path"] = {"nuts_general/curved": general["launches"],
                                    "trajectory_sampler": traj_launches["capture"]}
+
+    # ROADMAP A12: two ranks sharing the card, each case against one process.
+    sharded = phase_sharded(card)
+    kernels[0]["launches_by_path"]["sharded/curved"] = sharded["sharded/curved"]["chees_step"]
+    for k, wrapper in ((kernels[1], "nuts_trees"), (kernels[2], "hmc_step")):
+        k.setdefault("launches_by_path", {"nuts": k["launches"]})
+        k["launches_by_path"]["sharded/nuts"] = sharded["sharded/nuts"][wrapper]
+    for items, wrapper in ((wide, "chees_step"), (wide_nuts, "nuts_trees"),
+                           (wide_hmc, "hmc_step")):
+        for item in items:
+            if item["workload"] == "hierarchical":
+                item["launches_by_path"]["sharded_sampler"] = \
+                    sharded["sharded_sampler"][wrapper]
     kernels[1]["general"] = general
     kernels[0]["wide"] = wide
     kernels[1]["wide"] = list(wide_nuts)
@@ -4917,4 +5310,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-worker"]:
+        sys.exit(sharded_worker(sys.argv[2:]))
     sys.exit(main())

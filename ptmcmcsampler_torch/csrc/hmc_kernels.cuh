@@ -68,6 +68,10 @@ struct Params {
   float* qxy;
   int T;
   int C;
+  // Step entry: the counter word of local chain t*C + c is n_base +
+  // t*c_total + c, its index in the unsharded batch (0 and C unsharded).
+  long long n_base;
+  int c_total;
 };
 
 template <class Model, bool kStep>
@@ -97,7 +101,8 @@ __global__ void __launch_bounds__(kThreads) hmc_kernel(const Params P) {
 #pragma unroll
     for (int d = 0; d < D; ++d) x[d] = q[d];
     matvec_t<D>(ci, x, q);  // q0 = chol_inv^T x
-    draw_chain<D>(key, (uint32_t)n, P.nmin, (uint32_t)(P.nmax - P.nmin), p, ns);
+    draw_chain<D>(key, (uint32_t)(P.n_base + (long long)t * P.c_total + c), P.nmin,
+                  (uint32_t)(P.nmax - P.nmin), p, ns);
   } else {
 #pragma unroll
     for (int d = 0; d < D; ++d) p[d] = P.p0[row + (long long)d * P.C];
@@ -136,7 +141,8 @@ __global__ void __launch_bounds__(kThreads) hmc_kernel(const Params P) {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 hmc_draws_kernel(const long long* __restrict__ key_in, int nmin, int nmax,
-                 float* __restrict__ p0, int* __restrict__ nsteps, int C) {
+                 float* __restrict__ p0, int* __restrict__ nsteps, int C, long long n_base,
+                 int c_total) {
   const int t = blockIdx.y;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
@@ -144,7 +150,8 @@ hmc_draws_kernel(const long long* __restrict__ key_in, int nmin, int nmax,
   const long long n = (long long)t * C + c;
   float p[D];
   int ns;
-  draw_chain<D>(key, (uint32_t)n, nmin, (uint32_t)(nmax - nmin), p, ns);
+  draw_chain<D>(key, (uint32_t)(n_base + (long long)t * c_total + c), nmin,
+                (uint32_t)(nmax - nmin), p, ns);
 #pragma unroll
   for (int d = 0; d < D; ++d) p0[(long long)t * D * C + (long long)d * C + c] = p[d];
   nsteps[n] = ns;
@@ -219,6 +226,8 @@ struct WideParams {
   int D;
   int T;
   int C;
+  long long n_base;  // step entry: the counter words, as Params'
+  int c_total;
 };
 
 template <class Model, bool kStep>
@@ -273,8 +282,10 @@ __global__ void __launch_bounds__(kThreads, 2) hmc_wide_kernel(const WideParams 
     const uint32_t span = (uint32_t)(P.nmax - P.nmin);
     for (int item = tid; item < draw_calls(D) * NB; item += kThreads) {
       const int c = item & (NB - 1);
-      if (n0 + c < N)
-        draw_call(key, (uint32_t)(n0 + c), item / NB, D, P.nmin, span, p + c, NB, s_ns + c);
+      const long long m = n0 + c;
+      if (m < N)
+        draw_call(key, (uint32_t)(P.n_base + (m / P.C) * P.c_total + m % P.C), item / NB, D,
+                  P.nmin, span, p + c, NB, s_ns + c);
     }
     __syncthreads();
   }
@@ -331,13 +342,15 @@ __global__ void __launch_bounds__(kThreads, 2) hmc_wide_kernel(const WideParams 
 // p0 [T, D, C] and nsteps [T, C].
 __global__ void __launch_bounds__(kThreads)
 hmc_draws_wide_kernel(const long long* __restrict__ key_in, int nmin, int nmax,
-                      float* __restrict__ p0, int* __restrict__ nsteps, int D, int T, int C) {
+                      float* __restrict__ p0, int* __restrict__ nsteps, int D, int T, int C,
+                      long long n_base, int c_total) {
   const long long n = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (n >= (long long)T * C) return;
   const uint2 key = make_uint2((uint32_t)__ldg(key_in), (uint32_t)__ldg(key_in + 1));
   float* p = p0 + (n / C) * D * (long long)C + n % C;
   for (int j = 0; j < draw_calls(D); ++j)
-    draw_call(key, (uint32_t)n, j, D, nmin, (uint32_t)(nmax - nmin), p, C, nsteps + n);
+    draw_call(key, (uint32_t)(n_base + (n / C) * c_total + n % C), j, D, nmin,
+              (uint32_t)(nmax - nmin), p, C, nsteps + n);
 }
 
 template <class Model, bool kStep>
@@ -391,7 +404,8 @@ int launch_wide(const WideParams& P, void* stream) {
   extern "C" int hmc_step_##NAME(const float* x, const float* beta, const long long* key,      \
                                  const float* chol, const float* chol_inv, const float* prm,   \
                                  float eps, int nmin, int nmax, float* x1, float* qxy,         \
-                                 int structure, int D, int T, int C, void* stream) {           \
+                                 int structure, int D, int T, int C, long long n_base,         \
+                                 int c_total, void* stream) {                                  \
     WideParams params{};                                                                       \
     params.q = x;                                                                              \
     params.key = key;                                                                          \
@@ -408,14 +422,18 @@ int launch_wide(const WideParams& P, void* stream) {
     params.D = D;                                                                              \
     params.T = T;                                                                              \
     params.C = C;                                                                              \
+    params.n_base = n_base;                                                                    \
+    params.c_total = c_total;                                                                  \
     return launch_wide<MODEL, true>(params, stream);                                           \
   }                                                                                            \
   extern "C" int hmc_draws_##NAME(const long long* key, int nmin, int nmax, float* p0,         \
-                                  int* nsteps, int D, int T, int C, void* stream) {            \
+                                  int* nsteps, int D, int T, int C, long long n_base,          \
+                                  int c_total, void* stream) {                                 \
     if (D < 1 || D > ptmc::kWideMaxD) return (int)cudaErrorInvalidValue;                       \
     const long long n = (long long)T * C;                                                      \
     if (n <= 0) return (int)cudaSuccess;                                                       \
     hmc_draws_wide_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,            \
-                            (cudaStream_t)stream>>>(key, nmin, nmax, p0, nsteps, D, T, C);     \
+                            (cudaStream_t)stream>>>(key, nmin, nmax, p0, nsteps, D, T, C,      \
+                                                    n_base, c_total);                          \
     return (int)cudaGetLastError();                                                            \
   }

@@ -32,7 +32,10 @@
 // ops/hmc.py hmc_draws and count the steps a batch takes.
 //
 // Draws. Chain n = t*C + c takes Philox4x32-10 (philox.cuh) under the two-word
-// key at counters (j, n, kStreamHmc, 0), j = 0, 1, ...; call j gives words
+// key at counters (j, n, kStreamHmc, 0), j = 0, 1, ..., with n its index in
+// the unsharded batch: n_base + t*c_total + c for the step and draws entries'
+// arguments n_base and c_total (0 and C unsharded; a shard of the rungs from
+// t0 and the chains from c0 passes t0*c_total + c0 and the unsharded C); call j gives words
 // w[4j] .. w[4j + 3]. Momentum pair m (dimensions 2m and 2m + 1) comes from
 // words 2m and 2m + 1 by Box-Muller:
 //
@@ -142,7 +145,8 @@ extern "C" int hmc_trajectory_curved(const float* q0, const float* p0, const flo
 // does not synchronise and allocates nothing. Returns cudaGetLastError().
 extern "C" int hmc_step_curved(const float* x, const float* beta, const long long* key,
                                const float* chol, const float* chol_inv, float eps, int nmin,
-                               int nmax, float* x1, float* qxy, int T, int C, void* stream) {
+                               int nmax, float* x1, float* qxy, int T, int C,
+                               long long n_base, int c_total, void* stream) {
   Params params{};
   params.q = x;
   params.key = key;
@@ -156,6 +160,8 @@ extern "C" int hmc_step_curved(const float* x, const float* beta, const long lon
   params.qxy = qxy;
   params.T = T;
   params.C = C;
+  params.n_base = n_base;
+  params.c_total = c_total;
   return launch<ptmc::CurvedLikelihood, true>(params, stream);
 }
 
@@ -163,12 +169,13 @@ extern "C" int hmc_step_curved(const float* x, const float* beta, const long lon
 // [T, C] int32, device pointers. A test entry. Launches on `stream`, does
 // not synchronise and allocates nothing. Returns cudaGetLastError().
 extern "C" int hmc_draws_curved(const long long* key, int nmin, int nmax, float* p0,
-                                int* nsteps, int T, int C, void* stream) {
+                                int* nsteps, int T, int C, long long n_base, int c_total,
+                                void* stream) {
   if (T <= 0 || C <= 0) return (int)cudaSuccess;
   dim3 grid;
   if (!grid_of(T, C, &grid)) return (int)cudaErrorInvalidValue;
   hmc_draws_kernel<ptmc::CurvedLikelihood::D><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      key, nmin, nmax, p0, nsteps, C);
+      key, nmin, nmax, p0, nsteps, C, n_base, c_total);
   return (int)cudaGetLastError();
 }
 

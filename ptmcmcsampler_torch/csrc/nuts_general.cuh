@@ -108,6 +108,7 @@ __global__ void __launch_bounds__(kThreads) nuts_general_kernel(const GeneralPar
   if (n >= N) return;
   const int t = n / P.C;
   const long long base = (long long)t * D * P.C + (n - t * P.C);
+  const uint32_t ctr = (uint32_t)(P.n_base + (long long)t * P.c_total + (n - t * P.C));
 
   float chol[D][D];
   ptmc::load_chol<D>(P.chol, chol);
@@ -169,7 +170,7 @@ __global__ void __launch_bounds__(kThreads) nuts_general_kernel(const GeneralPar
 
     for (int k = 0; k < nleaves && active; ++k) {
       const float u =
-          ptmc::uniform24(ptmc::philox4x32_10(make_uint4(row0 + k, (uint32_t)n, 0u, 0u), kk).x);
+          ptmc::uniform24(ptmc::philox4x32_10(make_uint4(row0 + k, ctr, 0u, 0u), kk).x);
       // Leapfrog with the signed step (nutsjump.py:149-169).
 #pragma unroll
       for (int d = 0; d < D; ++d) {
@@ -308,6 +309,7 @@ __global__ void __launch_bounds__(kWideThreads, 2) nuts_wide_general_kernel(cons
   const bool lane = tid < NB;
   const long long n = n0 + tid;
   const bool valid = lane && n < N;
+  const uint32_t ctr = (uint32_t)(P.n_base + (n / P.C) * P.c_total + n % P.C);
   float* front = P.scratch;      // [2 sides][z, r, gw][D][N]
   float* stack = front + 6 * DN;  // [max_depth rows][z, r][D][N]
   float* zps = stack + 2 * (long long)P.max_depth * DN;  // [D][N]
@@ -486,7 +488,7 @@ __global__ void __launch_bounds__(kWideThreads, 2) nuts_wide_general_kernel(cons
         const bool valid_leaf = logu < joint;
         diverged = (logu - 1000.0f) >= joint;
         const float u = ptmc::uniform24(
-            ptmc::philox4x32_10(make_uint4(row0 + k, (uint32_t)n, 0u, 0u), kk).x);
+            ptmc::philox4x32_10(make_uint4(row0 + k, ctr, 0u, 0u), kk).x);
         n_sub = valid_leaf ? n_sub + 1.0f : n_sub;
         take = valid_leaf & (u < 1.0f / fmaxf(n_sub, 1.0f));
         lps = take ? logp1 : lps;
@@ -635,10 +637,11 @@ int launch_wide_general(const GeneralParams& G, void* stream) {
       float* q_prop, float* logp0, float* logp_prop, float* alpha, float* nalpha,             \
       float* alive, float* eps_out, float* cap_plus, float* cap_minus, int* cap_ind_plus,     \
       int* cap_ind_minus, int* cap_meta, int structure, int D, int T, int C, int max_depth,   \
-      long long trajlen, void* stream) {                                                      \
+      long long trajlen, long long n_base, int c_total, void* stream) {                       \
     const GeneralParams params{                                                               \
         {q0, r0, beta, eps, r_eps, expo, dirs, accu, key, chol, prm, scratch, q_prop, logp0,  \
-         logp_prop, alpha, nalpha, alive, eps_out, structure, D, T, C, max_depth},            \
+         logp_prop, alpha, nalpha, alive, eps_out, structure, D, T, C, max_depth, n_base,     \
+         c_total},                                                                            \
         {cap_plus, cap_minus, cap_ind_plus, cap_ind_minus, cap_meta},                         \
         trajlen};                                                                             \
     return LAUNCH<MODEL>(params, stream);                                                     \

@@ -109,7 +109,8 @@ nuts_tree_kernel(const float* __restrict__ q0, const float* __restrict__ r0,
                  float* __restrict__ q_prop, float* __restrict__ logp0_out,
                  float* __restrict__ logp_prop_out, float* __restrict__ alpha_out,
                  float* __restrict__ nalpha_out, float* __restrict__ alive_out,
-                 float* __restrict__ eps_out, int T, int C, int max_depth) {
+                 float* __restrict__ eps_out, int T, int C, int max_depth, long long n_base,
+                 int c_total) {
   constexpr int D = Model::D;
   __shared__ float stack[kStackRows][2][D][kThreads];  // checkpoints (z, r)
   __shared__ float front[2][3][D][kThreads];  // frontiers -v, +v: (z, r, g)
@@ -120,6 +121,8 @@ nuts_tree_kernel(const float* __restrict__ q0, const float* __restrict__ r0,
   if (n >= N) return;
   const int t = n / C;
   const long long base = (long long)t * D * C + (n - t * C);
+  // The chain's counter word: its index in the unsharded [T, C] batch.
+  const uint32_t ctr = (uint32_t)(n_base + (long long)t * c_total + (n - t * C));
 
   float chol[D][D];
   ptmc::load_chol<D>(chol_in, chol);
@@ -185,7 +188,7 @@ nuts_tree_kernel(const float* __restrict__ q0, const float* __restrict__ r0,
       // Neither the leaf's reservoir uniform nor the top checkpoint (which
       // an odd leaf checks first) depends on the leapfrog.
       const float u =
-          ptmc::uniform24(ptmc::philox4x32_10(make_uint4(row0 + k, (uint32_t)n, 0u, 0u), kk).x);
+          ptmc::uniform24(ptmc::philox4x32_10(make_uint4(row0 + k, ctr, 0u, 0u), kk).x);
       float zc[D], rc[D];
       const int itop = top > 0 ? top - 1 : 0;
 #pragma unroll
@@ -289,7 +292,7 @@ int launch(const float* q0, const float* r0, const float* beta, const float* eps
            const float* r_eps, const float* expo, const float* dirs, const float* accu,
            const long long* key, const float* chol, float* q_prop, float* logp0,
            float* logp_prop, float* alpha, float* nalpha, float* alive, float* eps_out, int T,
-           int C, int max_depth, void* stream) {
+           int C, int max_depth, long long n_base, int c_total, void* stream) {
   const long long n = (long long)T * C;
   if (n <= 0) return (int)cudaSuccess;
   if (max_depth < 1 || max_depth > kMaxDepth || n >= (1LL << 31)) {
@@ -298,7 +301,7 @@ int launch(const float* q0, const float* r0, const float* beta, const float* eps
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   nuts_tree_kernel<Model><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       q0, r0, beta, eps, r_eps, expo, dirs, accu, key, chol, q_prop, logp0, logp_prop, alpha,
-      nalpha, alive, eps_out, T, C, max_depth);
+      nalpha, alive, eps_out, T, C, max_depth, n_base, c_total);
   return (int)cudaGetLastError();
 }
 
@@ -334,6 +337,11 @@ struct WideParams {
   int T;
   int C;
   int max_depth;
+  // The counter word of local chain n = t*C + c is n_base + t*c_total + c:
+  // its index in the unsharded batch (n_base = t0*c_total + c0 for a shard
+  // of rungs from t0 and chains from c0; 0 and C unsharded).
+  long long n_base;
+  int c_total;
 };
 
 // kPast256: an instantiation for D > 256 (groups of 8 or 4, wide_stages
@@ -370,6 +378,7 @@ __global__ void __launch_bounds__(kWideThreads, 2) nuts_wide_kernel(const WidePa
   const bool lane = tid < NB;
   const long long n = n0 + tid;
   const bool valid = lane && n < N;
+  const uint32_t ctr = (uint32_t)(P.n_base + (n / P.C) * P.c_total + n % P.C);
   // Global scratch, chain-minor: element (d, n) of a plane at plane + d*N + n.
   float* front = P.scratch;      // [2 sides][z, r, gw][D][N]
   float* stack = front + 6 * DN;  // [max_depth rows][z, r][D][N]
@@ -559,7 +568,7 @@ __global__ void __launch_bounds__(kWideThreads, 2) nuts_wide_kernel(const WidePa
         const bool valid_leaf = logu < joint;
         diverged = (logu - 1000.0f) >= joint;
         const float u = ptmc::uniform24(
-            ptmc::philox4x32_10(make_uint4(row0 + k, (uint32_t)n, 0u, 0u), kk).x);
+            ptmc::philox4x32_10(make_uint4(row0 + k, ctr, 0u, 0u), kk).x);
         n_sub = valid_leaf ? n_sub + 1.0f : n_sub;
         take = valid_leaf & (u < 1.0f / fmaxf(n_sub, 1.0f));
         lps = take ? logp1 : lps;
@@ -710,9 +719,9 @@ int launch_wide(const WideParams& P, void* stream) {
       const long long* key, const float* chol, const float* prm, float* scratch,              \
       float* q_prop, float* logp0, float* logp_prop, float* alpha, float* nalpha,             \
       float* alive, float* eps_out, int structure, int D, int T, int C, int max_depth,        \
-      void* stream) {                                                                         \
+      long long n_base, int c_total, void* stream) {                                          \
     const WideParams params{q0, r0, beta, eps, r_eps, expo, dirs, accu, key, chol, prm,     \
                             scratch, q_prop, logp0, logp_prop, alpha, nalpha, alive, eps_out, \
-                            structure, D, T, C, max_depth};                                  \
+                            structure, D, T, C, max_depth, n_base, c_total};                 \
     return launch_wide<MODEL>(params, stream);                                                \
   }

@@ -13,7 +13,9 @@
 //       valid = logu < joint, diverged = (logu - 1000) >= joint,
 //       reservoir: n_sub += valid; take the leaf if valid and
 //         u < 1/max(n_sub, 1), u = uniform24(word 0 of
-//         philox4x32_10(counter (r, n, 0, 0), key)),
+//         philox4x32_10(counter (r, n, 0, 0), key)), n the chain's index in
+//         the unsharded batch (n_base + t*c_total + c: the arguments n_base
+//         and c_total place a shard's rungs and chains; 0 and C unsharded),
 //       alpha += min(1, exp(joint - joint0)), nalpha += 1,
 //       checkpointed U-turn check: even leaves push (z, r) at the stack top,
 //         odd leaves check v*(z - z_ck).r_ck >= 0 and v*(z - z_ck).r >= 0
@@ -145,10 +147,11 @@ extern "C" int nuts_tree_curved(const float* q0, const float* r0, const float* b
                                 const float* dirs, const float* accu, const long long* key,
                                 const float* chol, float* q_prop, float* logp0,
                                 float* logp_prop, float* alpha, float* nalpha, float* alive,
-                                float* eps_out, int T, int C, int max_depth, void* stream) {
+                                float* eps_out, int T, int C, int max_depth, long long n_base,
+                                int c_total, void* stream) {
   return launch<ptmc::CurvedLikelihood>(q0, r0, beta, eps, r_eps, expo, dirs, accu, key, chol,
                                         q_prop, logp0, logp_prop, alpha, nalpha, alive, eps_out,
-                                        T, C, max_depth, stream);
+                                        T, C, max_depth, n_base, c_total, stream);
 }
 
 PTMC_NUTS_WIDE_ENTRY(correlated_gaussian, ptmc::WideCorrelatedGaussian)

@@ -48,9 +48,10 @@ import numpy as np
 import torch
 
 from . import adaptation, swaps, utils
-from .config import KIND_CHEES, KIND_CUSTOM, KIND_DE, KIND_NUTS, SamplerConfig
+from .config import KIND_CHEES, KIND_CUSTOM, KIND_DE, KIND_NUTS, KIND_PRIOR, SamplerConfig
 from .ladder import adapt_ladder_betas
 from .ops import chees as ops_chees, hmc as ops_hmc, nuts as ops_nuts, user
+from .parallel.mesh import gather, gather_many
 from .proposals.base import ProposalContext
 from .proposals.custom import make_aux_chain
 from .proposals.cycle import (activation_phase, activation_thresholds, build_jump_branches,
@@ -61,7 +62,11 @@ from .trajectory import TrajCapture, empty_capture
 
 class BlockOutput(NamedTuple):
     """Thinned rows emitted by one block. The per-chain scalars are emitted
-    for chain 0 only, the column chain files consume."""
+    for chain 0 only, the column chain files consume. A sharded run's block
+    holds its rank's rungs and chains (``[rows, Tl, D, Cl]``, the scalars of
+    its first chain); ``run_block.block`` (``utils.Block``) says where they
+    lie in the unsharded batch (the JAX package's ``host_local_block``
+    indices)."""
 
     x: torch.Tensor  # [rows, T, D, C]
     lnlike: torch.Tensor  # [rows, T]
@@ -75,7 +80,7 @@ class BlockOutput(NamedTuple):
     traj: TrajCapture = None
 
 
-def make_context(state: SamplerState, iteration=None) -> ProposalContext:
+def make_context(state: SamplerState, iteration=None, block=None) -> ProposalContext:
     return ProposalContext(
         group_u=state.adapt.group_u,
         group_s=state.adapt.group_s,
@@ -85,6 +90,7 @@ def make_context(state: SamplerState, iteration=None) -> ProposalContext:
         de_buf=state.de.buf,
         de_valid=adaptation.de_valid_rows(state.de),
         iteration=iteration,
+        block=block,
     )
 
 
@@ -114,14 +120,20 @@ def _accept_logratio(new_ll, new_lp, old_ll, old_lp, qxy, betas):
     return torch.where(torch.isnan(raw), float("-inf"), raw)
 
 
-def history_push(config: SamplerConfig, state: SamplerState) -> SamplerState:
-    """Welford moments and the DE ring, every iteration."""
+def history_push(config: SamplerConfig, state: SamplerState, block=None) -> SamplerState:
+    """Welford moments and the DE ring, every iteration. On a sharded
+    ``block`` (``utils.Block``) every rank gathers the rows they read (the
+    cold rung, or with ``adapt_from="all"`` every rung) and updates its
+    replicated copy as the unsharded run does."""
+    d = config.ndim
+    block = block or utils.Block(config.ntemps, config.nchains)
     if config.adapt_from == "all":
-        xs = state.x.movedim(1, 0).reshape(config.ndim, -1)
+        x = gather(block, state.x, ("T", d, "C"))
+        cold, xs = x[0], x.movedim(1, 0).reshape(d, -1)
     else:
-        xs = state.x[0]  # cold-temperature chains [D, C]
+        cold = xs = gather(block, state.x[0], (d, "C"))  # cold-temperature chains [D, C]
     adapt = adaptation.welford_batch_update(state.adapt, xs)
-    de = adaptation.de_buffer_push(state.de, state.x[0])
+    de = adaptation.de_buffer_push(state.de, cold)
     return dataclasses.replace(state, adapt=adapt, de=de)
 
 
@@ -347,7 +359,8 @@ class BlockStats:
     replays (:meth:`kernel_launches`).
     """
 
-    def __init__(self):
+    def __init__(self, capture=True):
+        self.capture = capture  # whether the runner captures graphs at all
         self.recorded = {}  # graph key -> {wrapper: calls recorded at capture}
         self.reset()
 
@@ -375,6 +388,7 @@ class BlockStats:
     def summary(self):
         n = self.iterations
         return {
+            "capture": self.capture,
             "graphs": len(self.recorded),
             "captured": self.captured,
             "capture_sec": self.capture_sec,
@@ -386,10 +400,30 @@ class BlockStats:
         }
 
 
-def build_step(config: SamplerConfig, model, device="cuda", capture=True):
+def refuse_on_mesh(config: SamplerConfig):
+    """Why a sharded run cannot run ``config``, or None: the combinations
+    the JAX package's mesh tests do not drive and the port leaves for
+    ROADMAP A12b."""
+    if config.jump_select == "per_chain":
+        return 'jump_select="per_chain"'
+    if config.aux_jumps or any(j.kind in (KIND_CUSTOM, KIND_PRIOR) for j in config.jumps):
+        return "the user's custom, prior-draw and auxiliary jumps"
+    if config.nuts_trajectory:
+        return "the NUTS trajectory capture (trajectoryDir)"
+    return None
+
+
+def build_step(config: SamplerConfig, model, device="cuda", capture=True, mesh=None):
     """Build ``step(state, kind=None) -> state`` and ``run_block(state,
     nrows, kinds=None, on_dispatched=None) -> (state, BlockOutput)``;
     ``step.traj`` is the NUTS trajectory capture with ``nuts_trajectory``.
+
+    ``mesh``: a ``parallel.PTMesh`` whose rank runs its block of the batch
+    (``parallel.shard_state`` places a state on it). The collectives run
+    between the step's device work (the cold rows and the cross-chain
+    statistics gathered, DEO's neighbour rows sent), so a sharded step runs
+    eagerly, never under a CUDA graph (ROADMAP A12c). A mesh of one rank is
+    the unsharded run.
 
     ``model`` gives batched ``lnlike(x[..., D, C])``, ``lnprior`` and, for
     the gradient jumps, ``value_grad(x, beta)`` and a ``cuda_functor`` (a
@@ -403,6 +437,13 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
     if device.type == "cuda":  # a user functor's libraries, before any capture
         user.prepare(model, device)
     t, c = config.ntemps, config.nchains
+    block = utils.Block(t, c) if mesh is None else mesh.block(t, c)
+    if block.sharded:
+        why = refuse_on_mesh(config)
+        if why is not None:
+            raise NotImplementedError(f"{why} on a sharded mesh is not ported yet (ROADMAP A12b)")
+    temp_sharded = block.sharded and block.mesh.ntemp > 1
+    deo_sharded = swaps.make_sharded_deo(block) if temp_sharded else None
     # The NUTS trajectory capture of chain (T0, C0): fixed buffers the NUTS
     # branch overwrites inside the graphs; any other jump marks it inactive.
     traj_cap = None
@@ -436,7 +477,7 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
         """The proposal and its MH accept; ``kind`` is the jump index, or
         None under ``per_chain`` selection (each chain's kind is drawn)."""
         ss = {f: getattr(state.stepsize, f) for f in SS_FIELDS}
-        ctx = make_context(state, iteration)
+        ctx = make_context(state, iteration, block if block.sharded else None)
         if per_chain is not None:
             q, qxy, kinds, new_ss = per_chain(state.rng, state.x, state.betas, it, ctx, ss)
         else:
@@ -456,7 +497,7 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
         logr = _accept_logratio(
             new_ll, new_lp, state.lnlike, state.lnprior, qxy, state.betas[:, None]
         )
-        u = torch.rand((t, c), generator=state.rng, device=state.x.device)
+        u = block.draw(torch.rand, state.rng, ("T", "C"), state.x.device)
         accept = logr > torch.log(torch.clamp(u, min=1e-37))
         acc_i = accept.to(torch.int32)
 
@@ -489,14 +530,24 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
         where every pair it compares had proposals in the window (under DEO
         adjacent pairs have opposite parities, so a one-event window never
         has them all); the window's snapshots advance only where it
-        applied. Every decision here stays on the device."""
-        rates, pair_valid = ladder_window_rates(ctr)
+        applied. Every decision here stays on the device. A sharded run
+        gathers the window's counters and the betas and takes its rungs of
+        the unsharded update."""
+        whole, win = betas, ctr
+        if block.sharded:
+            tc = ("T", "C")
+            whole = gather(block, betas, ("T",))
+            acc, lad = gather_many(block, [(ctr.swaps_accepted, tc),
+                                           (ctr.swaps_accepted_lad, tc)])
+            win = dataclasses.replace(ctr, swaps_accepted=acc, swaps_accepted_lad=lad)
+        rates, pair_valid = ladder_window_rates(win)
         new_betas = adapt_ladder_betas(
-            betas, rates, iteration, lag=config.ladder_adapt_lag,
+            whole, rates, iteration, lag=config.ladder_adapt_lag,
             time=config.ladder_adapt_time, skip_top=config.ladder_adapt_skip_top,
             pair_valid=pair_valid)
         applied = torch.all(pair_valid[: ladder_rungs - 1])
-        return torch.where(applied, new_betas, betas), dataclasses.replace(
+        new_betas = block.take(torch.where(applied, new_betas, whole), ("T",))
+        return new_betas, dataclasses.replace(
             ctr,
             swaps_proposed_lad=torch.where(applied, ctr.swaps_proposed, ctr.swaps_proposed_lad),
             swaps_accepted_lad=torch.where(applied, ctr.swaps_accepted, ctr.swaps_accepted_lad),
@@ -507,14 +558,19 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
         event = swap_event(config, it)
         if event is None:
             return state
+        rows = (state.x, state.lnlike, state.lnprior, state.betas)
         if event[0] == "deo":
-            us = swaps.draw_pair_uniforms(state.rng, t, c, state.x.device)
-            x, ll, lp, accepted, proposed = swaps.deo_swap_apply(
-                us, state.x, state.lnlike, state.lnprior, state.betas, event[1])
+            us = swaps.block_uniforms(
+                swaps.draw_pair_uniforms(state.rng, t, c, state.x.device), block)
+            apply = deo_sharded if temp_sharded else swaps.deo_swap_apply
+            x, ll, lp, accepted, proposed = apply(us, *rows, event[1])
         else:
             us = swaps.draw_swap_uniforms(state.rng, t, c, state.x.device)
-            x, ll, lp, accepted, proposed = swaps.sweep_swap_apply(
-                us, state.x, state.lnlike, state.lnprior, state.betas)
+            if temp_sharded:
+                x, ll, lp, accepted, proposed = swaps.sweep_swap_gathered(block, us, *rows)
+            else:  # every rung here: each chain's sweep is its own
+                x, ll, lp, accepted, proposed = swaps.sweep_swap_apply(
+                    block.take(us, ("T", "C")), *rows)
         ctr = state.counters
         ctr = dataclasses.replace(
             ctr,
@@ -531,7 +587,7 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
         """Iteration ``it`` of jump ``kind`` but for the factor refresh: the
         device work a graph holds."""
         state = mh_step(dataclasses.replace(state, it=it), it, kind)
-        return history_push(config, pt_swap(state, it))
+        return history_push(config, pt_swap(state, it), block)
 
     def check_device(state):
         if state.x.device != device:
@@ -548,11 +604,11 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
         set_iteration(it)
         return refresh(config, advance(state, it, kind), it)
 
-    stats = BlockStats()
+    on_card = capture and _graphs_on(device) and not block.sharded
+    stats = BlockStats(on_card)
     graphs = {}  # step key -> its CUDA graph
     warmed = set()  # keys whose first iteration ran eagerly
     held = {}  # "static": the holder; "card": the _CudaGraphs, made at first use
-    on_card = capture and _graphs_on(device)
 
     def body(static, it, kind):
         copy_into(static, advance(static, it, kind))
@@ -630,12 +686,13 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
                      else draw_kinds(config, static.it, nrows * thin, static.host_rng))
         elif len(kinds) != nrows * thin:
             raise ValueError(f"run_block: {len(kinds)} kinds for {nrows * thin} iterations")
+        tl = static.x.shape[0]  # the block's rungs (t unsharded)
         x = torch.empty((nrows,) + tuple(static.x.shape), dtype=static.x.dtype, device=dev)
-        lnlike = torch.empty((nrows, t), dtype=static.x.dtype, device=dev)
+        lnlike = torch.empty((nrows, tl), dtype=static.x.dtype, device=dev)
         lnprob = torch.empty_like(lnlike)
-        nacc = torch.empty((nrows, t), dtype=torch.int32, device=dev)
+        nacc = torch.empty((nrows, tl), dtype=torch.int32, device=dev)
         sacc = torch.empty_like(nacc)
-        sprop = torch.empty_like(nacc)
+        sprop = torch.empty((nrows, t), dtype=torch.int32, device=dev)  # every pair's
         traj = None if traj_cap is None else empty_capture(config, dev, rows=(nrows,))
         for r in range(nrows):
             for k in range(thin):
@@ -664,6 +721,7 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True):
         return static, BlockOutput(x, lnlike, lnprob, its, nacc, sacc, sprop, traj)
 
     run_block.stats = stats
+    run_block.block = step.block = block
     # The trajectory capture's buffers (None without nuts_trajectory): the
     # last NUTS iteration's trajectory, marked inactive after any other jump.
     step.traj = run_block.traj = traj_cap

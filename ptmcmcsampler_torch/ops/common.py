@@ -279,6 +279,15 @@ def entry(source, functor, symbol, argtypes):
     return fn
 
 
+def chain_counters(t, c, n0, c_total, device):
+    """The counter word of each chain of a ``[T, C]`` block, int64 ``[T *
+    C]``: ``n0 + t*c_total + c``, its index in the unsharded batch
+    (``c_total`` None: ``C``)."""
+    c_total = c if c_total is None else c_total
+    rows = torch.arange(t, dtype=torch.int64, device=device)[:, None] * c_total
+    return (n0 + rows + torch.arange(c, dtype=torch.int64, device=device)).reshape(-1)
+
+
 def launch(kernel, fn, device, *args):
     """Call ``fn(*args, stream)`` on ``device``'s current stream; raise on a
     CUDA error."""

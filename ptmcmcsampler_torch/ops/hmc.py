@@ -144,11 +144,15 @@ def hmc_trajectories(q0, p0, beta, nsteps, chol, eps, model, structure="dense"):
 hmc_trajectories.launches = 0
 
 
-def _check_batch(fn_name, t, c):
-    if t * c >= 2**31:
-        raise ValueError(f"{fn_name}: more than 2**31 - 1 chains")
+def _check_batch(fn_name, t, c, n0=0, c_total=None):
+    """Checks a launch's batch and counter words; returns ``c_total``
+    (``C`` for None)."""
+    c_total = c if c_total is None else int(c_total)
+    if t * c >= 2**31 or not 0 <= n0 <= 2**32 - t * c_total:
+        raise ValueError(f"{fn_name}: more than 2**31 - 1 chains, or counters past 2**32")
     if t > 65535:
         raise ValueError(f"{fn_name}: more than 65535 temperatures (the grid's y extent)")
+    return c_total
 
 
 def _check_lengths(fn_name, nmin, nmax):
@@ -156,8 +160,10 @@ def _check_lengths(fn_name, nmin, nmax):
         raise ValueError(f"{fn_name}: lengths [{nmin}, {nmax}) need 0 <= nmin < nmax < 2**31")
 
 
-def hmc_draws(key, t, d, c, nmin, nmax):
-    """The momenta and lengths the fused step draws under ``key``.
+def hmc_draws(key, t, d, c, nmin, nmax, n0=0, c_total=None):
+    """The momenta and lengths the fused step draws under ``key`` for the
+    block of chains ``n0`` and ``c_total`` place in the unsharded batch (the
+    counter words, ``common.chain_counters``; 0 and None unsharded).
 
     ``key``: int64 ``[2]``, words in ``[0, 2**32)``. Returns ``(p0 [T, D, C]
     f32, nsteps [T, C] int32)`` on the key's device, without reading the key
@@ -166,7 +172,7 @@ def hmc_draws(key, t, d, c, nmin, nmax):
     """
     _check_lengths("hmc_draws", nmin, nmax)
     pairs = (d + 1) // 2
-    chains = torch.arange(t * c, dtype=torch.int64, device=key.device)
+    chains = common.chain_counters(t, c, n0, c_total, key.device)
     words = []
     for j in range((2 * pairs + 4) // 4):  # Philox calls a chain
         words += common.philox4x32((j, chains, STREAM_HMC, 0), (key[0], key[1]))
@@ -182,7 +188,8 @@ def hmc_draws(key, t, d, c, nmin, nmax):
     return p0, nsteps.to(torch.int32).view(t, c)
 
 
-def hmc_step_plain(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model, structure="dense"):
+def hmc_step_plain(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model, structure="dense",
+                   n0=0, c_total=None):
     """Plain PyTorch version of the fused step (the arguments and results of
     ``hmc_step``). ``draws`` is the key, or the draws as arrays ``(p0 [T, D,
     C] f32, nsteps [T, C] int32)``; the key's are ``hmc_draws(key)``. Raises
@@ -191,7 +198,7 @@ def hmc_step_plain(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model, struc
     kept = common.kernel_structure(model, structure)
     t, d, c = x.shape
     if isinstance(draws, torch.Tensor):
-        p0, nsteps = hmc_draws(draws, t, d, c, nmin, nmax)
+        p0, nsteps = hmc_draws(draws, t, d, c, nmin, nmax, n0, c_total)
     else:
         p0, nsteps = draws
     q0 = common.matvec(chol_inv.T, x, kept)
@@ -199,7 +206,8 @@ def hmc_step_plain(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model, struc
     return common.matvec(chol.T, q1, kept), qxy
 
 
-def hmc_step(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model, structure="dense"):
+def hmc_step(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model, structure="dense", n0=0,
+             c_total=None):
     """The per-chain part of an HMC step, one trajectory a chain.
 
     Args:
@@ -215,13 +223,17 @@ def hmc_step(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model, structure="
       model:    gives ``value_grad`` (plain version), ``cuda_functor`` and,
                 for a wide functor, ``cuda_params``.
       structure: the factors' structure tag (``common.STRUCTURES``).
+      n0, c_total: where the block lies in the unsharded batch (the draws'
+                counter words, ``common.chain_counters``): 0 and None
+                unsharded.
     Returns:
       ``(x1 [T, D, C], qxy [T, C])``: the end point mapped back, ``chol^T
       q1``, and ``qxy = (joint1 - joint0) - (logp1 - logp0)``, NaN mapped
       to -inf.
     """
     if common.check_device("hmc_step", x):
-        return hmc_step_plain(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model, structure)
+        return hmc_step_plain(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model, structure,
+                              n0, c_total)
     if not isinstance(draws, torch.Tensor):
         raise ValueError("hmc_step: on the card the draws are a Philox key (int64 [2]), "
                          "not arrays")
@@ -233,7 +245,7 @@ def hmc_step(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model, structure="
         "key": (draws, (2,), torch.int64), "chol": (chol, (d, d), f32),
         "chol_inv": (chol_inv, (d, d), f32),
     })
-    _check_batch("hmc_step", t, c)
+    c_total = _check_batch("hmc_step", t, c, n0, c_total)
     _check_lengths("hmc_step", nmin, nmax)
     out = torch.empty(t * (d + 1) * c, dtype=f32, device=x.device)
     x1 = out[:t * d * c].view(t, d, c)
@@ -245,11 +257,12 @@ def hmc_step(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model, structure="
     fn = common.entry(
         "hmc_trajectory", functor, f"hmc_step_{functor}",
         [ctypes.c_void_p] * len(ins) + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * len(dims) + [ctypes.c_void_p],
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * len(dims)
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
     )
     common.launch(
         "hmc_step", fn, x.device, *(a.data_ptr() for a in ins), float(eps), int(nmin),
-        int(nmax), x1.data_ptr(), qxy.data_ptr(), *dims,
+        int(nmax), x1.data_ptr(), qxy.data_ptr(), *dims, int(n0), c_total,
     )
     hmc_step.launches += 1
     return x1, qxy
@@ -258,7 +271,7 @@ def hmc_step(x, beta, draws, chol, chol_inv, eps, nmin, nmax, model, structure="
 hmc_step.launches = 0
 
 
-def hmc_kernel_draws(key, t, d, c, nmin, nmax, model):
+def hmc_kernel_draws(key, t, d, c, nmin, nmax, model, n0=0, c_total=None):
     """The draws the fused step's kernel makes under a key on the card, from
     its own draw function (the arguments and results of ``hmc_draws``, and
     the model whose kernel draws): a test entry, to hold them against
@@ -267,7 +280,7 @@ def hmc_kernel_draws(key, t, d, c, nmin, nmax, model):
         raise ValueError("hmc_kernel_draws: the kernel runs on the card, not the CPU")
     functor = common.cuda_functor("hmc", model, d, "hmc_kernel_draws")
     common.check_args("hmc_kernel_draws", key.device, {"key": (key, (2,), torch.int64)})
-    _check_batch("hmc_kernel_draws", t, c)
+    c_total = _check_batch("hmc_kernel_draws", t, c, n0, c_total)
     _check_lengths("hmc_kernel_draws", nmin, nmax)
     p0 = torch.empty((t, d, c), dtype=torch.float32, device=key.device)
     nsteps = torch.empty((t, c), dtype=torch.int32, device=key.device)
@@ -275,8 +288,8 @@ def hmc_kernel_draws(key, t, d, c, nmin, nmax, model):
     fn = common.entry(
         "hmc_trajectory", functor, f"hmc_draws_{functor}",
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2
-        + [ctypes.c_int] * len(dims) + [ctypes.c_void_p],
+        + [ctypes.c_int] * len(dims) + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
     )
     common.launch("hmc_draws", fn, key.device, key.data_ptr(), int(nmin), int(nmax),
-                  p0.data_ptr(), nsteps.data_ptr(), *dims)
+                  p0.data_ptr(), nsteps.data_ptr(), *dims, int(n0), c_total)
     return p0, nsteps

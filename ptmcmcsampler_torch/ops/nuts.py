@@ -18,9 +18,14 @@ written out in ``csrc/nuts_tree.cu``.
   compute the same function, so one plain version is the twin of both.
 
 * Reservoir uniforms come from a two-word key: leaf row ``r`` of chain
-  ``n = t*C + c`` takes word 0 of Philox4x32-10 at counter ``(r, n, 0, 0)``
-  (``csrc/philox.cuh``), as ``(x >> 8) * 2**-24``. The kernel computes them
-  as it goes; ``nuts_uniforms`` materialises the same array, bit for bit.
+  ``n`` takes word 0 of Philox4x32-10 at counter ``(r, n, 0, 0)``
+  (``csrc/philox.cuh``), as ``(x >> 8) * 2**-24``, where ``n`` is the
+  chain's index in the unsharded batch: ``n0 + t*c_total + c`` for local
+  rung ``t`` and chain ``c`` (``n0 = 0``, ``c_total = C`` unsharded; a
+  shard of rungs from ``t0`` and chains from ``c0`` passes ``n0 = t0 *
+  c_total + c0``), so a sharded run draws what the unsharded one does.
+  The kernel computes them as it goes; ``nuts_uniforms`` materialises the
+  same array, bit for bit.
 * Lanes with ``eps <= 0`` search their step size first
   (``find_reasonable_epsilon``) when the caller passes the search's momenta
   ``r_eps``.
@@ -66,16 +71,17 @@ def wide_scratch_floats(ndim, depth):
     return (7 + 2 * depth) * ndim
 
 
-def nuts_uniforms(key, depth, t, c):
+def nuts_uniforms(key, depth, t, c, n0=0, c_total=None):
     """The ``[2**depth - 1, T, C]`` f32 reservoir uniforms the kernel draws
-    under ``key`` (int64 ``[2]``, words in ``[0, 2**32)``), bit for bit, on
+    under ``key`` (int64 ``[2]``, words in ``[0, 2**32)``) for the block of
+    chains ``n0``, ``c_total`` place (``common.chain_counters``), bit for bit, on
     ``key``'s device, without reading the key to the host. The row (the
     leaf's index in the whole tree, below 2**30 at depth 30) and the chain
     are two counter words of their own, so no two (row, chain) pairs share a
     counter at any depth."""
     rows, n = (1 << depth) - 1, t * c
     dev = key.device
-    chains = torch.arange(n, dtype=torch.int64, device=dev)
+    chains = common.chain_counters(t, c, n0, c_total, dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     out = torch.empty((rows, n), dtype=torch.float32, device=dev)
     step = max(1, _UNIFORMS_CHUNK // max(n, 1))
@@ -256,7 +262,8 @@ class _Recorder:
 
 
 def nuts_trees(q0, r0, beta, eps, expo, dirs, accu, draws, chol, model, r_eps=None,
-               structure="dense", force_trajlen=None, capture=None, general=False):
+               structure="dense", force_trajlen=None, capture=None, general=False, n0=0,
+               c_total=None):
     """One NUTS tree per chain, from pre-drawn randomness.
 
     Args:
@@ -286,6 +293,9 @@ def nuts_trees(q0, r0, beta, eps, expo, dirs, accu, draws, chol, model, r_eps=No
               branch on q0's device, which the call overwrites with lane
               (T0, C0)'s trajectory.
       general: launch the general entry even where the default one would do.
+      n0, c_total: where the block lies in the unsharded batch (the
+              reservoir's counter words, ``common.chain_counters``): 0 and None
+              (``C``) unsharded.
     Returns:
       ``(q_prop [T, D, C], logp0, logp_prop, alpha, nalpha, alive, eps_used)``,
       the last six ``[T, C]`` f32; ``alive`` is 1 where the depth cap cut the
@@ -299,7 +309,7 @@ def nuts_trees(q0, r0, beta, eps, expo, dirs, accu, draws, chol, model, r_eps=No
     if common.check_device("nuts_trees", q0):
         resu = draws
         if draws.dtype == torch.int64:
-            resu = nuts_uniforms(draws, depth, q0.shape[0], q0.shape[2])
+            resu = nuts_uniforms(draws, depth, q0.shape[0], q0.shape[2], n0, c_total)
         return nuts_trees_plain(q0, r0, beta, eps, expo, dirs, accu, resu, chol, model, r_eps,
                                 structure, force_trajlen, capture)
     t, d, c = q0.shape
@@ -323,8 +333,9 @@ def nuts_trees(q0, r0, beta, eps, expo, dirs, accu, draws, chol, model, r_eps=No
             "capture meta": (capture.meta, (4,), i32),
         })
     common.check_args("nuts_trees", q0.device, expect)
-    if t * c >= 2**31:
-        raise ValueError("nuts_trees: more than 2**31 - 1 chains")
+    c_total = c if c_total is None else int(c_total)
+    if t * c >= 2**31 or not 0 <= n0 <= 2**32 - t * c_total:
+        raise ValueError("nuts_trees: more than 2**31 - 1 chains, or counters past 2**32")
     q_prop = torch.empty_like(q0)
     outs = torch.empty((6, t, c), dtype=f32, device=q0.device).unbind(0)
     ins, dims = (q0, r0, beta, eps, r_eps, expo, dirs, accu, draws, chol), (t, c, depth)
@@ -342,12 +353,13 @@ def nuts_trees(q0, r0, beta, eps, expo, dirs, accu, draws, chol, model, r_eps=No
         fn = common.entry(
             "nuts_general", functor, f"nuts_general_{functor}",
             [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 5
-            + [ctypes.c_longlong, ctypes.c_void_p],
+            + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
         )
         trajlen = -1 if force_trajlen is None else max(int(force_trajlen), 0)
         common.launch(
             "nuts_general", fn, q0.device,
             *(None if a is None else a.data_ptr() for a in ptrs), code, d, t, c, depth, trajlen,
+            int(n0), c_total,
         )
         nuts_trees.launches += 1
         nuts_trees.general_launches += 1
@@ -357,11 +369,13 @@ def nuts_trees(q0, r0, beta, eps, expo, dirs, accu, draws, chol, model, r_eps=No
         dims = (code, d, t, c, depth)
     fn = common.entry(
         "nuts_tree", functor, f"nuts_tree_{functor}",
-        [ctypes.c_void_p] * (len(ins) + 7) + [ctypes.c_int] * len(dims) + [ctypes.c_void_p],
+        [ctypes.c_void_p] * (len(ins) + 7) + [ctypes.c_int] * len(dims)
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
     )
     common.launch(
         "nuts_tree", fn, q0.device,
-        *(None if a is None else a.data_ptr() for a in (*ins, q_prop, *outs)), *dims,
+        *(None if a is None else a.data_ptr() for a in (*ins, q_prop, *outs)), *dims, int(n0),
+        c_total,
     )
     nuts_trees.launches += 1
     return (q_prop, *outs)

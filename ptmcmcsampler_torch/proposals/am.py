@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from ..utils import block_of
 from .base import GroupEmbed, draw_am_scale, random_group, select_group
 
 
@@ -46,11 +47,12 @@ def make_scam(config, device):
 
     def scam(rng, x, betas, it, ctx, ss):
         t, _, c = x.shape
-        gidx = random_group(rng, len(groups), (t, c), x.device)
-        prob = torch.rand((t, c), generator=rng, device=x.device)
+        blk = block_of(ctx, x)
+        gidx = random_group(rng, len(groups), (t, c), x.device, blk)
+        prob = blk.draw(torch.rand, rng, ("T", "C"), x.device)
         size = size_of[gidx] if len(groups) > 1 else sizes[0]
-        ind = (torch.rand((t, c), generator=rng, device=x.device) * size).long()
-        z = torch.randn((t, c), generator=rng, device=x.device)
+        ind = (blk.draw(torch.rand, rng, ("T", "C"), x.device) * size).long()
+        z = blk.draw(torch.randn, rng, ("T", "C"), x.device)
         return core(x, betas, ctx, gidx, prob, ind, z), torch.zeros_like(x[:, 0]), ss
 
     scam.core = core
@@ -77,9 +79,10 @@ def make_am(config, device):
 
     def am(rng, x, betas, it, ctx, ss):
         t, _, c = x.shape
-        gidx = random_group(rng, len(groups), (t, c), x.device)
-        prob = torch.rand((t, c), generator=rng, device=x.device)
-        z = torch.randn((t, max(sizes), c), generator=rng, device=x.device)
+        blk = block_of(ctx, x)
+        gidx = random_group(rng, len(groups), (t, c), x.device, blk)
+        prob = blk.draw(torch.rand, rng, ("T", "C"), x.device)
+        z = blk.draw(torch.randn, rng, ("T", max(sizes), "C"), x.device)
         return core(x, betas, ctx, gidx, prob, z), torch.zeros_like(x[:, 0]), ss
 
     am.core = core

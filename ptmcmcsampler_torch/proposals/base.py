@@ -36,6 +36,10 @@ class ProposalContext:
     # custom and auxiliary jumps (written before every iteration, so a CUDA
     # graph replays with the true one); None where no such jump reads it.
     iteration: torch.Tensor = None
+    # Where the batch lies in a sharded run's (utils.Block): every draw is of
+    # the unsharded shape and the branch keeps this block of it. None: the
+    # branch's batch is the whole one.
+    block: object = None
 
 
 def safe_temperature(beta):
@@ -84,10 +88,14 @@ class GroupEmbed:
         return x.index_copy(-2, self.index, vals)
 
 
-def random_group(rng, ngroups, shape, device):
-    """Uniform per-chain group choice (PTMCMCSampler.py:839, :897, :955)."""
+def random_group(rng, ngroups, shape, device, block=None):
+    """Uniform per-chain group choice (PTMCMCSampler.py:839, :897, :955),
+    ``shape`` ``[T, C]``; with a ``block`` (``utils.Block``) its block of the
+    unsharded draw."""
     if ngroups == 1:
         return torch.zeros(shape, dtype=torch.long, device=device)
+    if block is not None:
+        return block.draw(torch.randint, rng, ("T", "C"), device, 0, ngroups)
     return torch.randint(0, ngroups, shape, generator=rng, device=device)
 
 

@@ -24,6 +24,8 @@ import numpy as np
 import torch
 
 from ..ops.chees import chees_step
+from ..parallel.mesh import gather_many
+from ..utils import block_of
 from .nuts import GAMMA, KAPPA, T0  # dual averaging, shared with NUTS
 # Adam constants for the trajectory-length ascent (ChEES paper defaults).
 B1 = 0.9
@@ -41,12 +43,31 @@ def make_chees(config, model):
 
     def core(x, betas, it, ctx, ss, r0, u):
         """Deterministic ChEES step: ``r0 [T, D, C]`` standard-normal momenta
-        and ``u [T, C]`` jitter in ``[1e-3, 1)``. Returns ``(q, qxy, ss)``."""
-        t, _, c = x.shape
+        and ``u [T, C]`` jitter in ``[1e-3, 1)``. Returns ``(q, qxy, ss)``.
+        On a sharded batch (``ctx.block``) the adaptation's per-rung means
+        over the chains run on the gathered rows (``parallel.mesh.gather_many``),
+        the unsharded function on the unsharded arrays, and the batch keeps
+        its block of the result."""
         x1, q0, z1, r1, qxy, alpha = chees_step(
             x, r0, u, betas, ss["chees_eps"], ss["chees_tlen"], eps0, max_steps,
             ctx.chol.contiguous(), ctx.chol_inv.contiguous(), model, ctx.structure,
         )
+        blk = block_of(ctx, x)
+        if not blk.sharded:
+            return x1, qxy, adapt(it, ss, q0, z1, r1, alpha, u)
+        xd, tc = ("T", x.shape[1], "C"), ("T", "C")
+        fields = [f for f in ss if f.startswith("chees_")]
+        got = gather_many(blk, [(ss[f], tc) for f in fields]
+                          + [(a, xd) for a in (q0, z1, r1)] + [(a, tc) for a in (alpha, u)])
+        whole = dict(zip(fields, got))
+        new = adapt(it, whole, *got[len(fields):])
+        return x1, qxy, {f: blk.take(new[f], tc) if f in whole else v for f, v in ss.items()}
+
+    def adapt(it, ss, q0, z1, r1, alpha, u):
+        """The per-rung step-size and length adaptation of a ChEES step,
+        from its trajectories' starts ``q0``, ends ``z1`` and end momenta
+        ``r1 [T, D, C]``, acceptance ``alpha`` and jitter ``u [T, C]``."""
+        t, _, c = q0.shape
         # The step size and length the trajectories used, per rung.
         eps_prev = ss["chees_eps"][:, 0]
         tlen_t = torch.maximum(ss["chees_tlen"][:, 0], torch.where(eps_prev > 0, eps_prev, eps0))
@@ -108,12 +129,12 @@ def make_chees(config, model):
         new_ss["chees_m"] = rep(freeze(m_t, ss["chees_m"][:, 0]))
         new_ss["chees_v"] = rep(freeze(v_t, ss["chees_v"][:, 0]))
         new_ss["chees_tlen"] = rep(new_tlen)
-        return x1, qxy, new_ss
+        return new_ss
 
     def chees(rng, x, betas, it, ctx, ss):
-        t, d, c = x.shape
-        r0 = torch.randn((t, d, c), generator=rng, device=x.device)
-        u = torch.rand((t, c), generator=rng, device=x.device) * (1.0 - 1e-3) + 1e-3
+        blk = block_of(ctx, x)
+        r0 = blk.draw(torch.randn, rng, ("T", x.shape[1], "C"), x.device)
+        u = blk.draw(torch.rand, rng, ("T", "C"), x.device) * (1.0 - 1e-3) + 1e-3
         return core(x, betas, it, ctx, ss, r0, u)
 
     chees.core = core

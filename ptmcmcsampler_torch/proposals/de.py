@@ -31,6 +31,7 @@ import math
 
 import torch
 
+from ..utils import block_of
 from .base import GroupEmbed, random_group, safe_temperature, select_group
 
 
@@ -50,11 +51,12 @@ def _groups(config, device):
     return groups, [GroupEmbed(g, config.ndim, device) for g in groups], [len(g) for g in groups]
 
 
-def _scale_draws(rng, ngroups, t, c, device):
-    """Each chain's group, mode-jump uniform and scale uniform, ``[T, C]``."""
-    gidx = random_group(rng, ngroups, (t, c), device)
-    prob = torch.rand((t, c), generator=rng, device=device)
-    uu = torch.rand((t, c), generator=rng, device=device)
+def _scale_draws(rng, ngroups, blk, t, c, device):
+    """Each chain's group, mode-jump uniform and scale uniform, ``[T, C]``
+    (the block ``blk`` of the unsharded draws)."""
+    gidx = random_group(rng, ngroups, (t, c), device, blk)
+    prob = blk.draw(torch.rand, rng, ("T", "C"), device)
+    uu = blk.draw(torch.rand, rng, ("T", "C"), device)
     return gidx, prob, uu
 
 
@@ -71,25 +73,31 @@ def make_de_blocked(config, device, block=None):
     groups, embeds, sizes = _groups(config, device)
     gsize = config.de_block if block is None else block
 
-    def core(x, betas, ctx, mm, nn, gidx, prob, uu):
+    def core(x, betas, ctx, mm, nn, gidx, prob, uu, offset=0):
         """``mm [T, G]`` uniform on ``[0, nvalid)`` and ``nn [T, G]`` uniform
         on ``[0, nvalid - 1)`` (long, ``G = ceil(C / block)``); the core
         shifts ``nn`` past ``mm``, which makes the pair uniform over ordered
-        distinct pairs. ``gidx`` long, ``prob, uu`` uniform, ``[T, C]``."""
+        distinct pairs. ``gidx`` long, ``prob, uu`` uniform, ``[T, C]``.
+        ``offset``: the batch's first chain in its first group (a shard's
+        chains start mid-group)."""
         c = x.shape[2]
         nn = nn + (nn >= mm).long()
         sig = ctx.de_buf[:, mm] - ctx.de_buf[:, nn]  # [D, T, G]
-        sig_c = sig.repeat_interleave(gsize, dim=2)[:, :, :c].movedim(0, 1)  # [T, D, C]
+        sig_c = sig.repeat_interleave(gsize, dim=2)[:, :, offset:offset + c].movedim(0, 1)
         temps = torch.clamp(safe_temperature(betas), max=1e30)[:, None]
         return de_scale_and_apply(embeds, sizes, gidx, prob, uu, temps, sig_c, x)
 
     def de_blocked(rng, x, betas, it, ctx, ss):
         t, _, c = x.shape
-        ng = -(-c // gsize)
+        blk = block_of(ctx, x)
+        ng = -(-blk.nchains // gsize)
         nvalid = max(ctx.de_valid, 2)
-        mm = torch.randint(0, nvalid, (t, ng), generator=rng, device=x.device)
-        nn = torch.randint(0, nvalid - 1, (t, ng), generator=rng, device=x.device)
-        q = core(x, betas, ctx, mm, nn, *_scale_draws(rng, len(groups), t, c, x.device))
+        # The groups of the block's chains, of the unsharded draws.
+        g0, g1 = blk.c0 // gsize, -(-blk.c1 // gsize)
+        mm, nn = (blk.draw(torch.randint, rng, ("T", ng), x.device, 0, hi)[:, g0:g1]
+                  for hi in (nvalid, nvalid - 1))
+        q = core(x, betas, ctx, mm, nn, *_scale_draws(rng, len(groups), blk, t, c, x.device),
+                 offset=blk.c0 - g0 * gsize)
         return q, torch.zeros_like(x[:, 0]), ss
 
     de_blocked.core = core
@@ -100,15 +108,16 @@ def make_de_rolled(config, device):
     """Counter-rotating shifts, one pair an iteration (the "rolled" law)."""
     groups, embeds, sizes = _groups(config, device)
 
-    def core(x, betas, ctx, s1, s2, gidx, prob, uu):
+    def core(x, betas, ctx, s1, s2, gidx, prob, uu, c0=0):
         """``s1, s2`` 0-d long tensors uniform on ``[0, nvalid)``; ``gidx``,
         ``prob, uu`` as the blocked core's. The rows are index arithmetic on
         the device (no shift is read back to the host), which covers the
         full ring and a part-full one alike, and more chains than ring rows
-        (the pattern repeats every ``nvalid`` chains)."""
+        (the pattern repeats every ``nvalid`` chains). ``c0``: the index of
+        the batch's first chain (a shard's)."""
         c = x.shape[2]
         nvalid = max(ctx.de_valid, 2)
-        chains = torch.arange(c, device=x.device)
+        chains = torch.arange(c0, c0 + c, device=x.device)
         sig = ctx.de_buf[:, (chains + s1) % nvalid] - ctx.de_buf[:, (s2 - chains) % nvalid]
         collide = ((2 * chains + s1 - s2) % nvalid) == 0  # the same row twice: no move
         sig = torch.where(collide, 0.0, sig)  # [D, C], every temperature's
@@ -118,10 +127,12 @@ def make_de_rolled(config, device):
 
     def de_rolled(rng, x, betas, it, ctx, ss):
         t, _, c = x.shape
+        blk = block_of(ctx, x)
         nvalid = max(ctx.de_valid, 2)
         s1 = torch.randint(0, nvalid, (), generator=rng, device=x.device)
         s2 = torch.randint(0, nvalid, (), generator=rng, device=x.device)
-        q = core(x, betas, ctx, s1, s2, *_scale_draws(rng, len(groups), t, c, x.device))
+        q = core(x, betas, ctx, s1, s2, *_scale_draws(rng, len(groups), blk, t, c, x.device),
+                 c0=blk.c0)
         return q, torch.zeros_like(x[:, 0]), ss
 
     de_rolled.core = core

@@ -30,6 +30,7 @@ import torch
 
 from ..ops.common import log_hamiltonian as loghamiltonian  # nutsjump.py:96-101
 from ..ops.hmc import hmc_step
+from ..utils import block_of
 
 
 def make_whitened_funcs(value_grad):
@@ -91,9 +92,9 @@ def make_mala(config, model):
         return backward(ctx, q1), qxy
 
     def mala(rng, x, betas, it, ctx, ss):
-        t, _, c = x.shape
-        ind = torch.randint(0, ndim, (t, c), generator=rng, device=x.device)
-        dist = torch.randn((t, c), generator=rng, device=x.device)
+        blk = block_of(ctx, x)
+        ind = blk.draw(torch.randint, rng, ("T", "C"), x.device, 0, ndim)
+        dist = blk.draw(torch.randn, rng, ("T", "C"), x.device)
         q, qxy = core(x, betas, ctx, ind, dist)
         return q, qxy, ss
 
@@ -111,9 +112,11 @@ def make_hmc(config, model):
         standard-normal momenta, nsteps [T, C] int32 lengths)``. Returns
         ``(q, qxy)``: the end point mapped back to the original space and
         ``(joint1 - joint0) - (logp1 - logp0)``, so the outer MH ratio equals
-        the Hamiltonian error."""
+        the Hamiltonian error. A sharded batch (``ctx.block``) draws under
+        its chains' unsharded counter words."""
+        blk = block_of(ctx, x)
         return hmc_step(x, betas, draws, ctx.chol.contiguous(), ctx.chol_inv.contiguous(), eps,
-                        nmin, nmax, model, ctx.structure)
+                        nmin, nmax, model, ctx.structure, n0=blk.n0, c_total=blk.nchains)
 
     def hmc(rng, x, betas, it, ctx, ss):
         key = torch.randint(0, 2**32, (2,), generator=rng, device=x.device, dtype=torch.int64)

@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.nuts import nuts_trees
+from ..utils import Block, block_of, exponential
 from .gradient import make_whitened_funcs
 
 GAMMA = 0.05
@@ -46,19 +47,21 @@ T0 = 10.0
 KAPPA = 0.75
 
 
-def draw_nuts(rng, t, d, c, depth, device):
+def draw_nuts(rng, t, d, c, depth, device, block=None):
     """What one NUTS call draws from ``rng``, on ``device``: momenta ``r0``
     and the step-size search's momenta ``r_eps`` ``[T, D, C]`` (standard
     normal), Exp(1) slice draws ``expo [T, C]``, doubling directions ``dirs``
     (+-1) and accept uniforms ``accu`` ``[depth, T, C]``, and the reservoir's
     Philox key ``[2]`` (int64 words in ``[0, 2**32)``). Nothing is read to
-    the host. Returns ``(r0, expo, dirs, accu, key, r_eps)``."""
-    r0 = torch.randn((t, d, c), generator=rng, device=device)
-    expo = torch.empty((t, c), device=device).exponential_(generator=rng)
-    dirs = torch.where(torch.rand((depth, t, c), generator=rng, device=device) < 0.5, -1.0, 1.0)
-    accu = torch.rand((depth, t, c), generator=rng, device=device)
+    the host. With a ``block`` (``utils.Block``) each is its block of the
+    unsharded draw. Returns ``(r0, expo, dirs, accu, key, r_eps)``."""
+    blk = Block(t, c) if block is None else block
+    r0 = blk.draw(torch.randn, rng, ("T", d, "C"), device)
+    expo = blk.draw(exponential, rng, ("T", "C"), device)
+    dirs = torch.where(blk.draw(torch.rand, rng, (depth, "T", "C"), device) < 0.5, -1.0, 1.0)
+    accu = blk.draw(torch.rand, rng, (depth, "T", "C"), device)
     key = torch.randint(0, 2**32, (2,), generator=rng, device=device, dtype=torch.int64)
-    r_eps = torch.randn((t, d, c), generator=rng, device=device)
+    r_eps = blk.draw(torch.randn, rng, ("T", d, "C"), device)
     return r0, expo, dirs, accu, key, r_eps
 
 
@@ -81,6 +84,7 @@ def make_nuts(config, model, capture=None):
         lanes with ``epsilon <= 0``). Returns ``(q, qxy, ss)``.
         """
         q0 = forward(ctx, x).contiguous()
+        blk = block_of(ctx, x)
         eps_state = ss["epsilon"]
         if force_eps is not None:
             eps_in, r_search = torch.full_like(eps_state, force_eps), None
@@ -90,6 +94,7 @@ def make_nuts(config, model, capture=None):
             q0, r0.contiguous(), betas, eps_in.contiguous(), expo.contiguous(),
             dirs.contiguous(), accu.contiguous(), draws.contiguous(),
             ctx.chol.contiguous(), model, r_eps=r_search, structure=ctx.structure, **tree_kw,
+            n0=blk.n0, c_total=blk.nchains,
         )
         if force_eps is not None:
             mu = torch.log(10.0 * epsilon)
@@ -124,7 +129,8 @@ def make_nuts(config, model, capture=None):
 
     def nuts(rng, x, betas, it, ctx, ss):
         t, d, c = x.shape
-        return core(x, betas, it, ctx, ss, *draw_nuts(rng, t, d, c, depth, x.device))
+        return core(x, betas, it, ctx, ss,
+                    *draw_nuts(rng, t, d, c, depth, x.device, block_of(ctx, x)))
 
     nuts.core = core
     return nuts

@@ -63,10 +63,23 @@ reference's law), with ``per_chain_mode`` "auto", "rotation" or "stacked".
 the cold chain 0 in the reference's files (``trajectory.py``), as the JAX
 package does, with ``jump_select="shared"`` only.
 
+Multi-process runs are the JAX package's too (ROADMAP A12), one process a
+device as ``torchrun --nproc_per_node=N`` starts them: with a process group
+joined (``parallel.initialize_distributed``), each rank holds its block of
+the rungs and chains of a ``parallel.PTMesh`` (``mesh=``, or by default the
+rungs split over the ranks where ``ntemps`` tiles them, else the chains),
+runs its block eagerly with the collectives between the device work
+(``kernel.build_step(mesh=)``), and writes the files of the rows it owns:
+the owner of chain 0 of a rung its chain file, every rank its part of the
+all-chain sidecar (chains split) or its rungs' sidecars (rungs split);
+process 0 the jump files, ``cov.npy`` and the checkpoint, gathered whole
+(a one-process run loads it). A ``neff`` stop is voted by the owner of the
+cold chain 0 and agreed by all. A temperature-sharded mesh swaps by DEO
+unless ``swap_mode="sweep"`` is asked for. ``trajectoryDir`` stays refused
+there, as in the JAX package.
+
 The JAX package's TPU dispatch keywords (``rng_impl``, ``use_pallas``,
-``nuts_impl``, ``nuts_pass1_depth``) are accepted and ignored. Not ported
-yet, and refused naming the ROADMAP item: ``mesh=`` and multi-process runs
-(A12).
+``nuts_impl``, ``nuts_pass1_depth``) are accepted and ignored.
 """
 
 from __future__ import annotations
@@ -88,6 +101,8 @@ from .io.checkpoint import load_checkpoint, save_checkpoint
 from .kernel import BlockOutput, build_step
 from .ladder import ladder_betas, temperature_ladder
 from .ops import common, user
+from .parallel import distributed
+from .parallel.mesh import PTMesh, any_rank, barrier, gather_many, shard_state, unshard_state
 from .proposals import custom
 from .state import clone_generator, init_state, map_state
 from .trajectory import TrajectoryWriter
@@ -270,14 +285,17 @@ class PTSampler:
         nuts_pass1_depth=4,
         device="cuda",
     ):
-        # MPI shim, mesh axis names and the TPU dispatch keywords: accepted,
-        # without effect here.
-        del comm, temp_axis, chain_axis, rng_impl, use_pallas, nuts_impl, nuts_pass1_depth
-        if mesh is not None:
-            raise NotImplementedError("mesh= (a sharded run) is not ported yet (ROADMAP A12)")
-        if torch.distributed.is_available() and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError("multi-process runs are not ported yet (ROADMAP A12)")
+        # MPI shim and the TPU dispatch keywords: accepted, without effect here.
+        del comm, rng_impl, use_pallas, nuts_impl, nuts_pass1_depth
+        if mesh is not None and not isinstance(mesh, PTMesh):
+            raise TypeError("mesh= takes a ptmcmcsampler_torch.parallel.PTMesh "
+                            "(make_pt_mesh, make_temp_mesh): one process a shard")
+        self.mesh = mesh
+        self.temp_axis, self.chain_axis = temp_axis, chain_axis
+        self._multi = False  # a multi-process run; sample() decides
+        self._owns_cold = True  # this process drains the cold chain 0
+        if distributed.process_count() > 1:  # each rank its card
+            device = distributed.rank_device(device)
         if np.dtype(dtype) != np.float32:
             raise ValueError(f"dtype={np.dtype(dtype)}: the port runs in float32 only "
                              "(its state and kernels are float32)")
@@ -602,6 +620,12 @@ class PTSampler:
             SCAM=SCAMweight, AM=AMweight, DE=DEweight, NUTS=NUTSweight,
             MALA=MALAweight, HMC=HMCweight, CHEES=CHEESweight,
         )
+        # Multi-process run (the reference's ``mpirun -np N``, README.md:40-46):
+        # every process runs sample() on its block of the mesh.
+        self._multi = distributed.process_count() > 1
+        self._owns_cold = not self._multi  # set at the first drain that holds it
+        pid = distributed.process_index()
+        mesh = self._resolve_mesh()
         config = self._build_config(
             weights, burn, Tskip, covUpdate, thin,
             dict(stepsize=HMCstepsize, nminsteps=2, nmaxsteps=HMCsteps),
@@ -617,8 +641,7 @@ class PTSampler:
         self.config = config
         self._traj_writer = None
         if trajectoryDir is not None:
-            if torch.distributed.is_available() and torch.distributed.is_initialized() \
-                    and torch.distributed.get_world_size() > 1:
+            if self._multi:
                 raise NotImplementedError(
                     "trajectoryDir capture is not supported in multi-process runs; capture "
                     "trajectories in a single-process run")
@@ -638,18 +661,25 @@ class PTSampler:
                   "(reference MALA is known-broken)")
 
         _, run_block = build_step(config, self._model, device=self.device,
-                                  capture=self.route != "host")
+                                  capture=self.route != "host", mesh=mesh)
         self.block_stats = run_block.stats
+        self._block = block = run_block.block
 
         p0 = np.asarray(p0, dtype=np.float64)
         x0 = np.broadcast_to(p0, (self.ntemps, self.nchains, self.ndim))
         init_seed = int(self._seeds.spawn(1)[0].generate_state(1)[0])
+        # Process 0 creates and truncates the files (a shared outDir, as the
+        # reference's rank 0 manages them); the others open them to append,
+        # after a barrier.
+        keep = self.resume or (self._multi and pid != 0)
         writer = ChainWriter(
             self.outDir, self.ladder, hot_chain=hotChain,
-            write_hot_chains=writeHotChains, resume=self.resume,
+            write_hot_chains=writeHotChains, resume=keep,
         )
-        writer.init_jump_files(config.jump_names(), resume=self.resume)
+        writer.init_jump_files(config.jump_names(), resume=keep)
+        barrier()
         self._writer = writer
+        self._sidecar_reset = set()
 
         ckpt_path = os.path.join(self.outDir, "checkpoint.npz")
         start_iter = 0
@@ -676,10 +706,24 @@ class PTSampler:
             lnlike0 = state.lnlike.cpu().numpy()
             x_host = np.moveaxis(state.x.cpu().numpy(), 1, 2)  # [T, C, D]
             self._chain_host = [x_host[0, 0][None]]
-            self._chains_host = [x_host[0][None]]
+            # Multi-process drains append their block's chains; the all-chain
+            # window and the part sidecars start after the seed row.
+            self._chains_host = [] if self._multi else [x_host[0][None]]
+            if self._multi:
+                self._chains_host_row0 = 1
             self._lnlike_host = [lnlike0[0, 0][None]]
             self._lnprob_host = [lnprob0[0, 0][None]]
             for ti in range(self.ntemps):
+                if self._multi:
+                    # Process 0 writes every rung's seed row and clears stale
+                    # sidecars (they would shadow the new parts in load_all);
+                    # the owners reset their sidecars at their first drain.
+                    if pid == 0:
+                        writer.clear_stale_sidecars(ti)
+                        writer.append(ti, x_host[ti, 0][None], np.array([lnprob0[ti, 0]]),
+                                      np.array([lnlike0[ti, 0]]), np.array([0.0]),
+                                      np.array([1.0]))
+                    continue
                 writer.reset_all(ti, self.nchains, self.ndim)
                 writer.append(
                     ti,
@@ -691,6 +735,8 @@ class PTSampler:
                 )
                 writer.append_all(ti, x_host[ti][None])
 
+        barrier()  # the seed rows and the cleared sidecars before any drain
+        state = shard_state(state, block)  # this rank's block of the whole state
         self.state = state
         self.Niter = Niter
         tstart = time.time()
@@ -717,11 +763,15 @@ class PTSampler:
             self._drain_count += 1
 
         def save(st, it_done):
-            self._save_checkpoint(
-                ckpt_path, st,
-                dict(iter=int(it_done), niter=int(Niter), thin=int(thin), isave=int(isave),
-                     drains=int(self._drain_count), swap_mode=config.swap_mode),
-            )
+            # Multi-process: the whole state gathered (a collective), which
+            # process 0 alone writes.
+            st = unshard_state(st, block)
+            if pid == 0:
+                self._save_checkpoint(
+                    ckpt_path, st,
+                    dict(iter=int(it_done), niter=int(Niter), thin=int(thin), isave=int(isave),
+                         drains=int(self._drain_count), swap_mode=config.swap_mode),
+                )
 
         # Double-buffered dispatch, the JAX package's loop (its sampler.py
         # :743-771) for a run without a neff stop: block k's rows and state
@@ -730,7 +780,7 @@ class PTSampler:
         # copies while the device runs k+1. run_block calls back before k+1's
         # first synchronising step (the factor refresh), so the host writes
         # while the device works.
-        if neff is None and not run_complete:
+        if neff is None and not run_complete and not self._multi:
             pending = None  # the last block's host copies, not drained yet
 
             def drain_pending():
@@ -767,11 +817,16 @@ class PTSampler:
             if it >= last:
                 message = "\nRun Complete"
                 run_complete = True
-            elif it > 2 * burn:
+            elif neff is not None and it > 2 * burn:
                 n_eff = self._neff_value(burn // thin, it)
                 if int(n_eff) >= neff:
                     message = "\nRun Complete with {0} effective samples".format(int(n_eff))
                     run_complete = True
+            if self._multi:
+                # Only the owner of the cold chain 0 votes; every rank agrees
+                # on the flag (the reference's comm.bcast(runComplete), :523),
+                # so none runs a collective step alone.
+                run_complete = any_rank(run_complete)
             save(state, it)
 
         if prof is not None:
@@ -817,7 +872,10 @@ class PTSampler:
         (reference PTMCMCSampler.py:510-521, iter/tau on the rank-0 chain).
 
         With nchains > 1, every batched chain is pooled with the cross-chain
-        (Stan-style) ESS: neff grows about linearly with chains.
+        (Stan-style) ESS: neff grows about linearly with chains. Multi-process:
+        only the process holding drained cold-chain history votes; on every
+        other one the history is the 1-row seed, whose tau of 1 would make
+        n_eff = it and stop the run (the stop flag is OR-reduced).
         """
         if self.nchains > 1 and self._chains_host:
             arr = np.concatenate(self._chains_host, axis=0)  # [rows, C, D]
@@ -829,6 +887,8 @@ class PTSampler:
                 chains = np.moveaxis(post, 0, 1)  # [C, rows, D]
                 return float(np.min(diagnostics.multichain_ess(chains)))
             return 0.0
+        if self._multi and not self._owns_cold:
+            return 0.0
         chain = np.concatenate(self._chain_host, axis=0)
         tau = diagnostics.max_autocorr_time(chain[burn_rows:])
         return it / max(1.0, tau)
@@ -837,14 +897,51 @@ class PTSampler:
         """Effective swap mode for this run: an explicit ``swap_mode`` wins;
         a resumed run keeps the mode its checkpoint meta records (the
         replica-exchange law is part of the sampler's statistics); otherwise
-        the reference-parity sweep (one device, nothing sharded)."""
+        DEO where the rungs are split over the ranks (its neighbour sends
+        replace the sweep's gather of every row), and the reference-parity
+        sweep where they are not."""
         if self.swap_mode is not None:
             return self.swap_mode
         if self.resume:
             ckpt_mode = self._checkpoint_meta_value("swap_mode")
             if ckpt_mode in ("sweep", "deo"):
                 return ckpt_mode
+        mesh = self.mesh
+        if mesh is not None and mesh.ntemp > 1 and self.ntemps > 1:
+            if self.verbose:
+                print("NOTE: the temperature axis is split over %d ranks; swap_mode='deo' "
+                      "(neighbour exchange). Pass swap_mode='sweep' for the reference-parity "
+                      "serial sweep." % mesh.ntemp)
+            return "deo"
         return "sweep"
+
+    def _resolve_mesh(self):
+        """The mesh of this run, or None: an explicit ``mesh=`` wins; in a
+        process group of more than one rank, the rungs split over the ranks
+        where ``ntemps`` tiles them, else the chains (the JAX package's
+        ``_resolve_mesh``)."""
+        from .parallel import make_temp_mesh
+
+        n = distributed.process_count()
+        if self.mesh is not None:
+            axes = self.mesh.axis_names
+            if self.temp_axis not in axes and self.chain_axis not in axes:
+                raise ValueError(f"mesh axes {axes} contain neither temp_axis="
+                                 f"{self.temp_axis!r} nor chain_axis={self.chain_axis!r}")
+            if self.mesh.size != n:
+                raise ValueError(f"a mesh of {self.mesh.size} ranks in a group of {n} "
+                                 "processes: one process a shard")
+        else:
+            if n <= 1:
+                return None
+            if self.ntemps % n == 0:
+                self.mesh = make_temp_mesh(n, axis=self.temp_axis)
+            elif self.nchains % n == 0:
+                self.mesh = make_temp_mesh(n, axis=self.chain_axis)
+            else:
+                raise ValueError(f"{n} processes tile neither ntemps={self.ntemps} nor "
+                                 f"nchains={self.nchains}; pass mesh=make_pt_mesh(...)")
+        return self.mesh
 
     def _checkpoint_meta_value(self, key):
         """Read one field from the checkpoint meta sidecar, if present."""
@@ -857,6 +954,8 @@ class PTSampler:
 
     def _drain_block(self, state, out, it, tstart, Niter, writer, config):
         """Host-side block drain: chain files, jump stats, progress line."""
+        if self._multi:
+            return self._drain_block_multi(state, out, it, tstart, Niter, writer, config)
         # Device emission is chain-minor [rows, T, D, C]; host convention
         # stays [rows, T, C, D].
         x = np.moveaxis(out.x.cpu().numpy(), 2, 3)
@@ -922,26 +1021,89 @@ class PTSampler:
         )
 
         if self.verbose:
-            sys.stdout.write("\r")
-            percent = it / Niter * 100
-            acceptance = float(ctr.naccepted[0].cpu().numpy().mean()) / max(it, 1)
-            elapsed = time.time() - tstart
-            start = int(getattr(self, "_resume_start_iter", 0) or 0)
-            if start > 0 and Niter > start:
-                # Resumed run: also report the percent of NEW work, as the
-                # reference does (PTMCMCSampler.py:358-366).
-                percentnew = (it - start) / (Niter - start) * 100
-                sys.stdout.write(
-                    "Finished %2.2f percent (%2.2f percent of new work) in "
-                    "%f s Acceptance rate = %g"
-                    % (percent, percentnew, elapsed, acceptance)
-                )
-            else:
-                sys.stdout.write(
-                    "Finished %2.2f percent in %f s Acceptance rate = %g"
-                    % (percent, elapsed, acceptance)
-                )
-            sys.stdout.flush()
+            self._progress(it, Niter, tstart,
+                           float(ctr.naccepted[0].cpu().numpy().mean()) / max(it, 1))
+
+    def _drain_block_multi(self, state, out, it, tstart, Niter, writer, config):
+        """Multi-process block drain (the JAX package's
+        ``_drain_block_multi``): each process writes the files of the rows it
+        owns, the analogue of one chain file an MPI rank
+        (PTMCMCSampler.py:341-372): the owner of a rung's chain 0 its chain
+        file, each its block's all-chain rows (a part sidecar
+        ``chain_all_<T>.c<c0>.bin`` where the chains are split); the pooled
+        statistics are gathered (collectives every process runs) and
+        process 0 writes them."""
+        block = self._block
+        x = np.moveaxis(out.x.cpu().numpy(), 2, 3)  # [rows, Tl, Cl, D]
+        lnlike = out.lnlike.cpu().numpy()  # [rows, Tl], the block's first chain
+        lnprob = out.lnprob.cpu().numpy()
+        nacc = out.naccepted.cpu().numpy()
+        sacc = out.swaps_accepted.cpu().numpy()
+        sprop = out.swaps_proposed.cpu().numpy()  # [rows, T], every pair's
+        its = out.it.cpu().numpy().astype(np.int64)
+        rows, ncl = x.shape[0], x.shape[2]
+        denom = np.maximum(its, 1).astype(np.float64)
+        own_chain0 = block.c0 == 0
+        cstart = None if ncl == self.nchains else block.c0
+
+        if own_chain0 and block.t0 == 0:
+            self._owns_cold = True
+            self._chain_host.append(x[:, 0, 0, :])
+            self._chains_host.append(x[:, 0, :, :])
+            self._lnlike_host.append(lnlike[:, 0])
+            self._lnprob_host.append(lnprob[:, 0])
+            cap_rows = max(1, self._host_history_bytes // max(1, ncl * self.ndim * 4))
+            total_rows = sum(b.shape[0] for b in self._chains_host)
+            while total_rows > cap_rows and len(self._chains_host) > 1:
+                dropped = self._chains_host.pop(0)
+                self._chains_host_row0 += dropped.shape[0]
+                total_rows -= dropped.shape[0]
+
+        for lt, ti in enumerate(range(block.t0, block.t1)):
+            if own_chain0:
+                acc_rate = nacc[:, lt] / denom
+                if ti < self.ntemps - 1:
+                    pt_acc = np.where(sprop[:, ti] > 0,
+                                      sacc[:, lt] / np.maximum(sprop[:, ti], 1), 1.0)
+                else:
+                    pt_acc = np.ones(rows)
+                writer.append(ti, x[:, lt, 0, :], lnprob[:, lt], lnlike[:, lt], acc_rate, pt_acc)
+            if ti not in self._sidecar_reset:
+                self._sidecar_reset.add(ti)
+                if not self.resume:
+                    writer.reset_all(ti, ncl, self.ndim, cstart=cstart,
+                                     nchains_total=self.nchains)
+            writer.append_all(ti, x[:, lt], cstart=cstart, nchains_total=self.nchains)
+
+        # The cold rung's counters over every chain, gathered from the ranks
+        # of the first temperature shard (collectives: every process runs
+        # them).
+        ctr = state.counters
+        jp, ja, nacc0 = (a.cpu().numpy() for a in gather_many(block, [
+            (ctr.jump_proposed[:, 0], ("J", "C")), (ctr.jump_accepted[:, 0], ("J", "C")),
+            (ctr.naccepted[0], ("C",))]))
+        jp, ja = jp.sum(-1), ja.sum(-1)
+        if distributed.process_index() == 0:
+            writer.write_cov(state.adapt.cov.cpu().numpy())
+            w, _ = config.weights_and_activation()
+            writer.write_jump_stats(config.jump_names(), w, jp, ja)
+            if self.verbose:
+                self._progress(it, Niter, tstart, float(nacc0.mean()) / max(it, 1))
+
+    def _progress(self, it, Niter, tstart, acceptance):
+        """The progress line (reference PTMCMCSampler.py:358-366)."""
+        sys.stdout.write("\r")
+        percent = it / Niter * 100
+        elapsed = time.time() - tstart
+        start = int(getattr(self, "_resume_start_iter", 0) or 0)
+        if start > 0 and Niter > start:
+            percentnew = (it - start) / (Niter - start) * 100
+            sys.stdout.write("Finished %2.2f percent (%2.2f percent of new work) in %f s "
+                             "Acceptance rate = %g" % (percent, percentnew, elapsed, acceptance))
+        else:
+            sys.stdout.write("Finished %2.2f percent in %f s Acceptance rate = %g"
+                             % (percent, elapsed, acceptance))
+        sys.stdout.flush()
 
     def _try_resume(self, config, ckpt_path, writer, betas, x0, init_seed, isave, thin):
         """Resume from a full checkpoint, else from reference chain files."""
@@ -973,12 +1135,14 @@ class PTSampler:
                 drains_ck = int(meta.get("drains", it // max(isave_ck, 1))) \
                     if meta else it // max(isave_ck, 1)
                 self._drain_count = drains_ck
-                for ti in range(self.ntemps):
-                    writer.truncate_text(ti, 1 + drained)
-                    writer.truncate_all(ti, 1 + drained, drained)
-                # The per-jump acceptance series gain one entry per drain;
-                # drop entries past the checkpoint too.
-                writer.truncate_jump_files(config.jump_names(), drains_ck)
+                if distributed.process_index() == 0:
+                    for ti in range(self.ntemps):
+                        writer.truncate_text(ti, 1 + drained)
+                        writer.truncate_all(ti, 1 + drained, drained)
+                    # The per-jump acceptance series gain one entry per
+                    # drain; drop entries past the checkpoint too.
+                    writer.truncate_jump_files(config.jump_names(), drains_ck)
+                barrier()  # every process reads the files truncated
                 self._reload_host_history()
                 return state, it
 
@@ -1056,6 +1220,13 @@ class PTSampler:
             1, self._host_history_bytes // max(1, self.nchains * self.ndim * 4)
         )
         total_rows = self._writer.all_rows_count(0)
+        if self._multi:
+            # Multi-process drains append their block's chains, so the window
+            # restarts at the resume point (+1: the parts start after the
+            # seed row, which only the text file holds).
+            self._chains_host = []
+            self._chains_host_row0 = total_rows + 1
+            return
         all_rows = self._writer.load_all(0, tail_rows=cap_rows)
         if all_rows is not None and all_rows.shape[1] == self.nchains:
             self._chains_host = [all_rows]

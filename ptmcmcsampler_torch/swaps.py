@@ -185,10 +185,124 @@ def draw_pair_uniforms(rng, t, c, device):
 
     The JAX package draws row ``g`` from its key folded with ``g``
     (``ptmcmcsampler_tpu/swaps.py pair_uniforms``) so that a device holding
-    a shard of the ladder regenerates exactly the rows of the pairs it
-    owns, and a sharded DEO equals the unsharded one with no randomness
-    sent between devices. Here one generator draws the whole array on one
-    device; a ladder sharded across cards replaces this function with a
-    per-pair draw of that property, and nothing else in the swap changes.
+    a shard of the ladder regenerates the rows of the pairs it owns. Here
+    every rank of a sharded run draws the whole array, as the unsharded run
+    does, and keeps its block (:func:`block_uniforms`): the unsharded
+    stream stays what it was.
     """
     return torch.rand((t - 1, c), generator=rng, device=device)
+
+
+def block_uniforms(us, block):
+    """A block's rows and chains of the swap uniforms ``us [T-1, C]``:
+    ``[Tl, Cl]``, local row ``i`` for pair ``(t0 + i, t0 + i + 1)``; the top
+    shard's last row, which no pair has, is a copy of its row above. A block
+    of every rung keeps all ``T - 1`` rows."""
+    if block.t1 - block.t0 < block.ntemps:
+        us = torch.cat([us, us[-1:]])
+    return block.take(us, ("T", "C"))
+
+
+def deo_shard_take(us, lnlike, betas, up_ll, up_beta, parity, t0, ntemps):
+    """The DEO decisions of one temperature shard: ``(take [Tl, C] bool,
+    active [Tl] bool)``, row ``i`` the pair ``(t0 + i, t0 + i + 1)``, from its
+    rows ``lnlike [Tl, C]``, ``betas [Tl]``, uniforms ``us [Tl, C]``
+    (:func:`block_uniforms`) and the first row of the shard above
+    (``up_ll [C]``, ``up_beta`` 0-d; None for the top shard). The same
+    operations as :func:`deo_swap_apply`'s, row by row."""
+    tl = lnlike.shape[0]
+    g = t0 + torch.arange(tl, device=lnlike.device)
+    active = ((g % 2) == parity % 2) & (g <= ntemps - 2)
+    if up_ll is None:  # the top row has no pair: any finite row, inactive
+        up_ll, up_beta = lnlike[-1], betas[-1]
+    hi_ll = torch.cat([lnlike[1:], up_ll[None]])
+    hi_beta = torch.cat([betas[1:], up_beta.reshape(1)])
+    log_acc = _log_acc(lnlike, hi_ll, betas[:, None], hi_beta[:, None])
+    take = active[:, None] & (torch.log(torch.clamp(us, min=1e-37)) <= log_acc)
+    return take, active
+
+
+def deo_shard_move(take, rows, up_rows, down_rows, down_take):
+    """The DEO exchange of one temperature shard: each array of ``rows``
+    (``x [Tl, D, C]``, ``lnlike``, ``lnprior [Tl, C]``) after the shard's
+    accepted exchanges ``take`` (:func:`deo_shard_take`), with the first rows
+    of the shard above (``up_rows``) and the last rows of the shard below
+    (``down_rows``, its ``take`` of its last row ``down_take [C]``); None at
+    the ends of the ladder. Pairs are disjoint at a parity, so a row takes
+    at most one neighbour's."""
+    if down_take is None:
+        down_take = torch.zeros_like(take[0])
+    take_hi = torch.cat([down_take[None], take[:-1]])
+    out = []
+    for k, a in enumerate(rows):
+        up = a[-1] if up_rows is None else up_rows[k]
+        down = a[0] if down_rows is None else down_rows[k]
+        shape = (-1,) + (1,) * (a.dim() - 2) + (a.shape[-1],)
+        hi = torch.cat([a[1:], up[None]])
+        lo = torch.cat([down[None], a[:-1]])
+        out.append(torch.where(take.view(shape), hi,
+                               torch.where(take_hi.view(shape), lo, a)))
+    return out
+
+
+def make_sharded_deo(block):
+    """DEO on a temperature-sharded mesh, each shard's boundary rows sent to
+    its neighbours (``torch.distributed`` sends, ``parallel.mesh
+    .neighbour_exchange``), never a gather of the positions: the port of the
+    JAX package's ``make_sharded_deo`` (its ``swaps.py:241``). Each shard
+    sends its first row (``x``, ``lnlike``, ``lnprior``, beta) to the shard
+    below, decides its pairs (:func:`deo_shard_take`), then sends its last
+    row and that row's decision to the shard above
+    (:func:`deo_shard_move`).
+
+    Returns ``f(us, x, lnlike, lnprior, betas, parity) -> (x, lnlike,
+    lnprior, accepted [Tl, C], proposed [T])`` on the block's rows,
+    ``us`` the block's uniforms (:func:`block_uniforms`), ``betas`` its
+    ``[Tl]``; ``proposed`` is the whole ladder's (every rank holds it).
+    """
+    from .parallel.mesh import neighbour_exchange
+
+    mesh = block.mesh
+    below = mesh.ti - 1 if mesh.ti > 0 else None
+    above = mesh.ti + 1 if mesh.ti < mesh.ntemp - 1 else None
+    t = block.ntemps
+
+    def split(flat, d, c):
+        return flat[:d * c].view(d, c), flat[d * c:(d + 1) * c], flat[(d + 1) * c:(d + 2) * c], \
+            flat[(d + 2) * c:]
+
+    def run(us, x, lnlike, lnprior, betas, parity):
+        _, d, c = x.shape
+        first = torch.cat([x[0].reshape(-1), lnlike[0], lnprior[0], betas[:1]])
+        got = neighbour_exchange(block, first, below, first, above)
+        up = None if got is None else split(got, d, c)
+        take, _ = deo_shard_take(us, lnlike, betas, None if up is None else up[1],
+                                 None if up is None else up[3][0], parity, block.t0, t)
+        last = torch.cat([x[-1].reshape(-1), lnlike[-1], lnprior[-1],
+                          take[-1].to(x.dtype)])
+        got = neighbour_exchange(block, last, above, last, below)
+        down = None if got is None else split(got, d, c)
+        new = deo_shard_move(take, (x, lnlike, lnprior),
+                             None if up is None else up[:3],
+                             None if down is None else down[:3],
+                             None if down is None else down[3] > 0.5)
+        rows = torch.arange(t - 1, device=x.device)
+        proposed = _pad_row((rows % 2) == parity % 2, "end")
+        return (*new, take, proposed)
+
+    return run
+
+
+def sweep_swap_gathered(block, us, x, lnlike, lnprior, betas):
+    """The sweep on a sharded mesh: every rank gathers the rows
+    (``parallel.mesh.gather_many``), runs :func:`sweep_swap_apply` on the whole
+    ladder with the whole uniforms ``us [T-1, C]``, and keeps its block.
+    Returns :func:`sweep_swap_apply`'s results, ``proposed`` whole."""
+    from .parallel.mesh import gather_many
+
+    xd = ("T", x.shape[1], "C")
+    rows = gather_many(block, [(x, xd), (lnlike, ("T", "C")), (lnprior, ("T", "C")),
+                               (betas, ("T",))])
+    x, ll, lp, acc, proposed = sweep_swap_apply(us, *rows)
+    return (block.take(x, xd), block.take(ll, ("T", "C")),
+            block.take(lp, ("T", "C")), block.take(acc, ("T", "C")), proposed)

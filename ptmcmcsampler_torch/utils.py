@@ -47,3 +47,67 @@ def cholesky_psd(mat, jitter=1e-10):
     ok = (info == 0) & torch.all(torch.isfinite(chol))
     bigger, _ = torch.linalg.cholesky_ex(mat + 1e-4 * scale * eye)
     return torch.where(ok, chol, bigger)
+
+
+class Block:
+    """Where one rank's block of rungs and chains lies in the ``[T, C]``
+    batch: rungs ``[t0, t1)`` and chains ``[c0, c1)`` of ``ntemps`` and
+    ``nchains`` (the whole batch, the default, is the unsharded run). ``mesh``
+    is the ``parallel.PTMesh`` the block belongs to (None unsharded).
+
+    Every random draw of a step is of the unsharded run's shape, and each
+    rank keeps its block of it (:meth:`draw`): every rank seeds its
+    generators alike, so a sharded run draws what the unsharded one does,
+    and an unsharded run's stream is the one it always was. ``dims`` names
+    an array's axes: ``"T"`` the rungs, ``"C"`` the chains, an int any other
+    axis of that extent.
+    """
+
+    def __init__(self, ntemps, nchains, t0=0, t1=None, c0=0, c1=None, mesh=None):
+        self.ntemps, self.nchains = int(ntemps), int(nchains)
+        self.t0, self.t1 = int(t0), self.ntemps if t1 is None else int(t1)
+        self.c0, self.c1 = int(c0), self.nchains if c1 is None else int(c1)
+        self.mesh = mesh
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the block is less than the whole batch."""
+        return (self.t1 - self.t0, self.c1 - self.c0) != (self.ntemps, self.nchains)
+
+    @property
+    def n0(self) -> int:
+        """The unsharded index of the block's first chain, ``t0 * C + c0``:
+        the kernels' counter base (``ops/common.py chain_counters``)."""
+        return self.t0 * self.nchains + self.c0
+
+    def shape(self, dims):
+        """The unsharded shape of an array of axes ``dims``."""
+        return tuple(self.ntemps if d == "T" else self.nchains if d == "C" else int(d)
+                     for d in dims)
+
+    def take(self, a, dims):
+        """This block of ``a`` (axes ``dims``, the unsharded shape); ``a``
+        itself when the block is the whole batch."""
+        if not self.sharded:
+            return a
+        index = tuple(slice(self.t0, self.t1) if d == "T" else slice(self.c0, self.c1)
+                      if d == "C" else slice(None) for d in dims)
+        return a[index].contiguous()
+
+    def draw(self, fn, rng, dims, device, *args, **kwargs):
+        """``fn(*args, shape, generator=rng, device=device, **kwargs)`` at the
+        unsharded ``shape`` of ``dims``, and this block of it."""
+        return self.take(fn(*args, self.shape(dims), generator=rng, device=device, **kwargs),
+                         dims)
+
+
+def block_of(ctx, x):
+    """The block of a proposal context (``ctx.block``), or for a context
+    without one the whole batch of ``x [T, D, C]``."""
+    block = getattr(ctx, "block", None)
+    return Block(x.shape[0], x.shape[2]) if block is None else block
+
+
+def exponential(shape, generator, device):
+    """Exp(1) draws of ``shape`` (a :meth:`Block.draw` ``fn``)."""
+    return torch.empty(shape, device=device).exponential_(generator=generator)

@@ -1295,6 +1295,49 @@ _GENERAL_MODELS = {"curved": CurvedLikelihood, **WIDE_MODELS}
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["curved", "hierarchical"])
+def test_entries_on_a_block_draw_the_unsharded_counters(cuda, name):
+    """A sharded run's block (rungs 1.., chains 40..) launched with its
+    counter base ``n0`` and the unsharded ``C``: the NUTS default and
+    general entries and the fused HMC step equal their block of the
+    unsharded call, bit for bit, and their plain versions on the block."""
+    from ptmcmcsampler_torch.utils import Block
+
+    model = _GENERAL_MODELS[name]()
+    c, depth = (77 if model.ndim > 2 else 1001), 5
+    args, r_eps = _general_inputs(cuda, model, c, depth)
+    q0, r0, betas, eps, expo, dirs, accu, key, chol = args
+    t, d = q0.shape[:2]
+    blk = Block(t, c, 1, t, 40, c - 3)
+    xd, tc, ltc = ("T", d, "C"), ("T", "C"), (depth, "T", "C")
+    bargs = [blk.take(q0, xd), blk.take(r0, xd), blk.take(betas, ("T",)), blk.take(eps, tc),
+             blk.take(expo, tc), blk.take(dirs, ltc), blk.take(accu, ltc), key, chol]
+    counters = dict(n0=blk.n0, c_total=c)
+    for general in (False, True):
+        full = nuts_trees(*args, model, r_eps=r_eps, general=general)
+        part = nuts_trees(*bargs, model, r_eps=blk.take(r_eps, xd), general=general, **counters)
+        for i, (a, b) in enumerate(zip(part, full)):
+            assert _same(a, blk.take(b, xd if i == 0 else tc)), (general, i)
+    if model.ndim > 2:  # the wide entries equal their plain version bit for bit
+        tl, cl = bargs[3].shape
+        plain = nuts_trees_plain(*bargs[:7], nuts_uniforms(key, depth, tl, cl, **counters),
+                                 chol, model, blk.take(r_eps, xd))
+        for a, b in zip(part, plain):
+            assert _same(a, b)
+    x = (chol.T @ q0).contiguous()
+    chol_inv = torch.linalg.inv(chol).contiguous()
+    full = hmc_step(x, betas, key, chol, chol_inv, 0.08, HMC_NMIN, HMC_NMAX, model)
+    part = hmc_step(blk.take(x, xd), blk.take(betas, ("T",)), key, chol, chol_inv, 0.08,
+                    HMC_NMIN, HMC_NMAX, model, **counters)
+    for i, (a, b) in enumerate(zip(part, full)):
+        assert _same(a, blk.take(b, xd if i == 0 else tc)), i
+    tl, cl = t - 1, c - 43
+    kernel = hmc_kernel_draws(key, tl, d, cl, HMC_NMIN, HMC_NMAX, model, **counters)
+    plain = hmc_draws(key, tl, d, cl, HMC_NMIN, HMC_NMAX, **counters)
+    assert torch.equal(kernel[1], plain[1])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(_GENERAL_MODELS))
 def test_general_nuts_entry_equals_the_default_entry(cuda, name):
     """At depth <= 10 the general entry computes the default entry's

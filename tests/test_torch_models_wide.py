@@ -10,7 +10,11 @@ rounding error scales with the sum of the terms' magnitudes, not with the
 result. Its error is held to 1e-5 of ``sum_k |icov_ik| |diff_k|`` (and of
 ``diff.|icov|.diff`` for the value) instead; likewise the hierarchical
 model's hyper-parameter gradient, ``-mu/s_mu^2 + sum_i (theta_i - mu)/s_t^2``
-(49 terms), to 1e-5 of the sum of its terms' magnitudes.
+(49 terms), to 1e-5 of the sum of its terms' magnitudes; and the interval
+model's gradient, ``beta (-x (b-a) s(1-s) + 1 - 2e/(1+e))``, whose three
+terms (of magnitude up to 25) cancel to results near 0, to 1e-5 of
+``beta (|x (b-a) s(1-s)| + 1 + |2e/(1+e)|)``. ``test_interval_gradient_
+against_f64`` holds both packages to an f64 evaluation of that gradient.
 """
 
 import jax
@@ -73,9 +77,24 @@ def _jax_value_grad(jmodel, pts, beta):
     return np.asarray(v), np.asarray(g)
 
 
-def _assert_close(name, model, pts, got, want, what):
-    """Elementwise within RTOL/ATOL, or for the correlated model within
-    RTOL of the sum of the terms' magnitudes; equal NaN and -inf masks."""
+def _interval_terms(model, pts):
+    """``(gradient, |x (b-a) s(1-s)| + 1 + |2e/(1+e)|)`` of the interval
+    model at ``pts``, in f64."""
+    p = pts.astype(np.float64)
+    w = model.pmax - model.pmin
+    s = 1.0 / (1.0 + np.exp(-p))
+    x = w * s + model.pmin
+    with np.errstate(over="ignore", invalid="ignore"):
+        e = np.exp(p)
+        tail = 2.0 * e / (1.0 + e)
+    head = x * w * s * (1.0 - s)
+    return -head + 1.0 - tail, np.abs(head) + 1.0 + np.abs(tail)
+
+
+def _assert_close(name, model, pts, got, want, what, beta=1.0):
+    """Elementwise within RTOL/ATOL, or for the correlated model, the
+    hierarchical hyper-gradient and the interval gradient within RTOL of the
+    sum of the terms' magnitudes; equal NaN and -inf masks."""
     np.testing.assert_array_equal(np.isnan(got), np.isnan(want), err_msg=what)
     np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want), err_msg=what)
     fin = np.isfinite(want)
@@ -89,6 +108,9 @@ def _assert_close(name, model, pts, got, want, what):
         scale = np.abs(want)
         scale[:, 0] = (np.abs(pts[:, 1:] - pts[:, :1]).sum(1) / model.s_t**2
                        + np.abs(pts[:, 0]) / model.s_mu**2)
+        assert (np.abs(got - want)[fin] <= ATOL + RTOL * scale[fin]).all(), what
+    elif name == "interval" and got.ndim == 2:
+        scale = beta * _interval_terms(model, pts)[1]
         assert (np.abs(got - want)[fin] <= ATOL + RTOL * scale[fin]).all(), what
     else:
         np.testing.assert_allclose(got[fin], want[fin], rtol=RTOL, atol=ATOL, err_msg=what)
@@ -105,7 +127,25 @@ def test_value_grad_matches_jax(name, kind, beta):
     tv, tg = t_model.value_grad(x, torch.tensor([[beta]]))
     assert tv.shape == (1, len(pts)) and tg.shape == x.shape
     _assert_close(name, t_model, pts, tv[0].numpy(), jv, "value")
-    _assert_close(name, t_model, pts, tg[0].numpy().T, jg, "gradient")
+    _assert_close(name, t_model, pts, tg[0].numpy().T, jg, "gradient", beta)
+
+
+@pytest.mark.parametrize("kind", ["near", "far", "outside"])
+def test_interval_gradient_against_f64(kind):
+    """The interval model's gradient in both packages against its f64
+    evaluation, as a share of the terms' magnitudes: the port is no farther
+    from it than the JAX package, give or take half an f32 ulp."""
+    t_model, j_model = (f() for f in MODELS["interval"])
+    pts = _points("interval", t_model, kind)
+    _, jg = _jax_value_grad(j_model, pts, 1.0)
+    x = torch.tensor(pts.T.copy())[None]
+    tg = t_model.value_grad(x, torch.tensor([[1.0]]))[1][0].numpy().T
+    g64, terms = _interval_terms(t_model, pts)
+    fin = np.isfinite(jg)
+    assert fin.sum() > 0.9 * fin.size if kind != "outside" else fin.any()
+    port = np.max(np.abs(tg - g64)[fin] / terms[fin])
+    ref = np.max(np.abs(jg - g64)[fin] / terms[fin])
+    assert port <= ref + 2.0**-24, (port, ref)
 
 
 @pytest.mark.parametrize("name", sorted(MODELS))

@@ -278,7 +278,7 @@ def test_without_grads_no_gradient_jump(tmp_path):
 
 
 @pytest.mark.parametrize("call, error, item", [
-    ("mesh", NotImplementedError, "A12"),
+    ("mesh", TypeError, "PTMesh"),  # a mesh is a parallel.PTMesh (ROADMAP A12, done)
     ("dtype", ValueError, "float32"),
 ])
 def test_refusals_name_the_item(tmp_path, call, error, item):
