@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero:
 
 1. Card and build: print the card's name and power limit, build every
    CUDA kernel from ``ptmcmcsampler_torch/csrc`` with ``nvcc`` for sm_90a,
-   one ``nvcc`` per source, all started together.
+   one ``nvcc`` per source, all started together, then the chain-row
+   formatter (``csrc/chainio.cpp``) with the host compiler.
 2. Kernels vs plain, on the card at the main paths' shape (8 x 16384
    chains, D=2), on synthetic inputs around both modes of the curved target:
    * ChEES trajectories, ``nsteps <= 32``: q1 and p1 within rtol = atol =
@@ -315,6 +316,26 @@ Phases, in order; any failure exits non-zero:
    ``trajectoryDir`` and ``write_burnin``: three files for each emitted row
    that ran NUTS, every NUTS launch through the general entry; the same
    seeded run without it (the default entry) leaves every file equal.
+9l. The sharded phase (``phase_sharded``, ROADMAP A12 and A12b): two
+   ranks of this script (``--sharded-worker``) share cuda:0 over ``gloo``,
+   each its block; every case against one process of the same seed, every
+   element of the final state and every file and checkpoint array equal.
+   ``run_block`` eagerly: path 1 on 2 x 1 and path 2 on 1 x 2 on the curved
+   target at T x C; on the 50-D hierarchy at T x SHARDED_USER_C with the
+   chains split, path 1's and path 2's cycles under ``per_chain``'s rotation
+   and BASELINE config 4's cycle with the user's torch-native jumps (each
+   line: the ranks' parts of the rotation slices by runs, the kernels'
+   launches by rank, the user's callables timed over every point and over
+   the block). Then ``PTSampler`` at T x WIDE_SAMPLER_C with the wide
+   sampler's cycle and with config 4's, each 1000 iterations resumed to
+   1500 (``"phase": "sharded_sampler"``, ``"sharded_config4_sampler"``).
+9m. The chain files' native row formatter (``"phase": "chainio"``, after
+   the wide sampler): built with the host compiler, byte for byte against
+   its plain version on CHAINIO_SPECIAL in every column kind and on one
+   drain's rows of the 50-D sampler. The sampler lines of 6 and 9 carry
+   ``drain_parts``: each part of a drain and a checkpoint in ms a drain and
+   as a share of ``sample()``'s wall (``PTSampler.io_seconds``), and one
+   drain's rows formatted natively and by the plain version.
 10. Kernels line: each kernel's launches on its path, error against the
    plain version, device time (CUDA events, stream held, inputs from its
    path's final state), the time of a wrapper call, the plain version's time
@@ -464,7 +485,7 @@ PLAIN_C, PLAIN_ITERS = 1024, 2000
 # sampler phase's workload each, the serial loop reached with a neff too
 # large to stop the run (its check, a cross-chain ESS over every cold chain
 # each block past 2 burn, is timed and listed apart).
-SERIAL_ITERS = 6000
+SERIAL_ITERS = 3000  # cut from 6000 for the sharded per_chain and config-4 cases (PR 17)
 PLAIN_KW = dict(burn=500, Tskip=5, isave=500, covUpdate=500, thin=10, SCAMweight=10,
                 AMweight=10, DEweight=10, CHEESweight=10, HMCweight=10, NUTSweight=0,
                 MALAweight=0, HMCstepsize=HMC_EPS, HMCsteps=HMC_NMAX)
@@ -482,8 +503,9 @@ PLAIN_KW = dict(burn=500, Tskip=5, isave=500, covUpdate=500, thin=10, SCAMweight
 # iterations.
 # Cut: the 40-D and 50-D timed iterations to 6000 and gaussian200 to
 # 250 + 250, to make room for the per-chain, general-entry and trajectory
-# phases; the 40-D and 50-D ones to 4000 for the sharded phase.
-WIDE_ITERS = {"gaussian": (3000, 4000), "hierarchical": (3000, 4000),
+# phases; the 40-D and 50-D ones to 4000 for the sharded phase, and to
+# 2000 + 3000 for the sharded per_chain and config-4 cases (PR 17).
+WIDE_ITERS = {"gaussian": (2000, 3000), "hierarchical": (2000, 3000),
               "gaussian200": (250, 250)}
 # The wide kernel-vs-plain checks run the kernels at the main path's 8 x
 # 16384 chains and the plain version on the same batch, but for gaussian200
@@ -520,9 +542,10 @@ WIDE_MODEL_OPS = {
 # bench.py's counts take about 50 s at 40-D and would take about 130 and
 # 460 s at 50-D and 200-D.
 # Cut to 1500 + 3000 at 40-D, 1000 + 2000 at 50-D and 150 +
-# 150 at 200-D for the same reason.
-WIDE_NUTS_ITERS = {"gaussian": (1500, 3000), "hierarchical": (1000, 2000),
-                   "gaussian200": (150, 150)}
+# 150 at 200-D for the same reason; for the sharded per_chain and config-4
+# cases (PR 17) to 1000 + 2000, 600 + 1200 and 100 + 100.
+WIDE_NUTS_ITERS = {"gaussian": (1000, 2000), "hierarchical": (600, 1200),
+                   "gaussian200": (100, 100)}
 # The wide NUTS and HMC checks run the plain version on this many chains a
 # rung (the first and the last half of them), the kernels on all of them.
 WIDE_PLAIN_COLUMNS_NUTS = 1024
@@ -539,9 +562,10 @@ WIDE_CAPPED_EPS = 1e-6
 # workload through the registered functor; user_ref_gaussian the 10-D
 # Gaussian, run for its entries' launches and timings on a path.
 # Cut: user_hierarchical's timed iterations to 3000 (path 1) and its
-# path 2 to 500 + 1000.
-USER_ITERS = {"user_hierarchical": (1500, 3000), "user_ref_gaussian": (500, 1000)}
-USER_NUTS_ITERS = {"user_hierarchical": (500, 1000), "user_ref_gaussian": (500, 1000)}
+# path 2 to 500 + 1000; for the sharded per_chain and config-4 cases (PR
+# 17) to 1000 + 2000 and 300 + 600.
+USER_ITERS = {"user_hierarchical": (1000, 2000), "user_ref_gaussian": (500, 1000)}
+USER_NUTS_ITERS = {"user_hierarchical": (300, 600), "user_ref_gaussian": (500, 1000)}
 # The user sampler phase's reference scenario (the reference's test_nuts.py
 # cycle through PTSampler, its HMC settings), at 8 x 1024 chains.
 USER_REF_ITERS = 2000
@@ -999,14 +1023,17 @@ LARGE_NGROUPS = {"hierarchical270": 269, "hierarchical1024": 1023}
 # trajectory phases; for the sharded phase, the timed iterations at 270-D
 # from 2000 to 1000 (path 1) and 450 to 300 (path 2). Path 2 at 1024-D keeps 60 +
 # 100: with 50 timed iterations a first use of a key there left 0.96 of
-# them replayed, below MIN_REPLAYED_SHARE.
-LARGE_ITERS = {"hierarchical270": (1000, 1000), "hierarchical1024": (100, 150)}
-LARGE_NUTS_ITERS = {"hierarchical270": (300, 300), "hierarchical1024": (60, 100)}
+# them replayed, below MIN_REPLAYED_SHARE. For the sharded per_chain and
+# config-4 cases (PR 17): path 1 to 600 + 600 at 270-D and 60 + 100 at
+# 1024-D, path 2 at 270-D to 200 + 200, and path 2 at 1024-D to a NUTS
+# depth cap of 7 (LARGE_NUTS_DEPTH).
+LARGE_ITERS = {"hierarchical270": (600, 600), "hierarchical1024": (60, 100)}
+LARGE_NUTS_ITERS = {"hierarchical270": (200, 200), "hierarchical1024": (60, 100)}
 # Path 2 at 270-D runs at a smaller NUTS depth cap (bench.py's 10), for the
 # same room: a group of 8 chains steps as long as its deepest tree. Listed
 # in its line's cuts. (At 1024-D a cap of 7 took a call only from 2.16 to
-# 1.80 s on an H100, 18 s of the script, so that path keeps 10.)
-LARGE_NUTS_DEPTH = {"hierarchical270": 8}
+# 1.80 s on an H100, 18 s of the script; PR 17 takes it for the room.)
+LARGE_NUTS_DEPTH = {"hierarchical270": 8, "hierarchical1024": 7}
 # The plain versions' chains a rung in the large workloads' kernel items
 # (their ordered sums over D are D launches a product); the NUTS plain
 # version, which runs to the deepest tree of its chains, on (rungs,
@@ -2141,6 +2168,106 @@ def time_drains(sampler, seconds, sync=False):
     seconds["busy_after"] = []
 
 
+#: The parts of a drain and a checkpoint that ``PTSampler.io_seconds`` times.
+DRAIN_PARTS = ("to_host", "wait", "format", "write", "sidecar", "cov_jumps",
+               "checkpoint_arrays", "checkpoint_savez", "checkpoint_meta")
+FORMAT_REPS = 5  # calls a block's formatting time is the mean of
+
+
+@contextlib.contextmanager
+def stash_rows(stash):
+    """Keep in ``stash["rows"]`` the arguments of the first chain-file append
+    of more than one row (a drain's cold rows), as f64 arrays."""
+    from ptmcmcsampler_torch.io.chainfile import ChainWriter
+
+    real = ChainWriter.append
+
+    def append(self, i, params, *cols):
+        if "rows" not in stash and len(params) > 1:
+            stash["rows"] = tuple(np.array(a, np.float64) for a in (params, *cols))
+        return real(self, i, params, *cols)
+
+    ChainWriter.append = append
+    try:
+        yield stash
+    finally:
+        ChainWriter.append = real
+
+
+def format_timings(rows):
+    """The native formatter against its plain version on ``rows`` (a
+    drain's cold rows): host ms of each, over FORMAT_REPS calls, and whether
+    their text is byte for byte equal."""
+    from ptmcmcsampler_torch.io import chainfile, native
+
+    out = {}
+    for name, fn in (("native", native.format_rows), ("plain", chainfile.format_rows_plain)):
+        text = fn(*rows)
+        t0 = time.perf_counter()
+        for _ in range(FORMAT_REPS):
+            fn(*rows)
+        out[name] = (text, 1e3 * (time.perf_counter() - t0) / FORMAT_REPS)
+    return {"rows": int(rows[0].shape[0]), "columns": int(rows[0].shape[1]) + 4,
+            "bytes": len(out["native"][0]), "native_ms": out["native"][1],
+            "plain_ms": out["plain"][1], "byte_equal": out["native"][0] == out["plain"][0]}
+
+
+#: Values where glibc's printf and CPython's %-formatting could part: +-0,
+#: +-inf, NaN of either sign, subnormals, 1e+-300 and the largest double,
+#: a rounding carry, float32 values upcast.
+CHAINIO_SPECIAL = (0.0, -0.0, float("inf"), float("-inf"), float("nan"), -float("nan"), 5e-324,
+                   -2.2250738585072e-308, 1e-300, -1e-300, 1e300, -1e300,
+                   1.7976931348623157e308, -1.7976931348623157e308, 9.9999999999, 0.5,
+                   -123.456789012345678, float(np.float32(0.1)), float(np.float32(-3.4e38)),
+                   float(np.float32(1.4e-45)))
+
+
+def phase_chainio(card, build_sec):
+    """The native chain-row formatter (``io/native.py``, the port's copy of
+    ``csrc/chainio.cpp`` built with the host compiler) on this machine:
+    byte for byte against its plain version on each CHAINIO_SPECIAL value
+    in a parameter column and in each of the four trailing columns, and on
+    one drain's rows of the 50-D wide sampler (WIDE_ROWS). Prints one line
+    ``"phase": "chainio"``; fails on any byte that differs."""
+    from ptmcmcsampler_torch.io import chainfile, native
+
+    special = np.array(CHAINIO_SPECIAL)
+    rows = (np.stack([special, special[::-1]], 1), *(np.roll(special, k) for k in range(4)))
+    text = native.format_rows(*rows)
+    special_equal = text == chainfile.format_rows_plain(*rows)
+    wide = format_timings(WIDE_ROWS["hierarchical"])
+    card_name, power = [v.strip() for v in card.split(",", 1)]
+    line = {"phase": "chainio", "library": native.library_path().name,
+            "compiler": native.compiler(), "build_sec": build_sec,
+            "special_values": len(special), "special_byte_equal": special_equal,
+            "minus_nan_written": "-nan" in text, "wide_block": wide,
+            "card": card_name, "power_limit": power}
+    print(json.dumps(line), flush=True)
+    if not special_equal or "-nan" in text or not wide["byte_equal"]:
+        raise SystemExit("chainio: the native formatter's text differs from the plain "
+                         "version's")
+
+
+def drain_parts(sampler, wall, drains, stash):
+    """The drain and checkpoint of ``sampler``'s last ``sample()`` broken
+    down (``io_seconds``): each part's host ms a drain and its share of the
+    wall; and one drain's cold rows formatted natively and by the plain
+    version, with the plain version's share of the wall had it formatted
+    every drain. Fails if the two formatters' text differs."""
+    sec = sampler.io_seconds
+    parts = {p: sec.get(p, 0.0) for p in DRAIN_PARTS}
+    fmt = format_timings(stash["rows"])
+    if not fmt["byte_equal"]:
+        raise SystemExit("drain: the native formatter's rows differ from the plain version's")
+    return {
+        "drains": drains,
+        "ms_per_drain": {p: 1e3 * v / drains for p, v in parts.items()},
+        "share_of_wall": {p: v / wall for p, v in parts.items()},
+        "format_one_drain": fmt,
+        "plain_format_share_of_wall": fmt["plain_ms"] * drains / 1e3 / wall,
+    }
+
+
 def iterations(sampler, kind):
     """The iterations of jump ``kind`` (0 where the cycle has none)."""
     kinds = [j.kind for j in sampler.config.jumps]
@@ -2230,7 +2357,7 @@ def phase_sampler(model, card, path1_iters_per_sec, wrappers):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         seconds = {}
-        with contextlib.redirect_stdout(sys.stderr):
+        with contextlib.redirect_stdout(sys.stderr), stash_rows({}) as stash:
             s = curved_sampler(model, outdir, seed=7)
             time_drains(s, seconds)
             t0 = time.time()
@@ -2282,6 +2409,7 @@ def phase_sampler(model, card, path1_iters_per_sec, wrappers):
             "path1_run_block_iters_per_sec": path1_iters_per_sec,
             "wall_sec": wall,
             **drain_stats(seconds, wall),
+            "drain_parts": drain_parts(s, wall, SAMPLER_ITERS // SAMPLER_KW["isave"], stash),
             "checkpoint_bytes": os.path.getsize(os.path.join(outdir, "checkpoint.npz")),
             "ess_per_sec": float(ess.min()) / wall,
             "ess_min_dim": float(ess.min()),
@@ -2345,7 +2473,7 @@ def phase_sampler(model, card, path1_iters_per_sec, wrappers):
         loops = {}
         for loop, neff in (("overlapped", None), ("serial", 10**12)):
             seconds = {}
-            with contextlib.redirect_stdout(sys.stderr):
+            with contextlib.redirect_stdout(sys.stderr), stash_rows({}) as stash:
                 s = curved_sampler(model, os.path.join(root, loop), seed=7)
                 time_drains(s, seconds, sync=neff is not None)
                 t0 = time.time()
@@ -2355,7 +2483,9 @@ def phase_sampler(model, card, path1_iters_per_sec, wrappers):
             stats = drain_stats(seconds, wall)
             loops[loop] = {"iters_per_sec": SERIAL_ITERS / wall, "wall_sec": wall,
                            "iters_per_sec_without_neff": SERIAL_ITERS / (wall - stats["neff_sec"]),
-                           "replayed_share": s.block_stats.summary()["replayed_share"], **stats}
+                           "replayed_share": s.block_stats.summary()["replayed_share"], **stats,
+                           "drain_parts": drain_parts(
+                               s, wall, SERIAL_ITERS // SAMPLER_KW["isave"], stash)}
             del s
         same = same_files(os.path.join(root, "overlapped"), os.path.join(root, "serial"))
         log(f"sampler serial vs overlapped: {loops}, files equal: {same}")
@@ -2663,6 +2793,11 @@ def wide_kernel_entry(name, model, state, cfg, launches, max_err, chees_ptxas):
     }
 
 
+#: One drain's cold rows of each wide sampler run, by workload (the first
+#: run's), which the chainio phase formats again.
+WIDE_ROWS = {}
+
+
 def phase_wide_sampler(card, wrappers, name="hierarchical", register=None,
                        sample_kw=WIDE_SAMPLER_KW, phase="wide_sampler"):
     """``PTSampler`` with the bound methods of the hierarchy of the wide
@@ -2702,7 +2837,7 @@ def phase_wide_sampler(card, wrappers, name="hierarchical", register=None,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         outdir = os.path.join(root, "chains")
-        with contextlib.redirect_stdout(sys.stderr):
+        with contextlib.redirect_stdout(sys.stderr), stash_rows({}) as stash:
             s = make(model, outdir)
             if register is not None:
                 register(s, model)
@@ -2710,6 +2845,8 @@ def phase_wide_sampler(card, wrappers, name="hierarchical", register=None,
             s.sample(np.zeros(d), WIDE_SAMPLER_ITERS, **sample_kw)
             torch.cuda.synchronize()
             wall = time.time() - t0
+        parts = drain_parts(s, wall, WIDE_SAMPLER_ITERS // sample_kw["isave"], stash)
+        WIDE_ROWS.setdefault(name, stash["rows"])
         launches = counted_launches(s.block_stats, wrappers)
         iters = {kind: iterations(s, kind) for kind in (KIND_CHEES, KIND_NUTS, KIND_HMC)}
         thin = sample_kw["thin"]
@@ -2774,7 +2911,7 @@ def phase_wide_sampler(card, wrappers, name="hierarchical", register=None,
             "iterations_by_kind": iters, "launches": launches, "jumps": counts,
             "protocols": protocols, "moments_ok": ok, "moments_max_z": max_z, "ess_min_dim": float(ess.min()),
             "rows": int(text.shape[0]), "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-            "graphs": graphs,
+            "graphs": graphs, "drain_parts": parts,
             "refused_1025d": refusal, "card": card_name, "power_limit": power,
         }
         return result, launches
@@ -3659,8 +3796,9 @@ def large_check_line(card, label, model, builtin, err, seconds):
 # at 20 and the auxiliary HierarchyReflection, on bench.py's 50-D hierarchy.
 CUSTOM_WEIGHTS = dict(SCAMweight=20, AMweight=20, DEweight=20, CHEESweight=20)
 # Cut: the timed iterations to 6000, to make room for the per-chain,
-# general-entry and trajectory phases, and to 3000 for the sharded phase.
-CUSTOM_ITERS = {"custom_jumps": (3000, 3000)}
+# general-entry and trajectory phases, and to 3000 for the sharded phase;
+# to 2000 + 2000 for the sharded per_chain and config-4 cases (PR 17).
+CUSTOM_ITERS = {"custom_jumps": (2000, 2000)}
 CUSTOM_SAMPLER_KW = dict(burn=500, Tskip=5, isave=500, covUpdate=500, thin=10,
                          NUTSweight=0, HMCweight=0, MALAweight=0, HMCstepsize=HMC_EPS,
                          **CUSTOM_WEIGHTS)
@@ -3794,9 +3932,10 @@ LADDER_T, LADDER_C = 64, 2048
 # Cut: the timed iterations of tall_ladder, de_iid and de_rolled from
 # 6000 to 3000, and of the sweep from 3000 to 1500, to make room for the
 # per-chain, general-entry and trajectory phases; the first three to 2000
-# for the sharded phase.
-LADDER_ITERS = {"tall_ladder": (3000, 2000), "tall_ladder_sweep": (1000, 1500),
-                "de_iid": (3000, 2000), "de_rolled": (3000, 2000)}
+# for the sharded phase; tall_ladder and de_rolled to 2000 + 1500 for the
+# sharded per_chain and config-4 cases (PR 17).
+LADDER_ITERS = {"tall_ladder": (2000, 1500), "tall_ladder_sweep": (1000, 1500),
+                "de_iid": (3000, 2000), "de_rolled": (2000, 1500)}
 # The eager loop against the graphs on these paths' final states: 20
 # iterations of each under the profiler, as on the wide paths past 64-D.
 LADDER_COMPARE_ITERS = 20
@@ -4117,8 +4256,9 @@ def phase_ladder_sampler(card, wrappers):
 
 # The per_chain phase: both paths' cycles on the 50-D hierarchy at T x C,
 # rotation mode, cut from bench.py's 3000 + 12000 to fit the script's limit
-# (the timed iterations from 2000 and 1000 for the sharded phase).
-PER_CHAIN_ITERS = {"hierarchical": (1000, 1000), "nuts/hierarchical": (500, 500)}
+# (the timed iterations from 2000 and 1000 for the sharded phase; path 2 to
+# 300 + 300 for the sharded per_chain and config-4 cases, PR 17).
+PER_CHAIN_ITERS = {"hierarchical": (1000, 1000), "nuts/hierarchical": (300, 300)}
 # The graphs check of the per_chain phase: eager loop against run_block over
 # PER_CHAIN_GRAPHS_ITERS iterations that cross DE's activation (burn cut to
 # GRAPHS_BURN, cov_update to GRAPHS_COV_UPDATE); the stacked mode on path
@@ -4728,13 +4868,30 @@ def phase_trajectory_sampler(card, wrappers):
 # neighbour exchange (what PTSampler picks on that mesh for swap_mode=None),
 # a factor refresh every SHARDED_COV_UPDATE; sharded/nuts: path 2 with the
 # chains split (1 x 2), so the NUTS and HMC kernels draw from n0 = c0 != 0.
-SHARDED_ITERS = {"sharded/curved": (200, 400), "sharded/nuts": (200, 400)}
-SHARDED_MESH = {"sharded/curved": (2, 1), "sharded/nuts": (1, 2)}
+# Both cut from 200 + 400 to 100 + 200 for the cases below (PR 17).
+# The user's side of a sharded run (ROADMAP A12b), on the 50-D hierarchy at
+# T x SHARDED_USER_C with the chains split (1 x 2), so a per_chain rotation
+# slice's chains straddle the ranks: sharded/per_chain_chees, path 1's cycle
+# under the rotation (ChEES's per-rung update gathers its slice from both
+# ranks); sharded/per_chain_nuts, path 2's (the NUTS and HMC counters at a
+# slice's positions); sharded/config4, BASELINE config 4's cycle (the torch
+# custom jump, the prior draw, the auxiliary reflection), every rank
+# evaluating the user's vmapped callables over the unsharded points.
+SHARDED_ITERS = {"sharded/curved": (100, 200), "sharded/nuts": (100, 200),
+                 "sharded/per_chain_chees": (100, 200), "sharded/per_chain_nuts": (100, 200),
+                 "sharded/config4": (100, 200)}
+SHARDED_MESH = {"sharded/curved": (2, 1), "sharded/nuts": (1, 2),
+                "sharded/per_chain_chees": (1, 2), "sharded/per_chain_nuts": (1, 2),
+                "sharded/config4": (1, 2)}
+SHARDED_USER_C = 2048
 SHARDED_COV_UPDATE = 150
 SHARDED_BLOCK = 100
 # sharded_sampler: PTSampler on the 50-D hierarchy at 8 x WIDE_SAMPLER_C over
-# two ranks (the rungs split by default), then a resume.
+# two ranks (the rungs split by default), then a resume; sharded_config4_sampler
+# the same with config 4's cycle and user's jumps (CUSTOM_SAMPLER_KW,
+# register_config4).
 SHARDED_SAMPLER_ITERS, SHARDED_SAMPLER_RESUME = 1000, 1500
+SHARDED_SAMPLERS = {"sharded_sampler": False, "sharded_config4_sampler": True}
 SHARDED_RANKS = 2
 SHARDED_TIMEOUT = 300  # seconds a launch of the ranks may take
 SHARDED_GROUP_TIMEOUT = 60  # torch.distributed's timeout of a collective, seconds
@@ -4754,9 +4911,17 @@ def sharded_config(label):
     burn = SHARDED_ITERS[label][0]
     if label == "sharded/curved":
         cfg = dataclasses.replace(headline_config(burn, SHARDED_COV_UPDATE), swap_mode="deo")
+        return cfg, CurvedLikelihood(), (-0.1, -0.5)
+    if label == "sharded/nuts":
+        return nuts_config(burn, SHARDED_COV_UPDATE), CurvedLikelihood(), (-0.1, -0.5)
+    model, x0 = wide_workload("hierarchical")
+    if label == "sharded/per_chain_chees":
+        cfg = per_chain_config(wide_config(model.ndim, burn, SHARDED_COV_UPDATE))
+    elif label == "sharded/per_chain_nuts":
+        cfg = per_chain_config(wide_nuts_config(model.ndim, burn, SHARDED_COV_UPDATE))
     else:
-        cfg = nuts_config(burn, SHARDED_COV_UPDATE)
-    return cfg, CurvedLikelihood(), (-0.1, -0.5)
+        cfg = custom_config(model, burn, SHARDED_COV_UPDATE)
+    return dataclasses.replace(cfg, nchains=SHARDED_USER_C), model, x0
 
 
 def sharded_wrappers():
@@ -4786,6 +4951,7 @@ def sharded_run(label, mesh=None):
     gather of the cold rows (SHARDED_REPS calls after the run)."""
     from ptmcmcsampler_torch import build_step, swaps
     from ptmcmcsampler_torch.parallel.mesh import gather, shard_state, unshard_state
+    from ptmcmcsampler_torch.utils import Block
 
     cfg, model, x0 = sharded_config(label)
     burn, timed = SHARDED_ITERS[label]
@@ -4797,18 +4963,34 @@ def sharded_run(label, mesh=None):
     wrappers = sharded_wrappers()
     for w in wrappers.values():
         w.launches = 0
-    for _ in range(burn // SHARDED_BLOCK):
-        state, _ = run_block(state, SHARDED_BLOCK)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for _ in range(timed // SHARDED_BLOCK):
-        state, _ = run_block(state, SHARDED_BLOCK)
-    torch.cuda.synchronize()
-    rate = timed / (time.time() - t0)
+    # The rank's part of each per_chain rotation slice, by its runs of
+    # slice positions: none, one, or two (two launches of the slice's kernel).
+    runs = {0: 0, 1: 0, 2: 0}
+    pieces = Block.slice_pieces
+
+    def counting(blk, start, n):
+        out = pieces(blk, start, n)
+        if blk.mesh is not None:  # the rank's own block, not gather_slice's others
+            runs[len(out)] += 1
+        return out
+
+    Block.slice_pieces = counting
+    try:
+        for _ in range(burn // SHARDED_BLOCK):
+            state, _ = run_block(state, SHARDED_BLOCK)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(timed // SHARDED_BLOCK):
+            state, _ = run_block(state, SHARDED_BLOCK)
+        torch.cuda.synchronize()
+        rate = timed / (time.time() - t0)
+    finally:
+        Block.slice_pieces = pieces
     launches = {name: w.launches for name, w in wrappers.items()}
     block = run_block.block
     timings = dict.fromkeys(("deo_exchange_ms", "cold_gather_ms", "cold_gather_50d_ms",
                              "global_draw_ms", "local_draw_ms"))
+    timings["slice_runs"] = runs
     if block.sharded:
         def host_ms(fn):
             fn()
@@ -4839,14 +5021,39 @@ def sharded_run(label, mesh=None):
         local = (block.t1 - block.t0, SHARDED_WIDE_D, block.c1 - block.c0)
         timings["local_draw_ms"] = cuda_ms(
             lambda: torch.randn(local, generator=gen, device=dev), SHARDED_REPS)
+        if cfg.aux_jumps:  # the user's vmapped callables: every point, or the block's
+            timings.update(user_jump_timings(cfg, block, state, gen, dev))
     return sharded_state_arrays(unshard_state(state, block)), rate, launches, timings
 
 
-def sharded_sampler(outdir, resume=False, mesh_default=True, swap_mode=None):
+def user_jump_timings(cfg, block, state, gen, dev):
+    """Device ms of config 4's torch-native custom and auxiliary jumps, as
+    ``vmap`` batches them, over the unsharded points (what a rank runs, to
+    keep the one-process draws) and over the rank's block alone (what it
+    would run without that)."""
+    from ptmcmcsampler_torch.proposals.custom import batch_aux, batch_jump
+
+    it = torch.zeros((), dtype=torch.int64, device=dev)
+    whole = block.spread(state.x, ("T", cfg.ndim, "C"))
+    betas = block.spread(state.betas, ("T",), 1.0)
+    out = {}
+    for name, fn in (("custom", batch_jump(small_gauss_jump)),
+                     ("aux", batch_aux(cfg.aux_jumps[0].fn))):
+        def call(x, b, _fn=fn, _name=name):
+            return _fn(gen, x, b, it) if _name == "custom" else _fn(gen, x, x, b, it)
+
+        out[f"user_{name}_unsharded_ms"] = cuda_ms(lambda: call(whole, betas), SHARDED_REPS)
+        out[f"user_{name}_block_ms"] = cuda_ms(lambda: call(state.x, state.betas),
+                                               SHARDED_REPS)
+    return out
+
+
+def sharded_sampler(outdir, resume=False, swap_mode=None, config4=False):
     """``PTSampler`` on the 50-D hierarchy's bound methods at 8 x
-    WIDE_SAMPLER_C with WIDE_SAMPLER_KW's cycle: SHARDED_SAMPLER_ITERS
-    iterations, or with ``resume`` a resume to SHARDED_SAMPLER_RESUME.
-    Returns ``(sampler, seconds)``."""
+    WIDE_SAMPLER_C with WIDE_SAMPLER_KW's cycle (with ``config4``, config
+    4's: CUSTOM_SAMPLER_KW and the user's jumps of ``register_config4``):
+    SHARDED_SAMPLER_ITERS iterations, or with ``resume`` a resume to
+    SHARDED_SAMPLER_RESUME. Returns ``(sampler, seconds)``."""
     from ptmcmcsampler_torch import PTSampler
 
     model = wide_workload("hierarchical")[0]
@@ -4854,47 +5061,52 @@ def sharded_sampler(outdir, resume=False, mesh_default=True, swap_mode=None):
                   logl_grad=model.lnlikefn_grad, logp_grad=model.lnpriorfn_grad,
                   ntemps=T, nchains=WIDE_SAMPLER_C, outDir=outdir, seed=7, verbose=False,
                   resume=resume, swap_mode=swap_mode)
+    if config4:
+        register_config4(s, model)
     torch.cuda.synchronize()
     t0 = time.time()
-    s.sample(np.zeros(model.ndim),
-             SHARDED_SAMPLER_RESUME if resume else SHARDED_SAMPLER_ITERS, **WIDE_SAMPLER_KW)
+    s.sample(np.zeros(model.ndim), SHARDED_SAMPLER_RESUME if resume else SHARDED_SAMPLER_ITERS,
+             **(CUSTOM_SAMPLER_KW if config4 else WIDE_SAMPLER_KW))
     torch.cuda.synchronize()
     return s, time.time() - t0
 
 
 def sharded_worker(argv):
-    """One rank of the sharded cases (``chip_smoke.py --sharded-worker CASE
-    RANK WORLD PORT OUTDIR``, CASE ``run_block`` for every SHARDED_ITERS case
-    or ``sharded_sampler``): joins the ``gloo`` group on this machine, runs
-    on its block on ``cuda:0`` (the ranks share the card), writes
+    """One rank of the sharded cases (``chip_smoke.py --sharded-worker RANK
+    WORLD PORT OUTDIR``): joins the ``gloo`` group on this machine, runs on
+    its block on ``cuda:0`` (the ranks share the card) every SHARDED_ITERS
+    case by ``run_block`` and then each of SHARDED_SAMPLERS (one launch, so
+    the ranks start and join their group once), writes
     ``OUTDIR/rank<r>.json`` (its launches, rates and timings) and, on rank 0,
-    each case's whole final state (``<case>.npz``) or the sampler's files
-    (``OUTDIR/chains``). Loads the kernel libraries the parent built."""
+    each case's whole final state (``<case>.npz``); every rank writes its
+    samplers' files into ``OUTDIR/<sampler>/chains``. Loads the kernel
+    libraries the parent built."""
     from ptmcmcsampler_torch.parallel import initialize_distributed, make_pt_mesh
 
-    label, rank, world, port, outdir = argv[0], int(argv[1]), int(argv[2]), int(argv[3]), argv[4]
+    rank, world, port, outdir = int(argv[0]), int(argv[1]), int(argv[2]), argv[3]
     initialize_distributed(f"tcp://localhost:{port}", world, rank, backend="gloo",
                            timeout=SHARDED_GROUP_TIMEOUT)
     torch.cuda.set_device(0)
-    out = {"rank": rank, "cases": {}}
-    if label == "sharded_sampler":
+    out = {"rank": rank, "cases": {}, "samplers": {}}
+    for case in SHARDED_ITERS:
+        arrays, rate, launches, timings = sharded_run(case, make_pt_mesh(*SHARDED_MESH[case]))
+        if rank == 0:
+            np.savez(os.path.join(outdir, case.replace("/", "_") + ".npz"), **arrays)
+        out["cases"][case] = dict(iters_per_sec=rate, launches=launches, **timings)
+    for label, config4 in SHARDED_SAMPLERS.items():
         wrappers = sharded_wrappers()
         for w in wrappers.values():
             w.launches = 0
-        chains = os.path.join(outdir, "chains")
-        s, wall = sharded_sampler(chains)
-        out["iters_per_sec"] = SHARDED_SAMPLER_ITERS / wall
-        s, wall = sharded_sampler(chains, resume=True)
-        out["resume_iters_per_sec"] = (SHARDED_SAMPLER_RESUME - SHARDED_SAMPLER_ITERS) / wall
-        out.update(launches={n: w.launches for n, w in wrappers.items()},
-                   mesh=[s.mesh.ntemp, s.mesh.nchain], swap_mode=s.config.swap_mode,
-                   owns_cold=bool(s._owns_cold), graphs=s.block_stats.summary()["capture"])
-    else:  # every run_block case, one after the other
-        for case in SHARDED_ITERS:
-            arrays, rate, launches, timings = sharded_run(case, make_pt_mesh(*SHARDED_MESH[case]))
-            if rank == 0:
-                np.savez(os.path.join(outdir, case.replace("/", "_") + ".npz"), **arrays)
-            out["cases"][case] = dict(iters_per_sec=rate, launches=launches, **timings)
+        chains = os.path.join(outdir, label, "chains")
+        s, wall = sharded_sampler(chains, config4=config4)
+        first = SHARDED_SAMPLER_ITERS / wall
+        s, wall = sharded_sampler(chains, resume=True, config4=config4)
+        out["samplers"][label] = dict(
+            iters_per_sec=first,
+            resume_iters_per_sec=(SHARDED_SAMPLER_RESUME - SHARDED_SAMPLER_ITERS) / wall,
+            launches={n: w.launches for n, w in wrappers.items()},
+            mesh=[s.mesh.ntemp, s.mesh.nchain], swap_mode=s.config.swap_mode,
+            owns_cold=bool(s._owns_cold), graphs=s.block_stats.summary()["capture"])
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     # Leave the group together: a process that exits with gloo's threads
@@ -4904,11 +5116,11 @@ def sharded_worker(argv):
     return 0
 
 
-def launch_ranks(label, outdir, world=SHARDED_RANKS):
-    """Run ``world`` ranks of case ``label`` (this script, ``--sharded-worker``)
-    and wait for them: a rank that exits non-zero, or a launch past
-    SHARDED_TIMEOUT, kills the others and fails the phase. Returns each
-    rank's ``rank<r>.json``."""
+def launch_ranks(outdir, world=SHARDED_RANKS):
+    """Run ``world`` ranks of the sharded cases (this script,
+    ``--sharded-worker``) and wait for them: a rank that exits non-zero, or
+    a launch past SHARDED_TIMEOUT, kills the others and fails the phase.
+    Returns each rank's ``rank<r>.json``."""
     import socket
 
     with socket.socket() as sock:
@@ -4918,7 +5130,7 @@ def launch_ranks(label, outdir, world=SHARDED_RANKS):
     for r in range(world):
         logf = open(os.path.join(outdir, f"rank{r}.log"), "w")
         procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--sharded-worker", label, str(r),
+            [sys.executable, os.path.abspath(__file__), "--sharded-worker", str(r),
              str(world), str(port), outdir], stdout=logf, stderr=subprocess.STDOUT), logf))
     deadline = time.time() + SHARDED_TIMEOUT
     try:
@@ -4933,7 +5145,7 @@ def launch_ranks(label, outdir, world=SHARDED_RANKS):
                 r = bad[0] if bad else 0
                 with open(os.path.join(outdir, f"rank{r}.log")) as f:
                     tail = f.read()[-4000:]
-                raise SystemExit(f"{label}: rank {r} "
+                raise SystemExit(f"sharded: rank {r} "
                                  f"{'failed' if bad else 'ran past the time limit'}:\n{tail}")
             if all(code == 0 for code in codes):
                 break
@@ -5012,10 +5224,10 @@ def phase_sharded(card):
     launches_by_case = {}
     root = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
     try:
-        outdir = os.path.join(root, "run_block")
+        outdir = os.path.join(root, "ranks")
         os.makedirs(outdir)
         t0 = time.time()
-        all_ranks = launch_ranks("run_block", outdir)
+        all_ranks = launch_ranks(outdir)
         wall_ranks = time.time() - t0
         for label in SHARDED_ITERS:
             ranks = [r["cases"][label] for r in all_ranks]
@@ -5029,17 +5241,24 @@ def phase_sharded(card):
             line = {
                 "phase": "sharded", "path": label, "mesh": SHARDED_MESH[label],
                 "backend": "gloo", "ranks": SHARDED_RANKS, "device": "cuda:0 shared",
-                "graphs": False, "chains": [T, C], "iters": SHARDED_ITERS[label],
-                "cuts": {"bench.py": [BURN_ITERS, TIMED_ITERS], "here": SHARDED_ITERS[label]},
+                "graphs": False, "ndim": cfg.ndim, "chains": [cfg.ntemps, cfg.nchains],
+                "jump_select": cfg.jump_select, "jumps": list(cfg.jump_names()),
+                "aux_jumps": [j.name for j in cfg.aux_jumps], "iters": SHARDED_ITERS[label],
+                "cuts": {"bench.py": [BURN_ITERS, TIMED_ITERS], "here": SHARDED_ITERS[label],
+                         "chains": [T, C] if cfg.nchains != C else None},
                 "differing_elements": diff,
                 "iters_per_sec_two_ranks": [r["iters_per_sec"] for r in ranks],
                 "iters_per_sec_one_process_eager": rate,
                 **{k: ranks[0][k] for k in ("deo_exchange_ms", "cold_gather_ms",
                                             "cold_gather_50d_ms", "global_draw_ms",
                                             "local_draw_ms")},
+                **{k: v for k, v in ranks[0].items() if k.startswith("user_")},
+                # A rank's part of each rotation slice in none, one or two
+                # runs of its positions (a launch of the slice's kernel each).
+                "slice_runs_by_rank": [r["slice_runs"] for r in ranks],
                 "launches_by_rank": by_rank,
                 "launches_one_process": {w: launches[w] for w in path_kernels},
-                "launch_sec_both_cases": wall_ranks, "card": card_name, "power_limit": power,
+                "launch_sec_all_cases": wall_ranks, "card": card_name, "power_limit": power,
             }
             print(json.dumps(line), flush=True)
             if any(diff.values()):
@@ -5048,45 +5267,49 @@ def phase_sharded(card):
                 raise SystemExit(f"{label}: a rank launched no {by_rank}")
             launches_by_case[label] = by_rank
 
-        outdir = os.path.join(root, "sampler")
-        os.makedirs(outdir)
-        t0 = time.time()
-        ranks = launch_ranks("sharded_sampler", outdir)
-        wall_ranks = time.time() - t0
-        one = os.path.join(root, "one_process")
-        with contextlib.redirect_stdout(sys.stderr):
-            s, wall = sharded_sampler(one, swap_mode="deo")
-            s, wall_resume = sharded_sampler(one, resume=True, swap_mode="deo")
-        diff_files = files_differing(os.path.join(outdir, "chains"), one)
-        loaded, meta, restored = load_checkpoint(
-            os.path.join(outdir, "chains", "checkpoint.npz"), s.config, torch.device(DEVICE))
-        by_rank = {w: [r["launches"][w] for r in ranks] for w in kinds}
-        line = {
-            "phase": "sharded_sampler", "model": "HierarchicalGaussian", "ndim": 50,
-            "chains": [T, WIDE_SAMPLER_C], "mesh": ranks[0]["mesh"], "backend": "gloo",
-            "swap_mode": ranks[0]["swap_mode"], "graphs": ranks[0]["graphs"],
-            "iters": [SHARDED_SAMPLER_ITERS, SHARDED_SAMPLER_RESUME],
-            "cuts": {"bench.py": [BURN_ITERS, TIMED_ITERS],
-                     "here": [SHARDED_SAMPLER_ITERS, SHARDED_SAMPLER_RESUME]},
-            "files_differing": diff_files,
-            "owns_cold": [r["owns_cold"] for r in ranks],
-            "checkpoint_loads": bool(restored and meta["iter"] == SHARDED_SAMPLER_RESUME
-                                     and loaded.it == SHARDED_SAMPLER_RESUME),
-            "iters_per_sec_two_ranks": [r["iters_per_sec"] for r in ranks],
-            "resume_iters_per_sec_two_ranks": [r["resume_iters_per_sec"] for r in ranks],
-            "iters_per_sec_one_process": SHARDED_SAMPLER_ITERS / wall,
-            "resume_iters_per_sec_one_process":
-                (SHARDED_SAMPLER_RESUME - SHARDED_SAMPLER_ITERS) / wall_resume,
-            "launches_by_rank": by_rank, "launch_sec": wall_ranks,
-            "card": card_name, "power_limit": power,
-        }
-        print(json.dumps(line), flush=True)
-        if diff_files or not line["checkpoint_loads"] or line["owns_cold"] != [True, False]:
-            raise SystemExit(f"sharded_sampler: files differ {diff_files}, checkpoint loads "
-                             f"{line['checkpoint_loads']}, owners {line['owns_cold']}")
-        if any(n == 0 for v in by_rank.values() for n in v):
-            raise SystemExit(f"sharded_sampler: a rank launched no {by_rank}")
-        launches_by_case["sharded_sampler"] = by_rank
+        for label, config4 in SHARDED_SAMPLERS.items():
+            ranks = [r["samplers"][label] for r in all_ranks]
+            one = os.path.join(root, label + "_one_process")
+            with contextlib.redirect_stdout(sys.stderr):
+                s, wall = sharded_sampler(one, swap_mode="deo", config4=config4)
+                s, wall_resume = sharded_sampler(one, resume=True, swap_mode="deo",
+                                                 config4=config4)
+            chains = os.path.join(outdir, label, "chains")
+            diff_files = files_differing(chains, one)
+            loaded, meta, restored = load_checkpoint(
+                os.path.join(chains, "checkpoint.npz"), s.config, torch.device(DEVICE))
+            ran = {j.kind for j in s.config.jumps}
+            path_kernels = [w for w, k in kinds.items() if k in ran]
+            by_rank = {w: [r["launches"][w] for r in ranks] for w in path_kernels}
+            line = {
+                "phase": label, "model": "HierarchicalGaussian", "ndim": 50,
+                "chains": [T, WIDE_SAMPLER_C], "mesh": ranks[0]["mesh"], "backend": "gloo",
+                "swap_mode": ranks[0]["swap_mode"], "graphs": ranks[0]["graphs"],
+                "jumps": list(s.config.jump_names()),
+                "aux_jumps": [j.name for j in s.config.aux_jumps],
+                "protocols": {j.name: j.protocol for j in s._custom_jumps + s._aux_jumps},
+                "iters": [SHARDED_SAMPLER_ITERS, SHARDED_SAMPLER_RESUME],
+                "cuts": {"bench.py": [BURN_ITERS, TIMED_ITERS],
+                         "here": [SHARDED_SAMPLER_ITERS, SHARDED_SAMPLER_RESUME]},
+                "files_differing": diff_files,
+                "owns_cold": [r["owns_cold"] for r in ranks],
+                "checkpoint_loads": bool(restored and meta["iter"] == SHARDED_SAMPLER_RESUME
+                                         and loaded.it == SHARDED_SAMPLER_RESUME),
+                "iters_per_sec_two_ranks": [r["iters_per_sec"] for r in ranks],
+                "resume_iters_per_sec_two_ranks": [r["resume_iters_per_sec"] for r in ranks],
+                "iters_per_sec_one_process": SHARDED_SAMPLER_ITERS / wall,
+                "resume_iters_per_sec_one_process":
+                    (SHARDED_SAMPLER_RESUME - SHARDED_SAMPLER_ITERS) / wall_resume,
+                "launches_by_rank": by_rank, "launch_sec_all_cases": wall_ranks,
+                "card": card_name, "power_limit": power,
+            }
+            print(json.dumps(line), flush=True)
+            if diff_files or not line["checkpoint_loads"] or line["owns_cold"] != [True, False]:
+                raise SystemExit(f"{label}: files differ {diff_files}, checkpoint loads "
+                                 f"{line['checkpoint_loads']}, owners {line['owns_cold']}")
+            if not by_rank or any(n == 0 for v in by_rank.values() for n in v):
+                raise SystemExit(f"{label}: a rank launched no {by_rank}")
+            launches_by_case[label] = by_rank
         return launches_by_case
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -5097,6 +5320,7 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from ptmcmcsampler_torch.config import KIND_CHEES, KIND_HMC, KIND_NUTS
+    from ptmcmcsampler_torch.io import native
     from ptmcmcsampler_torch.models import CurvedLikelihood
     from ptmcmcsampler_torch.ops import build, user
     from ptmcmcsampler_torch.ops.chees import chees_step, chees_trajectories
@@ -5118,6 +5342,9 @@ def main():
     build_sec = time.time() - t0
     for name, text in logs.items():
         log(f"built {name} in {build_sec:.1f}s:\n{text.strip()}")
+    t0 = time.time()
+    log(f"built the native chain-row formatter {native.build().name} with {native.compiler()}")
+    chainio_build_sec = time.time() - t0
 
     def kernel_log(source):  # a kernel's build log and its user units'
         return logs.get(source, "") + "".join(
@@ -5195,6 +5422,7 @@ def main():
                                 for name in WIDE_NUTS_ITERS))
     result, wide_sampler_launches = phase_wide_sampler(card, wrappers)
     print(json.dumps(result), flush=True)
+    phase_chainio(card, chainio_build_sec)
     for items, wrapper in ((wide, "chees_step"), (wide_nuts, "nuts_trees"),
                            (wide_hmc, "hmc_step")):
         for item in items:
@@ -5282,7 +5510,8 @@ def main():
     general["launches_by_path"] = {"nuts_general/curved": general["launches"],
                                    "trajectory_sampler": traj_launches["capture"]}
 
-    # ROADMAP A12: two ranks sharing the card, each case against one process.
+    # ROADMAP A12 and A12b: two ranks sharing the card, each case against
+    # one process.
     sharded = phase_sharded(card)
     kernels[0]["launches_by_path"]["sharded/curved"] = sharded["sharded/curved"]["chees_step"]
     for k, wrapper in ((kernels[1], "nuts_trees"), (kernels[2], "hmc_step")):
@@ -5292,8 +5521,9 @@ def main():
                            (wide_hmc, "hmc_step")):
         for item in items:
             if item["workload"] == "hierarchical":
-                item["launches_by_path"]["sharded_sampler"] = \
-                    sharded["sharded_sampler"][wrapper]
+                item["launches_by_path"].update(
+                    {case: by_rank[wrapper] for case, by_rank in sharded.items()
+                     if case not in ("sharded/curved", "sharded/nuts") and wrapper in by_rank})
     kernels[1]["general"] = general
     kernels[0]["wide"] = wide
     kernels[1]["wide"] = list(wide_nuts)

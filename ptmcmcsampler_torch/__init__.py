@@ -10,6 +10,7 @@ model into the CUDA kernels.
 
 from .config import JumpSpec, SamplerConfig, build_default_jumps
 from .kernel import build_step
+from .ladder import ladder_betas, temperature_ladder
 from .ops.user import register_functor
 from .sampler import PTSampler
 from .state import init_state, state_from_numpy, state_to_numpy
@@ -21,7 +22,9 @@ __all__ = [
     "build_default_jumps",
     "build_step",
     "init_state",
+    "ladder_betas",
     "register_functor",
     "state_from_numpy",
     "state_to_numpy",
+    "temperature_ladder",
 ]

@@ -1,5 +1,5 @@
 """Reference-compatible chain-file output (host numpy; a copy of the JAX
-package's ``io/chainfile.py`` without its native row formatter).
+package's ``io/chainfile.py``).
 
 File layout parity with ``_writeToFile`` (PTMCMCSampler.py:722-766):
   * ``chain_<temp>.txt`` (or ``chain_hot.txt`` for the prior-sampling chain,
@@ -13,8 +13,10 @@ File layout parity with ``_writeToFile`` (PTMCMCSampler.py:722-766):
   * ``chain_all_<temp>.bin`` + ``.json``: every chain of a written
     temperature, raw float32 rows (the batched sampler's extension).
 
-Rows are formatted with numpy's ``%22.22f``; the JAX package's C++ formatter
-has no counterpart here yet.
+Rows are formatted by the port's copy of the JAX package's C++ formatter
+(``io/native.py``, ``csrc/chainio.cpp``), built at first use, with no
+fallback; :func:`format_rows_plain` is its plain version, Python's
+``%22.22f``, which writes the same bytes (a NaN as ``nan`` in both).
 """
 
 from __future__ import annotations
@@ -22,8 +24,11 @@ from __future__ import annotations
 import glob
 import json
 import os
+import time
 
 import numpy as np
+
+from . import native
 
 
 def chain_filename(outdir, temp, hot=False):
@@ -33,7 +38,14 @@ def chain_filename(outdir, temp, hot=False):
 
 
 def format_rows(params, lnprob, lnlike, accept_rate, pt_accept_rate):
-    """Format rows as the reference writes them (PTMCMCSampler.py:741-745)."""
+    """Format rows as the reference writes them (PTMCMCSampler.py:741-745),
+    with the native formatter."""
+    return native.format_rows(params, lnprob, lnlike, accept_rate, pt_accept_rate)
+
+
+def format_rows_plain(params, lnprob, lnlike, accept_rate, pt_accept_rate):
+    """:func:`format_rows` in Python (the reference's own formatting): the
+    native formatter's plain version."""
     n, ndim = params.shape
     lines = []
     for i in range(n):
@@ -49,8 +61,12 @@ def format_rows(params, lnprob, lnlike, accept_rate, pt_accept_rate):
 class ChainWriter:
     """Per-temperature chain files + jump statistics for one sampler run."""
 
-    def __init__(self, outdir, ladder, hot_chain=False, write_hot_chains=False, resume=False):
+    def __init__(self, outdir, ladder, hot_chain=False, write_hot_chains=False, resume=False,
+                 seconds=None):
         self.outdir = outdir
+        # Host seconds by part, summed over calls: "format" (the rows'
+        # text), "write" (the chain files), "sidecar" (the all-chain rows).
+        self.seconds = {} if seconds is None else seconds
         self.ladder = np.asarray(ladder, dtype=np.float64)
         self.hot_chain = hot_chain
         self.write_hot_chains = write_hot_chains
@@ -83,6 +99,7 @@ class ChainWriter:
     def append(self, i, params, lnprob, lnlike, accept_rate, pt_accept_rate):
         if not self._writes_temp(i):
             return
+        t0 = time.perf_counter()
         text = format_rows(
             np.asarray(params, np.float64),
             np.asarray(lnprob, np.float64),
@@ -90,8 +107,14 @@ class ChainWriter:
             np.asarray(accept_rate, np.float64),
             np.asarray(pt_accept_rate, np.float64),
         )
+        t1 = time.perf_counter()
         with open(self.fnames[i], "a") as f:
             f.write(text)
+        self._add("format", t1 - t0)
+        self._add("write", time.perf_counter() - t1)
+
+    def _add(self, part, sec):
+        self.seconds[part] = self.seconds.get(part, 0.0) + sec
 
     # ---- all-chain binary output (batched-sampler extension) ----------
     #
@@ -145,6 +168,7 @@ class ChainWriter:
         """
         if not self._writes_temp(i):
             return
+        t0 = time.perf_counter()
         binf, metaf = self._all_paths(i, cstart)
         if not os.path.isfile(metaf):  # e.g. resuming a pre-existing run dir
             meta = {"nchains": int(block.shape[1]), "ndim": int(block.shape[2]),
@@ -156,6 +180,7 @@ class ChainWriter:
                 json.dump(meta, f)
         with open(binf, "ab") as f:
             f.write(np.ascontiguousarray(block, dtype=np.float32).tobytes())
+        self._add("sidecar", time.perf_counter() - t0)
 
     def _part_metas(self, i):
         """Metadata for every part sidecar of temperature ``i`` (may be [])."""

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -37,11 +38,16 @@ _FORMAT_KEY = "__format__"
 _FORMAT = "ptmcmc-ckpt-v2-pathkeys"
 
 
-def save_checkpoint(path, state, meta=None, key=None):
+def save_checkpoint(path, state, meta=None, key=None, seconds=None):
     """Write ``state`` to ``path`` (and ``meta`` to ``path + ".json"``).
 
     ``key``: the two uint32 words of the ``key`` leaf (zeros if None).
+    ``seconds``: a dict that the host seconds of the parts are added to:
+    ``"checkpoint_arrays"`` (the state's arrays on the host),
+    ``"checkpoint_savez"`` (``np.savez`` and the rename) and
+    ``"checkpoint_meta"`` (the sidecar).
     """
+    t0 = time.perf_counter()
     arrays = {_FORMAT_KEY: np.asarray(_FORMAT), **state_to_numpy(state)}
     arrays["key"] = np.zeros(2, np.uint32) if key is None else np.asarray(key, np.uint32)
     arrays["torch/rng"] = state.rng.get_state().numpy()
@@ -49,12 +55,18 @@ def save_checkpoint(path, state, meta=None, key=None):
     # The generators' device: the sampler checkpoints a host copy of a state
     # on the card, whose generators stay the card's.
     arrays["torch/device"] = np.asarray(state.rng.device.type)
+    t1 = time.perf_counter()
     tmp = path + ".tmp.npz"
     np.savez(tmp, **arrays)
     os.replace(tmp, path)
+    t2 = time.perf_counter()
     if meta is not None:
         with open(path + ".json", "w") as f:
             json.dump(meta, f)
+    if seconds is not None:
+        for part, sec in (("checkpoint_arrays", t1 - t0), ("checkpoint_savez", t2 - t1),
+                          ("checkpoint_meta", time.perf_counter() - t2)):
+            seconds[part] = seconds.get(part, 0.0) + sec
 
 
 def load_checkpoint(path, config, device="cuda", seed=0):

@@ -48,10 +48,10 @@ import numpy as np
 import torch
 
 from . import adaptation, swaps, utils
-from .config import KIND_CHEES, KIND_CUSTOM, KIND_DE, KIND_NUTS, KIND_PRIOR, SamplerConfig
+from .config import KIND_CHEES, KIND_CUSTOM, KIND_DE, KIND_NUTS, SamplerConfig
 from .ladder import adapt_ladder_betas
 from .ops import chees as ops_chees, hmc as ops_hmc, nuts as ops_nuts, user
-from .parallel.mesh import gather, gather_many
+from .parallel.mesh import gather, gather_many, gather_slice
 from .proposals.base import ProposalContext
 from .proposals.custom import make_aux_chain
 from .proposals.cycle import (activation_phase, activation_thresholds, build_jump_branches,
@@ -201,7 +201,7 @@ def rotation_offset(rng, c, device):
     return torch.randint(0, c, (), generator=rng, device=device)
 
 
-def make_per_chain(config: SamplerConfig, branches, device):
+def make_per_chain(config: SamplerConfig, branches, device, block=None):
     """``propose(rng, x, betas, it, ctx, ss) -> (q, qxy, kinds [T, C] long,
     ss)`` for ``jump_select="per_chain"``, each chain with its own kind.
 
@@ -217,8 +217,23 @@ def make_per_chain(config: SamplerConfig, branches, device):
     chain), every active branch runs on the whole batch and each chain takes
     its kind's results; ``chees_*`` take the ChEES update in every row where
     a chain ran ChEES.
+
+    On a sharded ``block`` (``utils.Block``, a rank's rungs and chains; the
+    step then runs eagerly) every draw is the unsharded run's. Stacked: the
+    kinds' uniforms are the rank's block of the unsharded draw, and the
+    ChEES rows' "any chain ran ChEES" is taken over the gathered kinds.
+    Rotation (:func:`_sharded_rotation`): the offset is read on the host,
+    and each branch runs on the rank's part of its slice, one or two runs of
+    slice positions (``Block.slice_pieces``), each a ``Block.piece`` of the
+    slice; a slice's draws are repeated for a second run from the
+    generator's state before the first (so both keep the slice's unsharded
+    draws, and the generator ends where one call leaves it), and a rank
+    holding none of a slice runs its branch on no chains, for the draws.
+    ChEES's per-rung update gathers the slice's trajectories from every
+    rank (``parallel.mesh.gather_slice``).
     """
     t, c = config.ntemps, config.nchains
+    block = block or utils.Block(t, c)
     nphase = len(activation_thresholds(config)) + 1
     chees = [j for j, spec in enumerate(config.jumps) if spec.kind == KIND_CHEES]
     chees_fields = [f for f in SS_FIELDS if f.startswith("chees_")]
@@ -261,6 +276,8 @@ def make_per_chain(config: SamplerConfig, branches, device):
             qxy = torch.cat(qxys, 1).index_select(1, slot_of)
             return q, qxy, slot_kind.index_select(0, slot_of).expand(t, c), new_ss
 
+        if block.sharded:
+            return _sharded_rotation(config, branches, block, layouts, chees, chees_fields)
         return rotation
 
     thresholds = activation_thresholds(config)
@@ -274,8 +291,8 @@ def make_per_chain(config: SamplerConfig, branches, device):
 
     def stacked(rng, x, betas, it, ctx, ss):
         active, cdf = phases[activation_phase(config, it)]
-        u = torch.rand((t * c,), generator=rng, device=x.device)
-        kinds = torch.searchsorted(cdf, u, right=True).view(t, c)
+        u = block.draw(torch.rand, rng, ("T", "C"), x.device)
+        kinds = torch.searchsorted(cdf, u.reshape(-1), right=True).view(u.shape)
         q = qxy = None
         new_ss = dict(ss)
         for j in active:
@@ -283,7 +300,11 @@ def make_per_chain(config: SamplerConfig, branches, device):
             sel = kinds == j
             q = q_j if q is None else torch.where(sel[:, None, :], q_j, q)
             qxy = qxy_j if qxy is None else torch.where(sel, qxy_j, qxy)
-            rows = sel.any(1, keepdim=True)
+            if j in chees and block.sharded:  # a ChEES chain in the row on any rank
+                rows = block.take(gather(block, sel, ("T", "C")).any(1, keepdim=True),
+                                  ("T", 1))
+            else:
+                rows = sel.any(1, keepdim=True)
             for f in ss:
                 if new_j[f] is not ss[f]:
                     new_ss[f] = torch.where(rows if f in chees_fields else sel, new_j[f],
@@ -291,6 +312,76 @@ def make_per_chain(config: SamplerConfig, branches, device):
         return q, qxy, kinds, new_ss
 
     return stacked
+
+
+def _sharded_rotation(config, branches, block, layouts, chees, chees_fields):
+    """The rotation of :func:`make_per_chain` on a rank's ``block`` of a
+    sharded run."""
+    c = config.nchains
+    tl, cl = block.t1 - block.t0, block.c1 - block.c0
+    chains = torch.arange(block.c0, block.c1)
+
+    def rotation(rng, x, betas, it, ctx, ss):
+        counts, offs, slot_kind = layouts[activation_phase(config, it)]
+        # A sharded step runs eagerly, so the offset may be read on the host.
+        r = int(rotation_offset(rng, c, x.device))
+        q, qxy = torch.empty_like(x), x.new_empty((tl, cl))
+        new_ss, ches = dict(ss), None
+        for j, n in enumerate(counts):
+            if n == 0:
+                continue
+            start = (offs[j] - r) % c  # the chain in the slice's first slot
+            runs = block.slice_pieces(start, n) or [(0, 0)]
+            before = rng.get_state() if len(runs) > 1 else None
+            stats, changed = [], {}
+            for i, (k0, k1) in enumerate(runs):
+                if i:
+                    rng.set_state(before)
+                local = ((start + torch.arange(k0, k1)) % c - block.c0).to(x.device)
+                ctx_p = dataclasses.replace(ctx, block=block.piece(n, k0, k1))
+                ss_p = {f: v.index_select(1, local) for f, v in ss.items()}
+                x_p = x.index_select(2, local)
+                if j in chees:
+                    q_p, qxy_p, st = branches[j].local(rng, x_p, betas, ctx_p, ss_p)
+                    stats.append((ss_p, st))
+                    new_p = ss_p
+                else:
+                    q_p, qxy_p, new_p = branches[j](rng, x_p, betas, it, ctx_p, ss_p)
+                q.index_copy_(2, local, q_p)
+                qxy.index_copy_(1, local, qxy_p)
+                for f in ss:
+                    if new_p[f] is not ss_p[f]:
+                        changed.setdefault(f, []).append((local, new_p[f]))
+            for f, parts in changed.items():
+                new_ss[f] = new_ss[f].clone()
+                for local, v in parts:
+                    new_ss[f].index_copy_(1, local, v)
+            if j in chees:
+                ches = _chees_slice_update(branches[j], block, it, stats, start, n, chees_fields)
+        if ches is not None:
+            new_ss.update({f: block.take(ches[f][:, :1], ("T", 1)).expand(tl, cl).contiguous()
+                           for f in chees_fields})
+        kinds = slot_kind.index_select(0, (chains.to(x.device) + r) % c).expand(tl, cl)
+        return q, qxy, kinds, new_ss
+
+    return rotation
+
+
+def _chees_slice_update(branch, block, it, stats, start, n, fields):
+    """ChEES's per-rung update of a rotation slice on a sharded ``block``:
+    the slice's step-size fields and trajectories gathered from every rank's
+    runs of it (``stats``, a run's ``(ss, (q0, z1, r1, alpha, u))`` each; a
+    rank with none of the slice gives a run of no chains), the unsharded
+    update on them. Returns the update's ``{field: [T, n]}``."""
+    cat = [torch.cat(a, -1) for a in zip(*(st for _, st in stats))]
+    taken = [torch.cat([ss[f] for ss, _ in stats], 1) for f in fields]
+    tc = ("T", "C")
+    xd = ("T", cat[0].shape[1], "C")
+    got = gather_slice(block, [(a, tc) for a in taken] + [(a, xd) for a in cat[:3]]
+                       + [(a, tc) for a in cat[3:]], start, n)
+    whole = dict(zip(fields, got))
+    new = branch.adapt(it, whole, *got[len(fields):])
+    return {f: new[f] for f in fields}
 
 
 def _wrapper_calls():
@@ -401,13 +492,9 @@ class BlockStats:
 
 
 def refuse_on_mesh(config: SamplerConfig):
-    """Why a sharded run cannot run ``config``, or None: the combinations
-    the JAX package's mesh tests do not drive and the port leaves for
-    ROADMAP A12b."""
-    if config.jump_select == "per_chain":
-        return 'jump_select="per_chain"'
-    if config.aux_jumps or any(j.kind in (KIND_CUSTOM, KIND_PRIOR) for j in config.jumps):
-        return "the user's custom, prior-draw and auxiliary jumps"
+    """Why a sharded run cannot run ``config``, or None: the NUTS trajectory
+    capture, which the JAX package's ``PTSampler`` refuses in a
+    multi-process run too."""
     if config.nuts_trajectory:
         return "the NUTS trajectory capture (trajectoryDir)"
     return None
@@ -441,7 +528,8 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True, mesh=N
     if block.sharded:
         why = refuse_on_mesh(config)
         if why is not None:
-            raise NotImplementedError(f"{why} on a sharded mesh is not ported yet (ROADMAP A12b)")
+            raise NotImplementedError(f"{why} is not supported on a sharded mesh; capture "
+                                      "trajectories in a single-process run")
     temp_sharded = block.sharded and block.mesh.ntemp > 1
     deo_sharded = swaps.make_sharded_deo(block) if temp_sharded else None
     # The NUTS trajectory capture of chain (T0, C0): fixed buffers the NUTS
@@ -452,7 +540,7 @@ def build_step(config: SamplerConfig, model, device="cuda", capture=True, mesh=N
     branches = build_jump_branches(config, model, device, traj_cap)
     per_chain = None
     if config.jump_select == "per_chain":
-        per_chain = make_per_chain(config, branches, device)
+        per_chain = make_per_chain(config, branches, device, block)
         jump_index = torch.arange(config.njumps, device=device)[:, None, None]
     aux_chain = make_aux_chain(config)
     # The iteration number on the device (ctx.iteration) where a user's

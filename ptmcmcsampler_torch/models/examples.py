@@ -284,9 +284,37 @@ class IntervalTransformedGaussian(_Wide):
         e = torch.exp(p)
         return s, x, e
 
+    def _jac(self, p, e):
+        """``log(b - a) + p - 2 log1p(e)`` elementwise, ``e = exp(p)``."""
+        return (self._lw + p) - 2.0 * torch.log1p(e)
+
+    @staticmethod
+    def _as_tensor(p):
+        """``(tensor, back)``: a numpy ``p`` as an f32 tensor (so that
+        ``exp`` overflows where the model's does), and the function that
+        returns a result in ``p``'s kind."""
+        if isinstance(p, torch.Tensor):
+            return p, lambda r: r
+        return torch.as_tensor(np.asarray(p, np.float32)), lambda r: r.numpy()
+
+    def backward(self, p):
+        """The box coordinates ``(b - a) sigmoid(p) + a`` of logit
+        coordinates ``p`` (the JAX model's ``backward``): elementwise, so a
+        point ``[D]`` or any batch; numpy in, numpy out."""
+        t, back = self._as_tensor(p)
+        return back(self._terms(t)[1])
+
+    def _log_jacobian(self, p):
+        """The sum over ``D`` of ``log(b - a) + p - 2 log1p(exp(p))`` (the
+        JAX model's ``_log_jacobian``): a point ``[D]`` gives a scalar, a
+        batch ``[..., D, C]`` one value a chain ``[..., C]``."""
+        t, back = self._as_tensor(p)
+        jac = self._jac(t, self._terms(t)[2])
+        return back(torch.sum(jac) if t.dim() == 1 else torch.sum(jac, dim=-2))
+
     def _ll_grad(self, p):
         s, x, e = self._terms(p)
-        jac = (self._lw + p) - 2.0 * torch.log1p(e)
+        jac = self._jac(p, e)
         ll = (-0.5 * rsum(x * x) - self._c0) + rsum(jac)
         g = -x * self._w * (s * (1.0 - s)) + (1.0 + (-2.0 * torch.reciprocal(e + 1.0)) * e)
         return ll, g
@@ -297,7 +325,7 @@ class IntervalTransformedGaussian(_Wide):
     def lnlike(self, p):
         """``p [..., D, C] -> [..., C]`` (``torch.sum``)."""
         _, x, e = self._terms(p)
-        jac = (self._lw + p) - 2.0 * torch.log1p(e)
+        jac = self._jac(p, e)
         return (-0.5 * torch.sum(x * x, dim=-2) - self._c0) + torch.sum(jac, dim=-2)
 
     def lnprior(self, p):

@@ -237,6 +237,46 @@ def gather_many(block, arrays):
     return outs
 
 
+def gather_slice(block, arrays, start, n):
+    """The unsharded ``[T, ..., n]`` arrays of a ``per_chain`` rotation
+    slice (position ``k`` holds chain ``(start + k) % C``) from every rank's
+    part of it: each ``(a, dims)`` of ``arrays`` (one dtype; ``dims`` has
+    ``"T"`` first and ``"C"`` last) holds this rank's rungs and the slice
+    positions of its ``Block.slice_pieces``, in their order. A collective
+    every rank calls, with its part (possibly of no chains): one
+    ``all_gather`` of the parts packed end to end, padded to the largest."""
+    mesh = block.mesh
+    parts = []  # by rank: (t0, t1, runs)
+    for r in range(mesh.size):
+        t0, t1, c0, c1 = mesh.bounds(r, block.ntemps, block.nchains)
+        blk = Block(block.ntemps, block.nchains, t0, t1, c0, c1)
+        parts.append((t0, t1, blk.slice_pieces(start, n)))
+
+    def numel(a, r):
+        t0, t1, runs = parts[r]
+        return int(np.prod(a.shape[1:-1])) * (t1 - t0) * sum(k1 - k0 for k0, k1 in runs)
+
+    sizes = [sum(numel(a, r) for a, _ in arrays) for r in range(mesh.size)]
+    flat = torch.cat([a.reshape(-1) for a, _ in arrays])
+    flat = torch.cat([flat, flat.new_zeros(max(sizes) - flat.numel())])
+    got = all_gather(flat)
+    outs = [torch.empty((block.ntemps,) + tuple(a.shape[1:-1]) + (n,), dtype=a.dtype,
+                        device=a.device) for a, _ in arrays]
+    for r, part in enumerate(got):
+        t0, t1, runs = parts[r]
+        width = sum(k1 - k0 for k0, k1 in runs)
+        offset = 0
+        for (a, _), out in zip(arrays, outs):
+            m = numel(a, r)
+            piece = part[offset:offset + m].view((t1 - t0,) + tuple(a.shape[1:-1]) + (width,))
+            offset += m
+            k = 0
+            for k0, k1 in runs:
+                out[t0:t1, ..., k0:k1] = piece[..., k:k + k1 - k0]
+                k += k1 - k0
+    return outs
+
+
 def any_rank(flag: bool) -> bool:
     """Whether ``flag`` holds on any rank (the reference's ``comm.bcast`` of
     the stop flag): a collective every rank calls."""

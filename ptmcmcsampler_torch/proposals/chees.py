@@ -41,6 +41,13 @@ def make_chees(config, model):
     eps0 = config.hmc_stepsize
     mu0 = float(np.log(np.float32(10.0) * np.float32(eps0)))  # log(10 eps0), in f32
 
+    def step(x, betas, ctx, ss, r0, u):
+        """The per-chain part: ``(x1, q0, z1, r1, qxy, alpha)``."""
+        return chees_step(
+            x, r0, u, betas, ss["chees_eps"], ss["chees_tlen"], eps0, max_steps,
+            ctx.chol.contiguous(), ctx.chol_inv.contiguous(), model, ctx.structure,
+        )
+
     def core(x, betas, it, ctx, ss, r0, u):
         """Deterministic ChEES step: ``r0 [T, D, C]`` standard-normal momenta
         and ``u [T, C]`` jitter in ``[1e-3, 1)``. Returns ``(q, qxy, ss)``.
@@ -48,10 +55,7 @@ def make_chees(config, model):
         over the chains run on the gathered rows (``parallel.mesh.gather_many``),
         the unsharded function on the unsharded arrays, and the batch keeps
         its block of the result."""
-        x1, q0, z1, r1, qxy, alpha = chees_step(
-            x, r0, u, betas, ss["chees_eps"], ss["chees_tlen"], eps0, max_steps,
-            ctx.chol.contiguous(), ctx.chol_inv.contiguous(), model, ctx.structure,
-        )
+        x1, q0, z1, r1, qxy, alpha = step(x, betas, ctx, ss, r0, u)
         blk = block_of(ctx, x)
         if not blk.sharded:
             return x1, qxy, adapt(it, ss, q0, z1, r1, alpha, u)
@@ -131,11 +135,30 @@ def make_chees(config, model):
         new_ss["chees_tlen"] = rep(new_tlen)
         return new_ss
 
-    def chees(rng, x, betas, it, ctx, ss):
-        blk = block_of(ctx, x)
+    def draws(rng, x, blk):
+        """The momenta ``r0 [T, D, C]`` and jitter ``u [T, C]`` of block ``blk``."""
         r0 = blk.draw(torch.randn, rng, ("T", x.shape[1], "C"), x.device)
         u = blk.draw(torch.rand, rng, ("T", "C"), x.device) * (1.0 - 1e-3) + 1e-3
-        return core(x, betas, it, ctx, ss, r0, u)
+        return r0, u
+
+    def chees(rng, x, betas, it, ctx, ss):
+        return core(x, betas, it, ctx, ss, *draws(rng, x, block_of(ctx, x)))
+
+    def local(rng, x, betas, ctx, ss):
+        """The per-chain part of a ChEES step on a piece of a ``per_chain``
+        rotation slice (``ctx.block``, ``utils.Block.piece``), whose
+        adaptation needs the slice's chains on every rank: ``(q, qxy,
+        stats)``, ``stats`` the ``(q0, z1, r1, alpha, u)`` that
+        :func:`adapt` reads. A piece of no chains only draws."""
+        r0, u = draws(rng, x, block_of(ctx, x))
+        if x.shape[2] == 0:
+            t, d = x.shape[:2]
+            empty = x.new_empty((t, 0))
+            return x, empty, (x, x, x, empty, empty)
+        x1, q0, z1, r1, qxy, alpha = step(x, betas, ctx, ss, r0, u)
+        return x1, qxy, (q0, z1, r1, alpha, u)
 
     chees.core = core
+    chees.local = local
+    chees.adapt = adapt
     return chees

@@ -35,12 +35,25 @@ Python number. Results are f32 on ``x``'s device.
 The prior draw's Hastings term is ``lnprior(x) - lnprior(q)`` from the
 model's batched ``lnprior``: exact when ``draw`` samples that density (up
 to a constant), which the caller asserts by registering the draw.
+
+On a sharded batch (``ctx.block``, ``utils.Block``) a rank draws what the
+unsharded run draws for its chains. ``vmap``'s draws are one batch over
+every point of the unsharded ``[T * C]`` in point order, so under
+``"torch"`` each rank evaluates the callable over the unsharded points
+(the other ranks' points filled with zeros, their betas with ones) and keeps
+its block's results: every rank runs the whole batch of the user's callable.
+Under ``"host"`` a rank calls the user's callable for its own chains only,
+the prior draw with its chains' seeds of the unsharded draw of seeds; a host
+jump that draws from numpy's global state draws a stream of its own on each
+rank, as the reference's MPI ranks do.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..utils import block_of
 
 
 def _points(x):
@@ -121,6 +134,8 @@ def batch_draw(draw):
 def _host_pairs(outs, like, t, c):
     """Host ``(q, log_qxy)`` pairs, one a chain -> f32 ``(q, log_qxy)`` on
     ``like``'s device."""
+    if not outs:  # no chains (a rank's empty part of a per_chain slice)
+        return like.clone(), like.new_zeros((t, c))
     q = np.array([np.asarray(o[0], np.float64) for o in outs]).astype(np.float32)
     lq = np.array([np.asarray(o[1], np.float64).reshape(()) for o in outs]).astype(np.float32)
     q = torch.as_tensor(q, device=like.device)
@@ -156,13 +171,17 @@ def host_aux(aux):
 
 
 def host_draw(draw):
-    """``batched(rng, x)``: ``draw(np.random.default_rng(seed))`` a chain,
-    each seed drawn from ``rng`` (as the JAX package seeds its callback from
-    the chain's key)."""
+    """``batched(rng, x, block=None)``: ``draw(np.random.default_rng(seed))``
+    a chain, each seed drawn from ``rng`` (as the JAX package seeds its
+    callback from the chain's key); on a ``block`` (``utils.Block``) of the
+    unsharded draw of seeds, for the block's chains only."""
 
-    def batched(rng, x):
+    def batched(rng, x, block=None):
         t, d, c = x.shape
-        seeds = torch.randint(0, 2**31 - 1, (t * c,), generator=rng, device=x.device)
+        block = block_of(None, x) if block is None else block
+        seeds = block.draw(torch.randint, rng, ("T", "C"), x.device, 0, 2**31 - 1).reshape(-1)
+        if seeds.numel() == 0:
+            return x.clone()
         q = np.array([np.asarray(draw(np.random.default_rng(int(s))), np.float64).reshape(d)
                       for s in seeds.cpu().numpy()]).astype(np.float32)
         return _chains(torch.as_tensor(q, device=x.device), t, c)
@@ -198,8 +217,10 @@ def make_custom(spec):
         jump = batch_jump(spec.fn)
 
         def custom(rng, x, betas, it, ctx, ss):
-            q, qxy = jump(rng, x, betas, ctx.iteration)
-            return q, qxy, ss
+            blk, xd = block_of(ctx, x), ("T", x.shape[1], "C")
+            q, qxy = jump(rng, blk.spread(x, xd), blk.spread(betas, ("T",), 1.0),
+                          ctx.iteration)
+            return blk.take(q, xd), blk.take(qxy, ("T", "C")), ss
 
     return custom
 
@@ -207,10 +228,20 @@ def make_custom(spec):
 def make_prior_draw(spec, model):
     """The branch of a prior-draw jump ``spec``: ``q ~ draw``, ``qxy =
     lnprior(x) - lnprior(q)`` (the JAX package's ``KIND_PRIOR``)."""
-    draw = host_draw(spec.fn) if spec.protocol == "host" else batch_draw(spec.fn)
+    if spec.protocol == "host":
+        draw = host_draw(spec.fn)
+
+        def propose(rng, x, blk):
+            return draw(rng, x, blk)
+    else:
+        draw = batch_draw(spec.fn)
+
+        def propose(rng, x, blk):
+            xd = ("T", x.shape[1], "C")
+            return blk.take(draw(rng, blk.spread(x, xd)), xd)
 
     def prior_draw(rng, x, betas, it, ctx, ss):
-        q = draw(rng, x)
+        q = propose(rng, x, block_of(ctx, x))
         return q, model.lnprior(x) - model.lnprior(q), ss
 
     return prior_draw
@@ -228,9 +259,15 @@ def make_aux_chain(config):
               else batch_aux(spec.fn)) for spec in config.aux_jumps]
 
     def apply_aux(rng, x, q, qxy, betas, it, ctx):
+        blk, xd = block_of(ctx, x), ("T", x.shape[1], "C")
         total = torch.zeros_like(qxy)
         for protocol, aux in chain:
-            q, lq = aux(rng, x, q, betas, it if protocol == "host" else ctx.iteration)
+            if protocol == "host":
+                q, lq = aux(rng, x, q, betas, it)
+            else:
+                q, lq = aux(rng, blk.spread(x, xd), blk.spread(q, xd),
+                            blk.spread(betas, ("T",), 1.0), ctx.iteration)
+                q, lq = blk.take(q, xd), blk.take(lq, ("T", "C"))
             total = total + lq
         return q, qxy + total
 

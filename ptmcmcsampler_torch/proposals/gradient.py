@@ -113,7 +113,10 @@ def make_hmc(config, model):
         ``(q, qxy)``: the end point mapped back to the original space and
         ``(joint1 - joint0) - (logp1 - logp0)``, so the outer MH ratio equals
         the Hamiltonian error. A sharded batch (``ctx.block``) draws under
-        its chains' unsharded counter words."""
+        its chains' unsharded counter words; a batch of no chains launches
+        nothing."""
+        if x.shape[2] == 0:
+            return x, x.new_empty((x.shape[0], 0))
         blk = block_of(ctx, x)
         return hmc_step(x, betas, draws, ctx.chol.contiguous(), ctx.chol_inv.contiguous(), eps,
                         nmin, nmax, model, ctx.structure, n0=blk.n0, c_total=blk.nchains)

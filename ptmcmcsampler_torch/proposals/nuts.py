@@ -81,8 +81,12 @@ def make_nuts(config, model, capture=None):
         ``accu [depth, T, C]`` uniforms; ``draws`` the reservoir's Philox
         key (int64 ``[2]``) or, on the CPU, its uniforms ``[2**depth - 1, T,
         C]``; ``r_eps [T, D, C]`` the step-size search's momenta (read by
-        lanes with ``epsilon <= 0``). Returns ``(q, qxy, ss)``.
+        lanes with ``epsilon <= 0``). Returns ``(q, qxy, ss)``. A batch of no
+        chains (a rank's empty part of a ``per_chain`` slice) launches
+        nothing.
         """
+        if x.shape[2] == 0:
+            return x, x.new_empty((x.shape[0], 0)), ss
         q0 = forward(ctx, x).contiguous()
         blk = block_of(ctx, x)
         eps_state = ss["epsilon"]

@@ -375,6 +375,13 @@ class PTSampler:
         self._aux_jumps = []
         self.state = None
         self.block_stats = None
+        # Host seconds of the drains' and checkpoints' parts in the last
+        # sample(), summed: "to_host" (the rows and counters copied from the
+        # device), "format" and "write" (the chain files' rows), "sidecar"
+        # (the all-chain rows), "cov_jumps" (cov.npy and the jump files),
+        # "wait" (the overlapped loop's wait for a block's host copies), and
+        # save_checkpoint's "checkpoint_*" parts.
+        self.io_seconds = {}
         self.ladder = None
         self._chain_host = []  # cold chain 0 thinned history ([rows, D] blocks)
         # ALL cold chains ([rows, C, D] blocks) — a bounded in-RAM window of
@@ -672,9 +679,10 @@ class PTSampler:
         # reference's rank 0 manages them); the others open them to append,
         # after a barrier.
         keep = self.resume or (self._multi and pid != 0)
+        self.io_seconds = {}
         writer = ChainWriter(
             self.outDir, self.ladder, hot_chain=hotChain,
-            write_hot_chains=writeHotChains, resume=keep,
+            write_hot_chains=writeHotChains, resume=keep, seconds=self.io_seconds,
         )
         writer.init_jump_files(config.jump_names(), resume=keep)
         barrier()
@@ -789,7 +797,9 @@ class PTSampler:
                     snap, out_h, done, it_done = pending
                     pending = None
                     if done is not None:
+                        t0 = time.perf_counter()
                         done.synchronize()
+                        self._timed("wait", t0)
                     drain(snap, out_h, it_done)
                     save(snap, it_done)
 
@@ -865,7 +875,13 @@ class PTSampler:
         return snap, rows, done
 
     def _save_checkpoint(self, path, state, meta):
-        save_checkpoint(path, state, meta=meta, key=self._key_words)
+        save_checkpoint(path, state, meta=meta, key=self._key_words, seconds=self.io_seconds)
+
+    def _timed(self, part, t0):
+        """Add the host seconds since ``t0`` to ``io_seconds[part]``; returns now."""
+        now = time.perf_counter()
+        self.io_seconds[part] = self.io_seconds.get(part, 0.0) + now - t0
+        return now
 
     def _neff_value(self, burn_rows, it):
         """Effective-sample-size estimate for the neff termination check
@@ -958,6 +974,7 @@ class PTSampler:
             return self._drain_block_multi(state, out, it, tstart, Niter, writer, config)
         # Device emission is chain-minor [rows, T, D, C]; host convention
         # stays [rows, T, C, D].
+        t0 = time.perf_counter()
         x = np.moveaxis(out.x.cpu().numpy(), 2, 3)
         lnlike = out.lnlike.cpu().numpy()  # [rows, T], chain 0
         lnprob = out.lnprob.cpu().numpy()  # [rows, T]
@@ -967,6 +984,7 @@ class PTSampler:
         sprop = out.swaps_proposed.cpu().numpy()  # [rows, T]
         ctr = state.counters
         rows = x.shape[0]
+        t0 = self._timed("to_host", t0)
 
         if self._traj_writer is not None and out.traj is not None:
             for r in range(rows):
@@ -1010,6 +1028,7 @@ class PTSampler:
             )
             writer.append_all(ti, x[:, ti, :, :])
 
+        t0 = time.perf_counter()
         writer.write_cov(state.adapt.cov.cpu().numpy())
         w, _ = config.weights_and_activation()
         # Per-jump rates pooled over ALL cold chains (every chain at beta=1
@@ -1019,6 +1038,7 @@ class PTSampler:
             ctr.jump_proposed[:, 0].sum(-1).cpu().numpy(),
             ctr.jump_accepted[:, 0].sum(-1).cpu().numpy(),
         )
+        self._timed("cov_jumps", t0)
 
         if self.verbose:
             self._progress(it, Niter, tstart,

@@ -100,6 +100,43 @@ class Block:
         return self.take(fn(*args, self.shape(dims), generator=rng, device=device, **kwargs),
                          dims)
 
+    def spread(self, a, dims, fill=0.0):
+        """The unsharded array whose block is ``a`` (axes ``dims``), ``fill``
+        elsewhere; ``a`` itself when the block is the whole batch."""
+        if not self.sharded:
+            return a
+        shape = tuple(self.ntemps if d == "T" else self.nchains if d == "C" else n
+                      for d, n in zip(dims, a.shape))
+        out = torch.full(shape, fill, dtype=a.dtype, device=a.device)
+        index = tuple(slice(self.t0, self.t1) if d == "T" else slice(self.c0, self.c1)
+                      if d == "C" else slice(None) for d in dims)
+        out[index] = a
+        return out
+
+    def slice_pieces(self, start, n):
+        """This block's part of a slice of ``n`` chains whose position ``k``
+        holds chain ``(start + k) % nchains`` (a ``per_chain`` rotation
+        slice): ``[(k0, k1), ...]``, the runs of positions whose chains the
+        block holds, ascending. One run, or two where the block's chains
+        hold both ends of the slice but not its middle; none where they hold
+        none of it."""
+        c = self.nchains
+        s, width = (self.c0 - start) % c, self.c1 - self.c0
+        if s + width <= c:  # the positions of the block's chains: [s, s + width)
+            runs = [(s, min(s + width, n))]
+        else:  # they wrap: [0, s + width - c) and [s, c)
+            runs = [(0, min(s + width - c, n)), (s, n)]
+            if runs[0][1] == s:  # the whole batch's chains: one run
+                runs = [(0, n)]
+        return [(k0, k1) for k0, k1 in runs if k0 < k1]
+
+    def piece(self, n, k0, k1):
+        """The block of positions ``[k0, k1)`` of an ``n``-chain slice, on
+        this block's rungs: the sub-batch a ``per_chain`` branch runs on,
+        whose draws are of the slice's unsharded shape ``[T, ..., n]`` and
+        whose kernel counters are ``t * n + k`` (:attr:`n0`, ``nchains``)."""
+        return Block(self.ntemps, n, self.t0, self.t1, k0, k1)
+
 
 def block_of(ctx, x):
     """The block of a proposal context (``ctx.block``), or for a context
